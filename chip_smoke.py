@@ -6,17 +6,21 @@ Run from the root of a checkout: `python3 chip_smoke.py`. In order it
 2. builds every kernel from `conceptattention_torch/csrc` (one nvcc per
    source, started together);
 3. holds each kernel against its plain PyTorch version in bf16 at the main
-   path's shapes (attention per row segment, each against its own scale),
-   shows with planted controls (the plain version with one fault) that each
-   limit sees such a fault, and times kernel, plain version and one library
-   call that computes the same function (the port never calls it);
-4. checks the full-width model against its plain reference path on a small
-   input (DiT blocks: kernel vs SDPA backend, with a control for each limit;
-   VAE decode: card bf16 vs CPU f32);
+   paths' shapes (attention per row segment, each against its own scale;
+   at the CogVideoX shape the plain version runs on a subset of heads of
+   the full-shape launch), shows with planted controls (the plain version
+   with one fault) that each limit sees such a fault, and times kernel,
+   plain version and one library call that computes the same function (the
+   port never calls it);
+4. checks the full-width models against their plain reference paths on a
+   small input (DiT blocks: kernel vs SDPA backend, with a control for each
+   limit; VAE decodes: card vs CPU f32);
 5. runs flux-schnell `generate_image` (1024x1024, 4 steps, 3 concepts,
    random weights from init_seed 0) twice and `encode_image` (1024x1024)
-   twice, with every kernel's launch count set to 0 just before and read
-   just after each run;
+   twice, then CogVideoX-5b `generate_video` (13 latent frames of 60x90,
+   STEPS_VIDEO steps, 3 concepts) cold and warm, once with the head-paired
+   kernel, once with DPM-Solver++, and decodes a short clip; every kernel's
+   launch count is set to 0 just before and read just after each run;
 6. prints one `kernels` JSON line, then the result line.
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -24,6 +28,7 @@ Any failed check raises, so the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -41,6 +46,13 @@ PROMPT = "a photo of a dragon on a rock under the sky"
 CONCEPTS = ["dragon", "rock", "sky"]
 SIZE = 1024
 STEPS = 4
+# CogVideoX-5b's production shape: 13 latent frames of 60x90 (a 49-frame
+# 480x720 clip), 17550 video tokens; the pipeline's 50 steps are cut to
+# STEPS_VIDEO to fit the time limit.
+VIDEO_PROMPT = "a dragon flying over a rocky coast under the sky"
+VIDEO_FRAMES, VIDEO_H, VIDEO_W = 13, 60, 90
+STEPS_VIDEO = 2
+DECODE_FRAMES = 2  # latent frames of the decoded clip, full spatial size
 
 
 def gpu_line() -> str:
@@ -77,6 +89,12 @@ def bound(flops: float, nbytes: float):
 # against 0.0156 with the concept self-attention off).
 DIT_PRED_LIMIT = 2.0**-7
 DIT_SALIENCY_LIMIT = 2.0**-7
+# The video DiT's pred is held by relative RMS, not max: its max |d| is one
+# bf16 step at the largest value (0.0062 of it) for the kernel paths and for
+# a 64-txt-key fault alike. On an H100: kernel paths 0.0028, 64 txt keys
+# dropped 0.0054. Its saliency keeps the max-based limit (kernel paths
+# 0.0055, concept self-attention off 0.085).
+VIDEO_PRED_RMS_LIMIT = 2.0**-8
 Q_SCALE = 3.0  # q at 3x unit scale: scores ~ N(0, 9), a peaked softmax, outputs O(|v|)
 
 
@@ -89,14 +107,18 @@ def limit_of(want: torch.Tensor) -> float:
 
 
 def phase_result(name, kernel_fn, plain_fn, library_fn, flops, nbytes, launches,
-                 segments=None, controls=()):
+                 segments=None, controls=(), select=None, plain_basis=None):
     """Kernel against plain version on each row segment (the sequence axis
     of attention), each against its own scale. Every control is the plain
     version with one planted fault; it must break the limit of the segment
-    it faults, which shows the limit can see such a fault."""
+    it faults, which shows the limit can see such a fault. `select` picks
+    from the kernel's output what the plain version computes (a subset of
+    heads), and `plain_basis` says so in the result."""
     segments = segments or {"all": slice(None)}
     got = kernel_fn()
     torch.cuda.synchronize()
+    if select is not None:
+        got = select(got)
     want = plain_fn()
     checks, ok = {}, True
     for seg, rows in segments.items():
@@ -119,6 +141,8 @@ def phase_result(name, kernel_fn, plain_fn, library_fn, flops, nbytes, launches,
         "library_ms": time_ms(library_fn) if library_fn else None,
         "bound_ms": bound_ms, "bound_by": bound_by, "main_path_launches": launches,
     }
+    if plain_basis:
+        res["plain_basis"] = plain_basis
     print(json.dumps(res), flush=True)
     return res
 
@@ -222,6 +246,95 @@ def flash_phases(cfg, main_double, main_single):
         controls=[("one key tile dropped", "all", lambda want: drop_key_tile(want, vae_args, 64 * 128))],
     ))
     return results
+
+
+def masked_sdpa(q, k, v, mask):
+    """The library yardstick at the video shape: PyTorch's memory-efficient
+    SDPA with the boolean segment mask (forced, so it never materializes the
+    [B, H, S, S] scores)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+
+def video_flash_phases(vcfg, launches_k1, launches_k3, dev="cuda"):
+    """K1 at head dim 64 and K3 at the CogVideoX-5b shape: B = 2 (CFG),
+    48 heads, S = 226 txt + 17550 video + 226 concept slots, RoPE. Each
+    kernel runs on the full shape; the plain version (whose [B, H, S, S]
+    scores would not fit) runs on batch row 1, heads (0, 1) and (46, 47),
+    whole pairs, and is held against the same slice of the kernel's output."""
+    from conceptattention_torch.kernels import flash_saliency as fs
+    from conceptattention_torch.models.video.dit import make_video_ids
+    from conceptattention_torch.ops.rope import embed_nd
+
+    gen = torch.Generator(dev).manual_seed(4)
+    b, h, d = 2, vcfg.num_attention_heads, vcfg.attention_head_dim
+    gh, gw = VIDEO_H // vcfg.patch_size, VIDEO_W // vcfg.patch_size
+    t = c = vcfg.max_text_seq_length
+    p = VIDEO_FRAMES * gh * gw
+    s = t + p + c
+    ids = make_video_ids(VIDEO_FRAMES, gh, gw, b, device=dev)
+    pe, cpe = (embed_nd(torch.cat([torch.zeros(b, n, 3, device=dev), ids], 1),
+                        vcfg.rope_axes_dim, 10_000) for n in (t, c))
+    cos, sin = fs.expand_rope_tables([pe, (cpe[0][:, :, :c], cpe[1][:, :, :c])], s)
+    q = (Q_SCALE * torch.randn(b, h, s, d, generator=gen, device=dev)).bfloat16()
+    k, v = (torch.randn(b, h, s, d, generator=gen, device=dev).bfloat16() for _ in range(2))
+    # Each concept key points along its own query, 4 units long, so the
+    # concept rows' self term competes with the strongest video key.
+    qc = q[:, :, t + p:].float()
+    k[:, :, t + p:] = (4.0 * qc / qc.norm(dim=-1, keepdim=True)).bfloat16()
+    qr, kr = (((x.float() * cos[:, None] + fs._pair_swap(x.float()) * sin[:, None])
+               ).bfloat16() for x in (q, k))  # roped, for the library call
+
+    heads = torch.tensor([0, 1, h - 2, h - 1], device=dev)
+    basis = f"head subset: batch row 1, heads 0, 1, {h - 2}, {h - 1} of {b} x {h}"
+
+    def sub(x):
+        return x[1:2].index_select(1, heads).contiguous()
+
+    def select(out):
+        return out[1:2].index_select(1, heads)
+
+    qs, ks, vs, cs, ss = sub(q), sub(k), sub(v), cos[1:2], sin[1:2]
+    segments = {"joint rows": slice(0, t + p), "concept rows": slice(t + p, s)}
+    results = {"k1": [], "k3": []}
+    for cross, self_attention in [(True, True), (True, False), (False, True), (False, False)]:
+        mask = fs.segment_mask(s, t, p, c, cross, self_attention, dev)
+        n_pairs = mask.sum().item()
+        sub_args = (qs, ks, vs, t, p, c, cross, self_attention, cs, ss)
+        flipped = {
+            "self_attention flipped": (qs, ks, vs, t, p, c, cross, not self_attention, cs, ss),
+            "cross flipped": (qs, ks, vs, t, p, c, not cross, self_attention, cs, ss),
+        }
+        controls = [(label, "concept rows", lambda _, a=a: fs.fused_concept_flash_attention_plain(*a))
+                    for label, a in flipped.items()]
+        if cross and self_attention:
+            controls.append(("one video key tile dropped", "joint rows",
+                             lambda want, a=sub_args: drop_key_tile(want, a, t + 64 * (p // 128))))
+        tag = f"B={b} H={h} D={d} S={s} cross={cross} self={self_attention}"
+        on_path = cross and self_attention
+        common = dict(segments=segments, controls=controls, select=select, plain_basis=basis)
+        cost = (4 * d * n_pairs * h * b, 4 * b * h * s * d * 2 + 2 * b * s * d * 4)
+        library = lambda m=mask: masked_sdpa(qr, kr, v, m)
+        results["k1"].append(phase_result(
+            f"flash_saliency video {tag}",
+            lambda a=(q, k, v, t, p, c, cross, self_attention, cos, sin):
+                fs.fused_concept_flash_attention(*a),
+            lambda a=sub_args: fs.fused_concept_flash_attention_plain(*a),
+            library, *cost, launches_k1 if on_path else 0, **common,
+        ))
+        results["k3"].append(phase_result(
+            f"flash_saliency_paired video {tag}",
+            lambda a=(q, k, v, cos, sin, t, p, c, cross, self_attention):
+                fs.fused_concept_flash_attention_paired(*a),
+            lambda a=(qs, ks, vs, cs, ss, t, p, c, cross, self_attention):
+                fs.fused_concept_flash_attention_paired_plain(*a),
+            library, *cost, launches_k3 if on_path else 0, **common,
+        ))
+        del mask
+        torch.cuda.empty_cache()
+    return results["k1"], results["k3"]
 
 
 def decoder_conv_shapes(ae_cfg, latent: int) -> Counter:
@@ -340,6 +453,166 @@ def reference_checks(pipe):
         raise AssertionError("VAE decode on the card disagrees with the CPU f32 decode")
 
 
+def video_reference_checks(pipe):
+    """Two full-width CogVideoX-5b blocks on a 2-frame clip (226 + 2700 +
+    226 tokens, CFG batch 2): the kernel paths (K1, and K3 with the heads
+    paired) against the plain SDPA path, on pred and on both saliency taps,
+    each limit with a planted control."""
+    from conceptattention_torch.kernels import flash_saliency as fs
+    from conceptattention_torch.models.flux.params import tree_map
+    from conceptattention_torch.models.video.dit import video_dit_forward
+    from conceptattention_torch.ops.attention import ConceptAttentionSpec
+
+    cfg, dev = pipe.cfg, pipe.device
+    small = dataclasses.replace(cfg, num_layers=2)
+    params = dict(pipe.params, blocks=tree_map(lambda x: x[:2], pipe.params["blocks"]))
+    gen = torch.Generator(dev).manual_seed(5)
+    video = torch.randn(2, 2, cfg.in_channels, VIDEO_H, VIDEO_W, generator=gen,
+                        device=dev).to(pipe.dtype)
+    text = torch.cat([pipe._encode_text(""), pipe._encode_text(VIDEO_PROMPT)])
+    concepts = pipe.encode_concepts(CONCEPTS).expand(2, -1, -1)
+    ts = torch.full((2,), 500.0, device=dev)
+    taps = ("output", "cross_attention")
+    runs = {
+        "fused": (ConceptAttentionSpec(taps=taps), text, False),
+        "fused, heads paired": (ConceptAttentionSpec(taps=taps), text, True),
+        "sdpa": (ConceptAttentionSpec(taps=taps, backend="sdpa"), text, False),
+        # Controls, one planted fault away from the sdpa path: the last 64
+        # txt keys dropped, and the concept pass without its self-attention.
+        "control: 64 txt keys dropped": (ConceptAttentionSpec(taps=taps, backend="sdpa"),
+                                         text[:, :-64], False),
+        "control: concept self_attention off": (
+            ConceptAttentionSpec(taps=taps, backend="sdpa", self_attention=False), text, False),
+    }
+    outs = {}
+    for name, (spec, run_text, paired) in runs.items():
+        fs.PAIR_HEADS = paired
+        outs[name] = video_dit_forward(params, small, video, run_text, ts, concepts=concepts,
+                                       spec=spec)
+    fs.PAIR_HEADS = False
+    want_pred, want_sal = outs["sdpa"]
+
+    def rel_err(got, want):
+        return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+    def rel_rms(got, want):
+        d = got.float() - want.float()
+        return (d.pow(2).mean().sqrt() / want.float().pow(2).mean().sqrt()).item()
+
+    readings = {
+        name: (rel_rms(pred, want_pred), max(rel_err(sal[k], want_sal[k]) for k in taps))
+        for name, (pred, sal) in outs.items() if name != "sdpa"
+    }
+    for name, (pred_rms, sal_rel) in readings.items():
+        print(f"reference video DiT (2 full-width CogVideoX-5b blocks, 2x60x90 latents) {name} "
+              f"vs sdpa: rms|d pred|/rms|pred| {pred_rms}, max|d pred|/max|pred| "
+              f"{rel_err(outs[name][0], want_pred)}, saliency max|d|/max {sal_rel}", flush=True)
+    kernel_runs = ("fused", "fused, heads paired")
+    pred_ok = (max(readings[n][0] for n in kernel_runs) <= VIDEO_PRED_RMS_LIMIT
+               < readings["control: 64 txt keys dropped"][0])
+    sal_ok = (max(readings[n][1] for n in kernel_runs) <= DIT_SALIENCY_LIMIT
+              < readings["control: concept self_attention off"][1])
+    print(f"reference video DiT limits: pred rms {VIDEO_PRED_RMS_LIMIT} ok={pred_ok}, "
+          f"saliency {DIT_SALIENCY_LIMIT} ok={sal_ok}", flush=True)
+    if not (pred_ok and sal_ok):
+        raise AssertionError("video DiT kernel paths against the SDPA reference path: a reading "
+                             "or a control is on the wrong side of its limit")
+
+
+def video_decode_checks(pipe, latents):
+    """decode_latents on DECODE_FRAMES latent frames at full spatial size and
+    channel widths, and a small card-vs-CPU f32 decode check."""
+    from conceptattention_torch.models.flux.params import tree_map
+    from conceptattention_torch.models.video import vae as vvae
+    from conceptattention_torch.pipeline.concept_pipeline import _full_f32
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frames = pipe.decode_latents(latents[:, :DECODE_FRAMES])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    # An even latent frame count doubles every frame twice (no first-frame
+    # special case): 2 latent frames give 8.
+    want = (4 * DECODE_FRAMES, 8 * VIDEO_H, 8 * VIDEO_W, 3)
+    if frames.shape != want or frames.dtype != np.uint8:
+        raise AssertionError(f"bad decoded clip {frames.shape} {frames.dtype}, want {want}")
+    print(f"decode_latents {DECODE_FRAMES} latent frames of {VIDEO_H}x{VIDEO_W}: "
+          f"frames {list(frames.shape)}, seconds {seconds:.4f}", flush=True)
+
+    vae_cfg, vae_params = pipe._vae()
+    z = torch.randn(1, vae_cfg.latent_channels, 2, 8, 8,
+                    generator=torch.Generator(pipe.device).manual_seed(6), device=pipe.device)
+    with torch.inference_mode(), _full_f32():
+        got = vvae.decode(vae_params, vae_cfg, z).cpu()
+        cpu_params = tree_map(lambda x: x.cpu(), {"decoder": vae_params["decoder"]})
+        want_px = vvae.decode(cpu_params, vae_cfg, z.cpu())
+    err = (got - want_px).abs()
+    rel = (err.pow(2).mean() / want_px.pow(2).mean()).sqrt().item()
+    print(f"reference video VAE decode (2x8x8 latents, full channel widths): card f32 vs CPU f32: "
+          f"relative RMS err {rel}, max abs err {err.max().item()}", flush=True)
+    if not rel <= 1e-3:  # f32 on both sides: only the summation order differs
+        raise AssertionError("video VAE decode on the card disagrees with the CPU decode")
+    return seconds
+
+
+def video_path(counters):
+    """CogVideoX-5b `generate_video` at 13x60x90: cold and warm with K1,
+    once with the heads paired (K3), once with DPM-Solver++, then the
+    decode. Returns the launches per run and a summary."""
+    from conceptattention_torch import VideoConceptAttentionPipeline
+    from conceptattention_torch.kernels import flash_saliency as fs
+    from conceptattention_torch.models.video.dit import cogvideox_5b_config
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pipe = VideoConceptAttentionPipeline(cogvideox_5b_config(), init_seed=0)
+    torch.cuda.synchronize()
+    print(f"video pipeline init seconds {time.perf_counter() - t0:.3f}", flush=True)
+    video_reference_checks(pipe)
+
+    cfg = pipe.cfg
+    per_run = cfg.num_layers * STEPS_VIDEO
+    print(f"generate_video steps cut from the pipeline's 50 to {STEPS_VIDEO} "
+          f"({per_run} DiT-block attention launches per run)", flush=True)
+    grid = (len(CONCEPTS), VIDEO_FRAMES, VIDEO_H // cfg.patch_size, VIDEO_W // cfg.patch_size)
+    runs = [("ddim cold", False, "ddim"), ("ddim warm", False, "ddim"),
+            ("ddim heads paired", True, "ddim"), ("dpm", False, "dpm")]
+    outs, summary = {}, {}
+    for label, paired, scheduler in runs:
+        fs.PAIR_HEADS = paired
+        out, seconds, launches = counted(lambda: pipe.generate_video(
+            VIDEO_PROMPT, CONCEPTS, num_frames=VIDEO_FRAMES, height=VIDEO_H, width=VIDEO_W,
+            num_inference_steps=STEPS_VIDEO, guidance_scale=6.0, return_cross_attention=True,
+            scheduler=scheduler,
+        ), counters)
+        fs.PAIR_HEADS = False
+        want = [0, per_run] if paired else [per_run, 0]
+        if launches != want:
+            raise AssertionError(f"generate_video {label}: launches [K1, K3] {launches} != {want}")
+        for maps in (out.concept_heatmaps, out.cross_attention_maps):
+            if maps.shape != grid or not np.isfinite(maps).all():
+                raise AssertionError(f"bad video heatmaps {maps.shape}, want {grid}")
+        if not torch.isfinite(out.video_latents).all():
+            raise AssertionError("non-finite video latents")
+        outs[label] = out
+        summary[label] = {"seconds": seconds, "launches [K1, K3]": launches}
+        print(f"generate_video {label}: {VIDEO_FRAMES}x{VIDEO_H}x{VIDEO_W} latents, "
+              f"{STEPS_VIDEO} steps, launches [K1, K3] {launches}, seconds {seconds:.4f}", flush=True)
+    a, b = outs["ddim warm"], outs["ddim heads paired"]
+    paired_vs_k1 = {
+        "concept_heatmaps max abs diff": float(np.abs(a.concept_heatmaps - b.concept_heatmaps).max()),
+        "cross_attention_maps max abs diff": float(
+            np.abs(a.cross_attention_maps - b.cross_attention_maps).max()),
+        "latents max abs diff": (a.video_latents.float() - b.video_latents.float()).abs().max().item(),
+        "heatmap max": float(a.concept_heatmaps.max()),
+    }
+    print(f"generate_video heads paired vs K1: {json.dumps(paired_vs_k1)}", flush=True)
+    summary["decode seconds"] = video_decode_checks(pipe, outs["ddim warm"].video_latents)
+    summary["peak device memory GiB"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"video peak device memory GiB {summary['peak device memory GiB']:.3f}", flush=True)
+    return per_run, summary
+
+
 def counted(run, counters):
     for fn in counters:
         fn.launches = 0
@@ -363,7 +636,11 @@ def main() -> int:
     from conceptattention_torch.config import configs
     from conceptattention_torch.kernels import _build
     from conceptattention_torch.kernels.conv3x3 import conv3x3_same
-    from conceptattention_torch.kernels.flash_saliency import fused_concept_flash_attention
+    from conceptattention_torch.kernels.flash_saliency import (
+        fused_concept_flash_attention,
+        fused_concept_flash_attention_paired,
+    )
+    from conceptattention_torch.models.video.dit import cogvideox_5b_config
 
     t0 = time.perf_counter()
     logs = _build.build(["flash_saliency", "conv3x3"])
@@ -380,7 +657,10 @@ def main() -> int:
     flash = flash_phases(cfg, n_double, n_single)
     conv_counts = decoder_conv_shapes(spec.ae_params, SIZE // 8)
     conv = conv_phases(conv_counts)
-    failed = [r["phase"] for r in flash + conv if not r["ok"]]
+    video_per_run = cogvideox_5b_config().num_layers * STEPS_VIDEO  # one generate_video
+    video_k1, video_k3 = video_flash_phases(cogvideox_5b_config(), video_per_run, video_per_run)
+    torch.cuda.empty_cache()
+    failed = [r["phase"] for r in flash + conv + video_k1 + video_k3 if not r["ok"]]
     if failed:
         raise AssertionError(f"kernel phases outside their limits or with a blind control: {failed}")
 
@@ -426,8 +706,15 @@ def main() -> int:
     print(f"encode_image {SIZE}x{SIZE}: launches {{'flash_saliency': {cfg.depth}}}, "
           f"cold seconds {enc_seconds[0]:.4f}, warm seconds {enc_seconds[1]:.4f}", flush=True)
     print(f"peak device memory GiB {torch.cuda.max_memory_allocated() / 2**30:.3f}", flush=True)
+    del pipe, out
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    def entry(name, source, replaces, launches, phases):
+    per_run, video_summary = video_path(
+        [fused_concept_flash_attention, fused_concept_flash_attention_paired])
+    print(f"generate_video summary {json.dumps(video_summary)}", flush=True)
+
+    def entry(name, source, replaces, launches, phases, per_path):
         on_path = [r for r in phases if r["main_path_launches"]]
         if sum(r["main_path_launches"] for r in on_path) != launches:
             raise AssertionError(f"{name}: per-shape launches do not add up to {launches}")
@@ -445,16 +732,25 @@ def main() -> int:
             "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
             "bound_by": "operations" if 2 * ops_ms >= total("bound_ms") else "bytes",
             "library_ms": total("library_ms"),
-            "ms_basis": "per main path (generate_image + encode_image): sum over shapes of launches x median ms",
+            "launches_per_path": per_path,
+            "ms_basis": "per main paths (one run of each path in launches_per_path): "
+                        "sum over shapes of launches x median ms; kernel and library on the "
+                        "full shape, plain on the head subset at the video shape (plain_basis)",
             "phases": phases,
         }
 
     kernels = [
         entry("flash_saliency", "conceptattention_torch/csrc/flash_saliency.cu",
               "conceptattention_tpu/kernels/flash_saliency.py:305",
-              want_gen[0] + cfg.depth, flash),
+              want_gen[0] + cfg.depth + per_run, flash + video_k1,
+              {"generate_image": want_gen[0], "encode_image": cfg.depth,
+               "generate_video (PAIR_HEADS off)": per_run}),
+        entry("flash_saliency_paired", "conceptattention_torch/csrc/flash_saliency.cu",
+              "conceptattention_tpu/kernels/flash_saliency.py:670", per_run, video_k3,
+              {"generate_video (PAIR_HEADS on)": per_run}),
         entry("conv3x3", "conceptattention_torch/csrc/conv3x3.cu",
-              "conceptattention_tpu/kernels/conv3x3.py:91", want_gen[1], conv),
+              "conceptattention_tpu/kernels/conv3x3.py:91", want_gen[1], conv,
+              {"generate_image": want_gen[1]}),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,9 +13,13 @@ Rows that see nothing (padding, or concepts with both ablations off) come out
 as exact zeros. Interleaved-pair RoPE is applied inside the kernel from the
 expanded tables of `expand_rope_tables`.
 
-`fused_concept_flash_attention` launches `csrc/flash_saliency.cu` for a CUDA
-tensor and runs `fused_concept_flash_attention_plain` for a CPU tensor; it
-never falls back from one to the other. Its `launches` attribute counts the
+`fused_concept_flash_attention` (K1) launches `csrc/flash_saliency.cu` for a
+CUDA tensor and runs `fused_concept_flash_attention_plain` for a CPU tensor;
+it never falls back from one to the other. `fused_concept_flash_attention_paired`
+(K3) is the same function for head dim 64, an even head count and RoPE,
+launched as the kernel's two-heads-per-block instance; `joint_concept_attention_fused`
+takes it for such inputs when `PAIR_HEADS` is set (off by default, as the JAX
+package's `_PAIR_HEADS`). Each wrapper's `launches` attribute counts its
 kernel launches.
 """
 
@@ -32,7 +36,11 @@ from conceptattention_torch.ops.attention import merge_heads
 
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634  # log2(e): the softmax runs in the exp2 domain
-KERNEL_HEAD_DIMS = (32, 128, 512)
+KERNEL_HEAD_DIMS = (32, 64, 128, 512)
+PAIRED_HEAD_DIM = 64
+# Route d=64 attention with an even head count through K3 (the head-paired
+# instance) instead of K1; read at call time.
+PAIR_HEADS = False
 
 
 def _pair_swap(x: torch.Tensor) -> torch.Tensor:
@@ -96,11 +104,11 @@ def fused_concept_flash_attention_plain(
 
 def _library() -> ctypes.CDLL:
     lib = _build.load("flash_saliency")
-    fn = lib.ca_flash_saliency_bf16
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, ctypes.c_float, p]
-        fn.restype = ctypes.c_int
+    for fn in (lib.ca_flash_saliency_bf16, lib.ca_flash_saliency_paired_bf16):
+        if fn.argtypes is None:
+            p, i = ctypes.c_void_p, ctypes.c_int
+            fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, ctypes.c_float, p]
+            fn.restype = ctypes.c_int
     return lib
 
 
@@ -154,11 +162,22 @@ def fused_concept_flash_attention(
             rope_cos, rope_sin,
         )
     _check_inputs(q, k, v, txt_len, img_len, concept_len, rope_cos, rope_sin)
+    out = _launch("ca_flash_saliency_bf16", q, k, v, txt_len, img_len, concept_len,
+                  cross, self_attention, rope_cos, rope_sin)
+    fused_concept_flash_attention.launches += 1
+    return out
+
+
+fused_concept_flash_attention.launches = 0
+
+
+def _launch(entry, q, k, v, txt_len, img_len, concept_len, cross, self_attention,
+            rope_cos, rope_sin):
     b, h, s, d = q.shape
     out = torch.empty_like(v)
     lib = _library()
     with torch.cuda.device(q.device):
-        err = lib.ca_flash_saliency_bf16(
+        err = getattr(lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             rope_cos.data_ptr() if rope_cos is not None else None,
             rope_sin.data_ptr() if rope_sin is not None else None,
@@ -166,12 +185,69 @@ def fused_concept_flash_attention(
             int(cross), int(self_attention), LOG2E / math.sqrt(d),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
-    _build.check(lib, err, "flash_saliency launch")
-    fused_concept_flash_attention.launches += 1
+    _build.check(lib, err, f"{entry} launch")
     return out
 
 
-fused_concept_flash_attention.launches = 0
+def _check_paired_contract(q, rope_cos, rope_sin):
+    """K3's contract beyond K1's: head dim 64, an even head count, RoPE."""
+    if q.dim() != 4 or q.shape[-1] != PAIRED_HEAD_DIM or q.shape[1] % 2:
+        raise ValueError(
+            f"the paired kernel takes [B, H, S, {PAIRED_HEAD_DIM}] with H even, got {tuple(q.shape)}"
+        )
+    if rope_cos is None or rope_sin is None:
+        raise ValueError("the paired kernel needs both RoPE tables")
+
+
+def fused_concept_flash_attention_paired_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    rope_cos: torch.Tensor,
+    rope_sin: torch.Tensor,
+    txt_len: int,
+    img_len: int,
+    concept_len: int,
+    cross: bool = True,
+    self_attention: bool = True,
+) -> torch.Tensor:
+    """K3's function in plain PyTorch: K1's, restricted to its contract (the
+    two heads of a pair are independent attentions over shared positions)."""
+    _check_paired_contract(q, rope_cos, rope_sin)
+    return fused_concept_flash_attention_plain(
+        q, k, v, txt_len, img_len, concept_len, cross, self_attention, rope_cos, rope_sin
+    )
+
+
+def fused_concept_flash_attention_paired(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    rope_cos: torch.Tensor,
+    rope_sin: torch.Tensor,
+    txt_len: int,
+    img_len: int,
+    concept_len: int,
+    cross: bool = True,
+    self_attention: bool = True,
+) -> torch.Tensor:
+    """`fused_concept_flash_attention` for head dim 64, an even head count and
+    RoPE tables, two heads per kernel block (counterpart of the JAX
+    package's `fused_concept_flash_attention_paired`). Returns [B, H, S, 64]
+    with rows that see nothing zero."""
+    if q.device.type == "cpu":
+        return fused_concept_flash_attention_paired_plain(
+            q, k, v, rope_cos, rope_sin, txt_len, img_len, concept_len, cross, self_attention
+        )
+    _check_paired_contract(q, rope_cos, rope_sin)
+    _check_inputs(q, k, v, txt_len, img_len, concept_len, rope_cos, rope_sin)
+    out = _launch("ca_flash_saliency_paired_bf16", q, k, v, txt_len, img_len, concept_len,
+                  cross, self_attention, rope_cos, rope_sin)
+    fused_concept_flash_attention_paired.launches += 1
+    return out
+
+
+fused_concept_flash_attention_paired.launches = 0
 
 
 def expand_rope_tables(
@@ -203,8 +279,9 @@ def joint_concept_attention_fused(
     cross: bool = True, self_attention: bool = True,
 ):
     """`ops.attention.joint_concept_attention` through ONE kernel launch
-    (counterpart of `pallas_joint_concept_attention`). Concepts are appended
-    unpadded; the kernel masks the ragged tail. Returns (txt_attn, img_attn,
+    (counterpart of `pallas_joint_concept_attention`): K3 for head dim 64 with
+    an even head count when `PAIR_HEADS` is set, K1 otherwise. Concepts are
+    appended unpadded; the kernel masks the ragged tail. Returns (txt_attn, img_attn,
     concept_attn, extras) with merged-head [B, L, H*D] outputs and the
     pre-RoPE q/k/v plus head-form outputs in extras."""
     txt_q, txt_k, txt_v = txt_qkv
@@ -221,11 +298,18 @@ def joint_concept_attention_fused(
         segments.append((ccos[:, :, :c_real], csin[:, :, :c_real]))
     q, k, v = (torch.cat([seq[i] for seq in seqs], dim=2) for i in range(3))
     rope_cos, rope_sin = expand_rope_tables(segments, q.shape[2])
-    out = fused_concept_flash_attention(
-        q, k, v, txt_len=t, img_len=p, concept_len=c_real,
-        cross=cross, self_attention=self_attention,
-        rope_cos=rope_cos, rope_sin=rope_sin,
-    )
+    h, d = q.shape[1], q.shape[3]
+    if PAIR_HEADS and d == PAIRED_HEAD_DIM and h % 2 == 0:
+        out = fused_concept_flash_attention_paired(
+            q, k, v, rope_cos, rope_sin, txt_len=t, img_len=p, concept_len=c_real,
+            cross=cross, self_attention=self_attention,
+        )
+    else:
+        out = fused_concept_flash_attention(
+            q, k, v, txt_len=t, img_len=p, concept_len=c_real,
+            cross=cross, self_attention=self_attention,
+            rope_cos=rope_cos, rope_sin=rope_sin,
+        )
     txt_attn = merge_heads(out[:, :, :t])
     img_out_h = out[:, :, t : t + p]
     img_attn = merge_heads(img_out_h)

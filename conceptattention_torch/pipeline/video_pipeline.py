@@ -1,0 +1,267 @@
+"""Video concept-attention pipeline: generate a video and per-frame heatmaps.
+
+Counterpart of the JAX package's `pipeline/video_pipeline.py` (the
+reference's `ModifiedCogVideoXPipeline`):
+
+  - `encode_concepts`: the first T5 token of each concept, zero-padded to
+    `max_text_seq_length` (226) slots; the padding slots are real rows of
+    the concept stream and take part in the concept softmax;
+  - classifier-free guidance doubles the batch, and the concept maps come
+    from the conditional half;
+  - per step, the maps are reduced as soon as the forward returns (layer
+    select, softmax over ALL padded slots, slice to the real concepts, mean
+    over layers), so only `[steps, C, F*P]` is kept across steps; then the
+    selected steps are averaged (with a second softmax on the cross maps).
+
+The pipeline runs on one device, "cuda" unless the caller names another,
+and never falls back to the CPU. The DiT runs in `dtype` (bf16 by default)
+and the VAE in f32; f32 matmuls and convolutions run in full f32 for the
+duration of `generate_video` and `decode_latents`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from conceptattention_torch.models.text.encoders import StubTextEncoders, TextEncoders
+from conceptattention_torch.models.video import vae as vvae
+from conceptattention_torch.models.video.dit import (
+    CogVideoXConfig,
+    init_video_dit_params,
+    video_dit_forward,
+)
+from conceptattention_torch.ops.attention import ConceptAttentionSpec
+from conceptattention_torch.pipeline.concept_pipeline import _full_f32
+from conceptattention_torch.sampling.ddim import DDIMSchedule, ddim_step, make_ddim_schedule
+from conceptattention_torch.sampling.dpm import dpm_init, dpm_step
+
+SCHEDULERS = ("ddim", "dpm")  # "dpm" is DPM-Solver++ 2M
+_VAE_INIT_SEED = 7
+
+
+@dataclasses.dataclass
+class VideoConceptPipelineOutput:
+    video_latents: torch.Tensor  # [B, F, C, H, W]
+    concept_heatmaps: np.ndarray  # [concepts, frames, h, w]
+    cross_attention_maps: Optional[np.ndarray] = None
+    video_frames: Optional[np.ndarray] = None  # uint8 [F_pix, H_pix, W_pix, 3]
+
+
+def _reduce_step_maps(maps: torch.Tensor, layer_indices, n_concepts: int) -> torch.Tensor:
+    """[L, B, C_pad, P] -> [C, P]: the conditional batch half (the last
+    row), the selected layers, a softmax over ALL padded concept slots, the
+    real concepts, the mean over layers."""
+    sel = maps[:, -1][torch.as_tensor(list(layer_indices), device=maps.device)]
+    return torch.softmax(sel, dim=-2)[:, :n_concepts].mean(dim=0)
+
+
+def _cfg_denoise(
+    params, cfg, latents, text_cond, text_uncond,
+    concepts, timesteps_idx, sched_alphas, final_alpha,
+    guidance_scale, spec, num_train_timesteps, scheduler,
+    layer_indices, n_concepts,
+):
+    """The CFG sampling loop: one DiT forward on the [uncond; cond] batch per
+    step, a DDIM or DPM-Solver++ 2M update, and the step's reduced maps.
+    Returns (latents, {tap: [steps, C, P] f32})."""
+    if scheduler not in SCHEDULERS:
+        raise ValueError(f"scheduler must be one of {SCHEDULERS}, got {scheduler!r}")
+    sched = DDIMSchedule(timesteps=timesteps_idx, alphas_cumprod=sched_alphas,
+                         final_alpha_cumprod=final_alpha)
+    text = torch.cat([text_uncond, text_cond], dim=0)
+    concepts2 = torch.cat([concepts, concepts], dim=0)
+    b = latents.shape[0]
+    step_gap = num_train_timesteps // len(timesteps_idx)
+
+    def guided_pred(x, t):
+        t_vec = torch.full((2 * b,), float(t), dtype=torch.float32, device=x.device)
+        pred, saliency = video_dit_forward(
+            params, cfg, torch.cat([x, x], dim=0), text, t_vec, concepts=concepts2, spec=spec,
+        )
+        uncond, cond = pred.chunk(2, dim=0)
+        reduced = {k: _reduce_step_maps(v, layer_indices, n_concepts) for k, v in saliency.items()}
+        return uncond + guidance_scale * (cond - uncond), reduced
+
+    per_step = []
+    state = dpm_init(latents) if scheduler == "dpm" else None
+    for t in (int(t) for t in timesteps_idx):
+        if state is not None:
+            guided, reduced = guided_pred(state.sample, t)
+            state = dpm_step(sched, state, guided, t, t - step_gap)
+        else:
+            guided, reduced = guided_pred(latents, t)
+            latents = ddim_step(sched, guided, t, t - step_gap, latents)
+        per_step.append(reduced)
+    if state is not None:
+        latents = state.sample
+    return latents, {k: torch.stack([s[k] for s in per_step]) for k in per_step[0]}
+
+
+class VideoConceptAttentionPipeline:
+    """Generate video latents with per-frame concept saliency heatmaps."""
+
+    def __init__(
+        self,
+        cfg: Optional[CogVideoXConfig] = None,
+        params: Optional[Dict[str, Any]] = None,
+        text_encoders: Optional[TextEncoders] = None,
+        dtype: torch.dtype = torch.bfloat16,
+        init_seed: int = 0,
+        vae_params: Optional[Dict[str, Any]] = None,
+        vae_cfg: Optional[vvae.CogVideoXVAEConfig] = None,
+        quantize=False,
+        lora: Optional[Any] = None,
+        lora_strength=1.0,
+        device: Optional[Union[str, torch.device]] = None,
+    ):
+        if quantize:
+            raise NotImplementedError("quantized video weights are not ported yet")
+        if lora is not None:
+            raise NotImplementedError("LoRA adapters for the video DiT are not ported yet")
+        self.device = torch.device("cuda" if device is None else device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "VideoConceptAttentionPipeline runs on a CUDA device by default and "
+                "none is available; pass device='cpu' to run on the CPU"
+            )
+        self.cfg = cfg or CogVideoXConfig()
+        self.dtype = dtype
+        self.params = params if params is not None else init_video_dit_params(
+            torch.Generator(self.device).manual_seed(init_seed), self.cfg, dtype
+        )
+        self.text_encoders = text_encoders or StubTextEncoders(
+            t5_dim=self.cfg.text_embed_dim, clip_dim=768,
+            t5_max_length=self.cfg.max_text_seq_length,
+        )
+        # The VAE (diffusers AutoencoderKLCogVideoX layout) is made at first
+        # decode from a fixed seed unless parameters are passed in.
+        self.vae_cfg = vae_cfg
+        self.vae_params = vae_params
+
+    def _vae(self):
+        if self.vae_cfg is None:
+            self.vae_cfg = vvae.CogVideoXVAEConfig(latent_channels=self.cfg.in_channels)
+        if self.vae_params is None:
+            self.vae_params = vvae.init_video_vae_params(
+                torch.Generator(self.device).manual_seed(_VAE_INIT_SEED), self.vae_cfg
+            )
+        return self.vae_cfg, self.vae_params
+
+    @torch.inference_mode()
+    @_full_f32()
+    def decode_latents(self, latents: torch.Tensor) -> np.ndarray:
+        """[B, F, C, h, w] DiT latents -> uint8 frames [F', h*8, w*8, 3] of
+        the first clip through the 3D causal VAE in f32 (odd F gives
+        F' = 1 + (F-1)*4, the first latent frame decoding to one frame)."""
+        vae_cfg, vae_params = self._vae()
+        z = latents.to(self.device, torch.float32).transpose(1, 2)
+        pixels = vvae.decode(vae_params, vae_cfg, z)
+        x = torch.clamp(pixels[0], -1.0, 1.0)
+        return ((x + 1.0) * 127.5).permute(1, 2, 3, 0).cpu().numpy().astype(np.uint8)
+
+    def encode_concepts(self, concepts: List[str], seq_length: Optional[int] = None):
+        """First T5 token per concept, zero-padded to seq_length -> [1, seq_length, D]."""
+        seq_length = seq_length or self.cfg.max_text_seq_length
+        if len(concepts) > seq_length:
+            raise ValueError(
+                f"{len(concepts)} concepts exceed max_text_seq_length={seq_length} "
+                "(the concept stream shares the text slots)"
+            )
+        emb = torch.stack([self.text_encoders.encode_t5([c])[0, 0] for c in concepts])[None]
+        emb = emb.to(self.device, self.dtype)
+        pad = torch.zeros((1, seq_length - len(concepts), emb.shape[-1]), dtype=self.dtype,
+                          device=self.device)
+        return torch.cat([emb, pad], dim=1)
+
+    def _encode_text(self, prompt: str) -> torch.Tensor:
+        emb = self.text_encoders.encode_t5([prompt]).to(self.device, self.dtype)
+        t = self.cfg.max_text_seq_length
+        if emb.shape[1] < t:
+            pad = torch.zeros((emb.shape[0], t - emb.shape[1], emb.shape[-1]), dtype=self.dtype,
+                              device=self.device)
+            emb = torch.cat([emb, pad], dim=1)
+        return emb[:, :t]
+
+    def _check_indices(self, layer_indices, concept_timesteps, num_inference_steps):
+        """Tensor indexing would wrap -1 to the last entry; refuse instead,
+        as the JAX package does (before the loop, not after it)."""
+        n_layers = self.cfg.num_layers
+        bad = [int(i) for i in layer_indices if not 0 <= int(i) < n_layers]
+        if bad:
+            raise ValueError(f"layer_indices {bad} out of range for {n_layers} layers")
+        if concept_timesteps is not None:
+            bad = [int(t) for t in concept_timesteps if not 0 <= int(t) < num_inference_steps]
+            if bad:
+                raise ValueError(
+                    f"concept_timesteps {bad} out of range for {num_inference_steps} inference steps"
+                )
+
+    @torch.inference_mode()
+    @_full_f32()
+    def generate_video(
+        self,
+        prompt: str,
+        concepts: List[str],
+        negative_prompt: str = "",
+        num_frames: int = 4,
+        height: int = 32,
+        width: int = 32,
+        num_inference_steps: int = 10,
+        guidance_scale: float = 6.0,
+        concept_timesteps: Optional[Sequence[int]] = None,
+        layer_indices: Optional[Sequence[int]] = None,
+        return_cross_attention: bool = False,
+        scheduler: str = "ddim",
+        seed: int = 0,
+        decode: bool = False,
+    ) -> VideoConceptPipelineOutput:
+        """CFG DDIM / DPM-Solver++ 2M sampling; returns the latents and
+        [C, F, h, w] maps. height/width are LATENT sizes (before patchify)."""
+        cfg = self.cfg
+        if height % cfg.patch_size or width % cfg.patch_size:
+            raise ValueError(
+                f"latent height/width ({height}x{width}) must be divisible by "
+                f"patch_size={cfg.patch_size}"
+            )
+        if layer_indices is None:
+            layer_indices = list(range(cfg.num_layers))
+        self._check_indices(layer_indices, concept_timesteps, num_inference_steps)
+
+        text_cond = self._encode_text(prompt)
+        text_uncond = self._encode_text(negative_prompt)
+        concepts_emb = self.encode_concepts(concepts)
+        f, h, w = num_frames, height, width
+        latents = torch.randn(
+            (1, f, cfg.in_channels, h, w), generator=torch.Generator(self.device).manual_seed(seed),
+            device=self.device, dtype=torch.float32,
+        ).to(self.dtype)
+
+        taps = ("output", "cross_attention") if return_cross_attention else ("output",)
+        sched = make_ddim_schedule(num_inference_steps)
+        latents, saliency = _cfg_denoise(
+            self.params, cfg, latents, text_cond, text_uncond, concepts_emb,
+            sched.timesteps, sched.alphas_cumprod.to(self.device), sched.final_alpha_cumprod,
+            guidance_scale, ConceptAttentionSpec(taps=taps), 1000, scheduler,
+            tuple(layer_indices), len(concepts),
+        )
+
+        gh, gw = h // cfg.patch_size, w // cfg.patch_size
+
+        def finalize(maps, extra_softmax):  # maps: [S, C, F*P], reduced per step
+            if concept_timesteps is not None:
+                maps = maps[torch.as_tensor(list(concept_timesteps), device=maps.device)]
+            if extra_softmax:  # the reference re-softmaxes the sliced cross maps
+                maps = torch.softmax(maps, dim=-2)
+            return maps.mean(dim=0).reshape(len(concepts), f, gh, gw).float().cpu().numpy()
+
+        return VideoConceptPipelineOutput(
+            video_latents=latents,
+            concept_heatmaps=finalize(saliency["output"], extra_softmax=False),
+            cross_attention_maps=(finalize(saliency["cross_attention"], extra_softmax=True)
+                                  if return_cross_attention else None),
+            video_frames=self.decode_latents(latents) if decode else None,
+        )

@@ -1,8 +1,9 @@
 """Parameter trees from the JAX package, handed over as numpy arrays.
 
 The JAX package's parameter pytrees (nested dicts and lists; linear weights
-[in, out], fused qkv [D, 3, H, head_dim], depth-stacked layers, OIHW conv
-weights) share the port's layout, so conversion is leaf by leaf. The caller
+[in, out], fused qkv [D, 3, H, head_dim] for flux and [D, 3*H*head_dim] for
+CogVideoX, depth-stacked layers, OIHW and OIDHW conv weights) share the
+port's layout, so conversion is leaf by leaf. The caller
 does the `jax -> numpy` step (`jax.tree.map(np.asarray, tree)`); this module
 never sees a JAX object.
 """
@@ -32,6 +33,7 @@ def params_from_numpy(tree, device="cpu", dtype: Optional[torch.dtype] = None):
     return tree_map(lambda a: _to_tensor(a, device, dtype), tree)
 
 
-# The DiT's and the VAE's trees convert the same way.
+# The DiT's and the VAE's trees convert the same way (the video trees, with
+# blocks stacked by depth as in JAX, go through `params_from_numpy` too).
 flux_params_from_numpy = params_from_numpy
 ae_params_from_numpy = params_from_numpy

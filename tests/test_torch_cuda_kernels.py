@@ -46,6 +46,8 @@ def rope_tables(gen, b, s, d, dev):
         (2, 3, 200, 128, 40, 150, 5, True, False, True),  # per-row tables
         (1, 2, 200, 128, 40, 150, 5, False, True, True),
         (1, 2, 200, 128, 40, 150, 5, False, False, True),  # concept rows see nothing
+        (2, 4, 300, 64, 26, 200, 26, True, True, True),  # CogVideoX head dim, ragged tail
+        (1, 2, 190, 64, 26, 150, 10, False, True, True),
         (1, 2, 130, 128, 130, 0, 0, True, True, False),  # no tables, ragged tail
         (1, 1, 1000, 512, 1000, 0, 0, True, True, False),  # VAE mid-attention class
     ],
@@ -64,6 +66,44 @@ def test_flash_kernel_matches_plain(dev, b, h, s, d, t, p, c, cross, self_attent
     assert (got.float() - want.float()).abs().max().item() <= bf16_limit(want)
     seen_by_nothing = t + p + (c if (cross or self_attention) else 0)
     assert torch.count_nonzero(got[:, :, seen_by_nothing:]).item() == 0
+
+
+@pytest.mark.parametrize("cross,self_attention", [(True, True), (True, False), (False, True),
+                                                  (False, False)])
+def test_paired_kernel_matches_plain(dev, cross, self_attention):
+    """K3 at head dim 64 on 4 heads (two pairs, per-row tables), a ragged
+    tail and pad rows, against its plain version and against K1."""
+    b, h, s, d, t, p, c = 2, 4, 300, 64, 26, 200, 26
+    gen = torch.Generator(dev).manual_seed(3)
+    q, k, v = (torch.randn(b, h, s, d, generator=gen, device=dev).bfloat16() for _ in range(3))
+    cos, sin = rope_tables(gen, b, s, d, dev)
+    before = (fs.fused_concept_flash_attention_paired.launches,
+              fs.fused_concept_flash_attention.launches)
+    got = fs.fused_concept_flash_attention_paired(q, k, v, cos, sin, t, p, c, cross, self_attention)
+    torch.cuda.synchronize()
+    assert (fs.fused_concept_flash_attention_paired.launches,
+            fs.fused_concept_flash_attention.launches) == (before[0] + 1, before[1])
+    want = fs.fused_concept_flash_attention_paired_plain(
+        q, k, v, cos, sin, t, p, c, cross, self_attention)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert (got.float() - want.float()).abs().max().item() <= bf16_limit(want)
+    single = fs.fused_concept_flash_attention(q, k, v, t, p, c, cross, self_attention, cos, sin)
+    assert (got.float() - single.float()).abs().max().item() <= bf16_limit(want)
+    seen_by_nothing = t + p + (c if (cross or self_attention) else 0)
+    assert torch.count_nonzero(got[:, :, seen_by_nothing:]).item() == 0
+
+
+@pytest.mark.parametrize("case", ["odd_heads", "head_dim", "no_tables"])
+def test_paired_kernel_refuses_bad_inputs(dev, case):
+    h, d = (3, 64) if case == "odd_heads" else (2, 128) if case == "head_dim" else (2, 64)
+    q = torch.zeros(1, h, 64, d, device=dev, dtype=torch.bfloat16)
+    cos = sin = torch.ones(1, 64, d, device=dev)
+    if case == "no_tables":
+        cos = sin = None
+    before = fs.fused_concept_flash_attention_paired.launches
+    with pytest.raises(ValueError):
+        fs.fused_concept_flash_attention_paired(q, q, q, cos, sin, 64, 0, 0)
+    assert fs.fused_concept_flash_attention_paired.launches == before
 
 
 def test_flash_kernel_refuses_bad_inputs(dev):
