@@ -7,6 +7,8 @@ Run from the root of a checkout: `python3 chip_smoke.py`. In order it
    source, started together);
 3. holds each kernel against its plain PyTorch version in bf16 at the main
    paths' shapes (attention per row segment, each against its own scale;
+   K1b, the int8-score attention, also against K1 and its pre-pass against
+   the plain quantizer;
    at the CogVideoX shape the plain version runs on a subset of heads of
    the full-shape launch), shows with planted controls (the plain version
    with one fault) that each limit sees such a fault, and times kernel,
@@ -17,10 +19,15 @@ Run from the root of a checkout: `python3 chip_smoke.py`. In order it
    limit; VAE decodes: card vs CPU f32);
 5. runs flux-schnell `generate_image` (1024x1024, 4 steps, 3 concepts,
    random weights from init_seed 0) twice and `encode_image` (1024x1024)
-   twice, then CogVideoX-5b `generate_video` (13 latent frames of 60x90,
+   twice; the int8 serving path on the same weights quantized to w8a8 with
+   int8 scores (K1b): `generate_image` against the bf16 heatmaps,
+   `generate_images` of two prompts cold and warm, `encode_image`; one
+   `generate_image` each with random already-quantized w8 and w4 weights;
+   then CogVideoX-5b `generate_video` (13 latent frames of 60x90,
    STEPS_VIDEO steps, 3 concepts) cold and warm, once with the head-paired
-   kernel, once with DPM-Solver++, and decodes a short clip; every kernel's
-   launch count is set to 0 just before and read just after each run;
+   kernel, once with DPM-Solver++, decodes a short clip, and runs once with
+   its blocks quantized to w8a8; every kernel's launch count is set to 0
+   just before and read just after each run;
 6. prints one `kernels` JSON line, then the result line.
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -41,6 +48,7 @@ import torch
 import torch.nn.functional as F
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
+PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core rate
 PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3 rate
 PROMPT = "a photo of a dragon on a rock under the sky"
 CONCEPTS = ["dragon", "rock", "sky"]
@@ -78,8 +86,11 @@ def time_ms(fn, reps: int = 7) -> float:
     return statistics.median(times)
 
 
-def bound(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+def bound(flops: float, nbytes: float, int8_ops: float = 0.0):
+    """The least time for bf16 `flops` plus `int8_ops` at the tensor cores'
+    peaks, or for `nbytes` at the HBM rate, whichever is larger."""
+    t_ops = (flops / PEAK_BF16_FLOPS + int8_ops / PEAK_INT8_OPS) * 1e3
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -107,13 +118,15 @@ def limit_of(want: torch.Tensor) -> float:
 
 
 def phase_result(name, kernel_fn, plain_fn, library_fn, flops, nbytes, launches,
-                 segments=None, controls=(), select=None, plain_basis=None):
+                 segments=None, controls=(), select=None, plain_basis=None, int8_ops=0.0,
+                 extra=None):
     """Kernel against plain version on each row segment (the sequence axis
     of attention), each against its own scale. Every control is the plain
     version with one planted fault; it must break the limit of the segment
     it faults, which shows the limit can see such a fault. `select` picks
     from the kernel's output what the plain version computes (a subset of
-    heads), and `plain_basis` says so in the result."""
+    heads), and `plain_basis` says so in the result. `extra(got)` returns
+    readings of the kernel's output to add, with an "ok" of their own."""
     segments = segments or {"all": slice(None)}
     got = kernel_fn()
     torch.cuda.synchronize()
@@ -131,8 +144,10 @@ def phase_result(name, kernel_fn, plain_fn, library_fn, flops, nbytes, launches,
         err = (control_fn(want)[:, :, rows].float() - want[:, :, rows].float()).abs().max().item()
         checks[f"control: {label}"] = {"max_abs_err": err, "limit": checks[seg]["limit"]}
         ok = ok and err > checks[seg]["limit"]
+    readings = extra(got) if extra else {}
+    ok = ok and readings.pop("ok", True)
     sound = [c for k, c in checks.items() if not k.startswith("control")]
-    bound_ms, bound_by = bound(flops, nbytes)
+    bound_ms, bound_by = bound(flops, nbytes, int8_ops)
     res = {
         "phase": name, "ok": ok, "max_abs_err": max(c["max_abs_err"] for c in sound),
         "err_over_limit": max(c["max_abs_err"] / max(c["limit"], 1e-30) for c in sound),
@@ -140,6 +155,7 @@ def phase_result(name, kernel_fn, plain_fn, library_fn, flops, nbytes, launches,
         "kernel_ms": time_ms(kernel_fn), "plain_ms": time_ms(plain_fn),
         "library_ms": time_ms(library_fn) if library_fn else None,
         "bound_ms": bound_ms, "bound_by": bound_by, "main_path_launches": launches,
+        **readings,
     }
     if plain_basis:
         res["plain_basis"] = plain_basis
@@ -147,10 +163,11 @@ def phase_result(name, kernel_fn, plain_fn, library_fn, flops, nbytes, launches,
     return res
 
 
-def drop_key_tile(want, args, start):
+def drop_key_tile(want, args, start, **kw):
     """The plain attention with the 64 keys [start, start + 64) taken out of
     the txt|img segment (what a kernel that skips one key tile computes), on
-    every other row; the dropped rows keep the sound output."""
+    every other row; the dropped rows keep the sound output. `kw` goes to
+    the plain version (`int8_qk`)."""
     from conceptattention_torch.kernels.flash_saliency import fused_concept_flash_attention_plain
 
     q, k, v, t, p, c, *rest = args
@@ -159,11 +176,11 @@ def drop_key_tile(want, args, start):
     rest = [x[:, keep] if torch.is_tensor(x) else x for x in rest]  # [B, S, D] tables
     out = want.clone()
     out[:, :, keep] = fused_concept_flash_attention_plain(
-        q[:, :, keep], k[:, :, keep], v[:, :, keep], t, p, c, *rest)
+        q[:, :, keep], k[:, :, keep], v[:, :, keep], t, p, c, *rest, **kw)
     return out
 
 
-def flash_phases(cfg, main_double, main_single):
+def flash_phases(cfg, main_double, main_single, main_vae):
     from conceptattention_torch.kernels import flash_saliency as fs
     from conceptattention_torch.ops.packing import make_img_ids
     from conceptattention_torch.ops.rope import apply_rope, embed_nd
@@ -242,9 +259,130 @@ def flash_phases(cfg, main_double, main_single):
         lambda: fs.fused_concept_flash_attention(*vae_args),
         lambda: fs.fused_concept_flash_attention_plain(*vae_args),
         lambda: F.scaled_dot_product_attention(q, k, v),
-        4 * d * s * s, 4 * s * d * 2, 1,
+        4 * d * s * s, 4 * s * d * 2, main_vae,
         controls=[("one key tile dropped", "all", lambda want: drop_key_tile(want, vae_args, 64 * 128))],
     ))
+    return results
+
+
+def swapped_key_halves(args):
+    """The plain int8 attention with each 32-channel step of the int8 key
+    rows read with its two 16-byte halves swapped: what a kernel that loads
+    the s8 B fragment from the wrong `ldmatrix` rows computes (scores from
+    mismatched channels, not noise)."""
+    from conceptattention_torch.kernels import flash_saliency as fs
+
+    quantize = fs.quantize_qk_rows_plain
+
+    def swapped(*a):
+        q8, qs, k8, ks = quantize(*a)
+        perm = torch.arange(k8.shape[-1], device=k8.device).view(-1, 2, 16).flip(1).reshape(-1)
+        return q8, qs, k8[..., perm], ks
+
+    fs.quantize_qk_rows_plain = swapped
+    try:
+        return fs.fused_concept_flash_attention_plain(*args, int8_qk=True)
+    finally:
+        fs.quantize_qk_rows_plain = quantize
+
+
+def int8_flash_phases(cfg, launches):
+    """K1b (`int8_qk=True`) at the flux shapes, against its plain version:
+    the double block (S = 256 txt + 4096 img + 3 concepts, RoPE) in all four
+    ablations at batch 1 and on the path's (T,T) at batch 2, the single block
+    (S = 4352) at batch 1 and 2. `launches` maps "double", "double b2",
+    "single" and "single b2" to the main paths' launches. Each phase also
+    reads K1 (exact scores) at the same shape: its time, K1b's max |d|
+    against its output (a reading with no limit), and the count of int8
+    values where the pre-pass and the plain quantizer differ (must be 0).
+    No PyTorch call computes int8 scores, so there is no library time."""
+    from conceptattention_torch.kernels import flash_saliency as fs
+    from conceptattention_torch.ops.packing import make_img_ids
+    from conceptattention_torch.ops.rope import embed_nd
+
+    dev = "cuda"
+    gen = torch.Generator(dev).manual_seed(7)
+    h, d = cfg.num_heads, cfg.head_dim
+    t, grid = 256, SIZE // 16
+    p, c = grid * grid, len(CONCEPTS)
+
+    def inputs(b, s, concepts):
+        img_ids = make_img_ids(grid, grid, b, device=dev)
+        pe = embed_nd(torch.cat([torch.zeros(b, t, 3, device=dev), img_ids], 1), cfg.axes_dim,
+                      cfg.theta)
+        segments = [pe]
+        if concepts:
+            cpe = embed_nd(torch.cat([torch.zeros(b, c, 3, device=dev), img_ids], 1),
+                           cfg.axes_dim, cfg.theta)
+            segments.append((cpe[0][:, :, :c], cpe[1][:, :, :c]))
+        q, k, v = (torch.randn(b, h, s, d, generator=gen, device=dev) for _ in range(3))
+        q, k, v = (Q_SCALE * q).bfloat16(), k.bfloat16(), v.bfloat16()
+        if concepts:  # concept keys along their own queries, as in `flash_phases`
+            qc = q[:, :, t + p:].float()
+            k[:, :, t + p:] = (4.0 * qc / qc.norm(dim=-1, keepdim=True)).bfloat16()
+        return (q, k, v, *fs.expand_rope_tables(segments, s))
+
+    def readings(args):
+        def extra(got):
+            exact = fs.fused_concept_flash_attention(*args)
+            ours = fs.quantize_qk_rows_cuda(args[0], args[1], *args[-2:])
+            plain = fs.quantize_qk_rows_plain(args[0], args[1], *args[-2:])
+            diffs = sum(int((a != b).sum()) for a, b in ((ours[0], plain[0]), (ours[2], plain[2])))
+            return {"k1_ms": time_ms(lambda: fs.fused_concept_flash_attention(*args)),
+                    "k1b_vs_k1_max_abs": (got.float() - exact.float()).abs().max().item(),
+                    "prepass_int8_diffs": diffs, "ok": diffs == 0}
+        return extra
+
+    def cost(b, s, n_pairs):
+        # int8 Q.K^T and bf16 P.V over the unmasked pairs; q, k, v and the
+        # output in bf16, the tables in f32
+        return dict(flops=2 * d * n_pairs * h * b, int8_ops=2 * d * n_pairs * h * b,
+                    nbytes=4 * b * h * s * d * 2 + 2 * b * s * d * 4)
+
+    results = []
+    s = t + p + c
+    segments = {"joint rows": slice(0, t + p), "concept rows": slice(t + p, s)}
+    for b in (1, 2):
+        q, k, v, cos, sin = inputs(b, s, True)
+        ablations = [(True, True), (True, False), (False, True), (False, False)] if b == 1 else [
+            (True, True)]
+        for cross, self_attention in ablations:
+            args = (q, k, v, t, p, c, cross, self_attention, cos, sin)
+            n_pairs = fs.segment_mask(s, t, p, c, cross, self_attention, dev).sum().item()
+            controls = [("self_attention flipped", "concept rows",
+                         lambda _, a=(q, k, v, t, p, c, cross, not self_attention, cos, sin):
+                         fs.fused_concept_flash_attention_plain(*a, int8_qk=True))]
+            if cross and self_attention:
+                controls.append(("one img key tile dropped", "joint rows",
+                                 lambda want, a=args: drop_key_tile(want, a, t + 64 * 32,
+                                                                    int8_qk=True)))
+            if cross and self_attention and b == 1:
+                controls.append(("key halves swapped in each 32-channel step", "joint rows",
+                                 lambda _, a=args: swapped_key_halves(a)))
+            on_path = cross and self_attention
+            results.append(phase_result(
+                f"flash_saliency_int8 double_block B={b} S={s} cross={cross} self={self_attention}",
+                lambda a=args: fs.fused_concept_flash_attention(*a, int8_qk=True),
+                lambda a=args: fs.fused_concept_flash_attention_plain(*a, int8_qk=True),
+                None, launches=launches["double" if b == 1 else "double b2"] if on_path else 0,
+                segments=segments, controls=controls, extra=readings(args),
+                **cost(b, s, n_pairs),
+            ))
+        del q, k, v, cos, sin
+    s = t + p
+    for b in (1, 2):
+        q, k, v, cos, sin = inputs(b, s, False)
+        args = (q, k, v, s, 0, 0, True, True, cos, sin)
+        results.append(phase_result(
+            f"flash_saliency_int8 single_block B={b} S={s}",
+            lambda a=args: fs.fused_concept_flash_attention(*a, int8_qk=True),
+            lambda a=args: fs.fused_concept_flash_attention_plain(*a, int8_qk=True),
+            None, launches=launches["single" if b == 1 else "single b2"],
+            controls=[("one key tile dropped", "all",
+                       lambda want, a=args: drop_key_tile(want, a, t + 64 * 32, int8_qk=True))],
+            extra=readings(args), **cost(b, s, s * s),
+        ))
+    torch.cuda.empty_cache()
     return results
 
 
@@ -355,7 +493,7 @@ def decoder_conv_shapes(ae_cfg, latent: int) -> Counter:
     return Counter(s for s in shapes if s[1] % 128 == 0 and s[2] % 128 == 0 and s[0] % 8 == 0)
 
 
-def conv_phases(conv_counts: Counter):
+def conv_phases(conv_counts: Counter, decodes: int):
     from conceptattention_torch.kernels.conv3x3 import conv3x3_same, conv3x3_same_plain
 
     gen = torch.Generator("cuda").manual_seed(2)
@@ -375,7 +513,7 @@ def conv_phases(conv_counts: Counter):
             lambda: conv3x3_same(x, w, b, swish), lambda: conv3x3_same_plain(x, w, b, swish),
             library, 2 * res * res * cout * 9 * cin,
             2 * (res * res * (cin + cout) + 9 * cin * cout + cout),
-            0 if swish else conv_counts[(res, cin, cout)],
+            0 if swish else decodes * conv_counts[(res, cin, cout)],
             controls=[("one K tile dropped", "all",
                        lambda _, wd=w_drop: conv3x3_same_plain(x, wd, b, swish))],
         ))
@@ -558,7 +696,7 @@ def video_decode_checks(pipe, latents):
 def video_path(counters):
     """CogVideoX-5b `generate_video` at 13x60x90: cold and warm with K1,
     once with the heads paired (K3), once with DPM-Solver++, then the
-    decode. Returns the launches per run and a summary."""
+    decode. Returns a summary of each run."""
     from conceptattention_torch import VideoConceptAttentionPipeline
     from conceptattention_torch.kernels import flash_saliency as fs
     from conceptattention_torch.models.video.dit import cogvideox_5b_config
@@ -610,7 +748,146 @@ def video_path(counters):
     summary["decode seconds"] = video_decode_checks(pipe, outs["ddim warm"].video_latents)
     summary["peak device memory GiB"] = torch.cuda.max_memory_allocated() / 2**30
     print(f"video peak device memory GiB {summary['peak device memory GiB']:.3f}", flush=True)
-    return per_run, summary
+    return summary
+
+
+def check_image_output(out, label):
+    grid = SIZE // 16
+    for maps in (out.concept_heatmaps, out.cross_attention_maps):
+        if maps.shape != (len(CONCEPTS), grid, grid) or not np.isfinite(maps).all():
+            raise AssertionError(f"{label}: bad heatmaps {maps.shape}")
+    if out.image is not None and (out.image.shape != (SIZE, SIZE, 3) or out.image.dtype != np.uint8):
+        raise AssertionError(f"{label}: bad image {out.image.shape} {out.image.dtype}")
+
+
+def heatmap_agreement(got, want):
+    """Per concept: max |d| over the bf16 run's largest value, and the IoU
+    of the two maps thresholded at their own means."""
+    rel, iou = [], []
+    for g, w in zip(got, want):
+        rel.append(float(np.abs(g - w).max() / np.abs(w).max()))
+        mg, mw = g > g.mean(), w > w.mean()
+        iou.append(float((mg & mw).sum() / max((mg | mw).sum(), 1)))
+    return {"relative max abs diff": rel, "IoU at the mean": iou}
+
+
+def quantized_flux_path(pipe, bf16_out, counters, conv_per_decode):
+    """w8a8 + int8_qk from the bf16 pipeline's own weights (the layer stacks
+    quantized by `quantize_flux_params`, the VAE shared): `generate_image`
+    against the bf16 run's heatmaps, `generate_images` of two prompts
+    (seeds 0 and 1) cold and warm, and `encode_image`. Counters are
+    [K1, K1b, K2]. Returns {path: (launches, seconds)}."""
+    from conceptattention_torch import ConceptAttentionFluxPipeline
+    from conceptattention_torch.ops.quant import quantize_flux_params
+
+    cfg = pipe.cfg
+    per_image = STEPS * (cfg.depth + cfg.depth_single_blocks)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qparams = quantize_flux_params(pipe.params, mode="w8a8")
+    torch.cuda.synchronize()
+    print(f"quantize_flux_params w8a8 seconds {time.perf_counter() - t0:.3f}", flush=True)
+    qpipe = ConceptAttentionFluxPipeline("flux-schnell", params=qparams, ae_params=pipe.ae_params,
+                                         int8_qk=True)
+    gen_kw = dict(width=SIZE, height=SIZE, num_inference_steps=STEPS, return_pil_heatmaps=False,
+                  return_image_array=True)
+    paths = {}
+
+    def run(label, fn, want):
+        out, seconds, launches = counted(fn, counters)
+        if launches != want:
+            raise AssertionError(f"{label}: launches [K1, K1b, K2] {launches} != {want}")
+        for o in out if isinstance(out, list) else [out]:
+            check_image_output(o, label)
+        print(f"{label}: launches [K1, K1b, K2] {launches}, seconds {seconds:.4f}", flush=True)
+        paths[label] = (launches, seconds)
+        return out
+
+    one = run("generate_image (w8a8, int8_qk, same weights)",
+              lambda: qpipe.generate_image(PROMPT, CONCEPTS, **gen_kw), [1, per_image, conv_per_decode])
+    agreement = {tap: heatmap_agreement(getattr(one, tap), getattr(bf16_out, tap))
+                 for tap in ("concept_heatmaps", "cross_attention_maps")}  # a reading, no limit
+    print(f"w8a8 + int8_qk against bf16, same weights, prompt and seed: {json.dumps(agreement)}",
+          flush=True)
+    for label in ("cold", "warm"):
+        outs = run(f"generate_images (w8a8, int8_qk, batch 2) {label}",
+                   lambda: qpipe.generate_images([PROMPT] * 2, CONCEPTS, seeds=[0, 1], **gen_kw),
+                   [2, per_image, 2 * conv_per_decode])
+    seed0 = {"concept_heatmaps max abs diff": float(np.abs(
+        outs[0].concept_heatmaps - one.concept_heatmaps).max())}
+    print(f"generate_images seed 0 against generate_image seed 0: {json.dumps(seed0)}", flush=True)
+    image = np.random.default_rng(0).integers(0, 256, (SIZE, SIZE, 3), dtype=np.uint8)
+    enc = run("encode_image (int8_qk)", lambda: qpipe.encode_image(
+        image, CONCEPTS, width=SIZE, height=SIZE, return_pil_heatmaps=False), [0, cfg.depth, 0])
+    del enc
+    return paths
+
+
+def random_quantized_paths(counters, conv_per_decode):
+    """flux-schnell with random already-quantized weights (`quantize="w8"`
+    and `"w4"`): init, then one `generate_image`. Counters are [K1, K1b, K2]."""
+    from conceptattention_torch import ConceptAttentionFluxPipeline
+
+    paths = {}
+    for mode in ("w8", "w4"):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        pipe = ConceptAttentionFluxPipeline("flux-schnell", quantize=mode, init_seed=0)
+        torch.cuda.synchronize()
+        init_seconds = time.perf_counter() - t0
+        cfg = pipe.cfg
+        want = [STEPS * (cfg.depth + cfg.depth_single_blocks) + 1, 0, conv_per_decode]
+        out, seconds, launches = counted(lambda: pipe.generate_image(
+            PROMPT, CONCEPTS, width=SIZE, height=SIZE, num_inference_steps=STEPS,
+            return_pil_heatmaps=False, return_image_array=True), counters)
+        if launches != want:
+            raise AssertionError(f"generate_image ({mode}): launches {launches} != {want}")
+        check_image_output(out, f"generate_image ({mode})")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"generate_image ({mode}, random quantized init) {SIZE}x{SIZE} {STEPS} steps: "
+              f"launches [K1, K1b, K2] {launches}, init seconds {init_seconds:.3f}, "
+              f"seconds {seconds:.4f}, peak device memory GiB {peak:.3f}", flush=True)
+        paths[f"generate_image ({mode})"] = (launches, seconds)
+        del pipe, out
+        gc.collect()
+        torch.cuda.empty_cache()
+    return paths
+
+
+def quantized_video_path(counters):
+    """CogVideoX-5b with its blocks quantized to w8a8: one `generate_video`
+    at 13x60x90, STEPS_VIDEO DDIM steps. Counters are [K1, K3]. Returns the
+    run's K1 launches."""
+    from conceptattention_torch import VideoConceptAttentionPipeline
+    from conceptattention_torch.models.video.dit import cogvideox_5b_config
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pipe = VideoConceptAttentionPipeline(cogvideox_5b_config(), init_seed=0, quantize="w8a8")
+    torch.cuda.synchronize()
+    init_seconds = time.perf_counter() - t0
+    cfg = pipe.cfg
+    per_run = cfg.num_layers * STEPS_VIDEO
+    out, seconds, launches = counted(lambda: pipe.generate_video(
+        VIDEO_PROMPT, CONCEPTS, num_frames=VIDEO_FRAMES, height=VIDEO_H, width=VIDEO_W,
+        num_inference_steps=STEPS_VIDEO, guidance_scale=6.0, return_cross_attention=True,
+    ), counters)
+    if launches != [per_run, 0]:
+        raise AssertionError(f"generate_video (w8a8): launches [K1, K3] {launches} != {[per_run, 0]}")
+    grid = (len(CONCEPTS), VIDEO_FRAMES, VIDEO_H // cfg.patch_size, VIDEO_W // cfg.patch_size)
+    for maps in (out.concept_heatmaps, out.cross_attention_maps):
+        if maps.shape != grid or not np.isfinite(maps).all():
+            raise AssertionError(f"bad w8a8 video heatmaps {maps.shape}, want {grid}")
+    if not torch.isfinite(out.video_latents).all():
+        raise AssertionError("non-finite w8a8 video latents")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"generate_video (w8a8) {VIDEO_FRAMES}x{VIDEO_H}x{VIDEO_W}, {STEPS_VIDEO} steps: "
+          f"launches [K1, K3] {launches}, init seconds {init_seconds:.3f}, seconds {seconds:.4f}, "
+          f"peak device memory GiB {peak:.3f}", flush=True)
+    del pipe, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches[0]
 
 
 def counted(run, counters):
@@ -638,12 +915,13 @@ def main() -> int:
     from conceptattention_torch.kernels.conv3x3 import conv3x3_same
     from conceptattention_torch.kernels.flash_saliency import (
         fused_concept_flash_attention,
+        fused_concept_flash_attention_int8,
         fused_concept_flash_attention_paired,
     )
     from conceptattention_torch.models.video.dit import cogvideox_5b_config
 
     t0 = time.perf_counter()
-    logs = _build.build(["flash_saliency", "conv3x3"])
+    logs = _build.build(["flash_saliency", "flash_saliency_int8", "conv3x3"])
     print(f"build seconds {time.perf_counter() - t0:.3f}", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
@@ -652,15 +930,26 @@ def main() -> int:
 
     spec = configs["flux-schnell"]
     cfg = spec.params
-    n_double = STEPS * cfg.depth + cfg.depth  # generate + encode
-    n_single = STEPS * cfg.depth_single_blocks
-    flash = flash_phases(cfg, n_double, n_single)
+    # Exact-score K1 runs at batch 1 in generate_image (bf16, w8, w4: three
+    # runs) and encode_image (bf16); the decodes (K1 at D=512 and K2) run
+    # once per image: bf16, w8a8 + int8_qk, two of generate_images, w8, w4.
+    n_double = 3 * STEPS * cfg.depth + cfg.depth
+    n_single = 3 * STEPS * cfg.depth_single_blocks
+    decodes = 6
+    flash = flash_phases(cfg, n_double, n_single, decodes)
+    # K1b: generate_image (batch 1) and generate_images (batch 2) with w8a8
+    # + int8_qk, and encode_image with int8_qk.
+    int8 = int8_flash_phases(cfg, {
+        "double": STEPS * cfg.depth + cfg.depth, "double b2": STEPS * cfg.depth,
+        "single": STEPS * cfg.depth_single_blocks, "single b2": STEPS * cfg.depth_single_blocks})
     conv_counts = decoder_conv_shapes(spec.ae_params, SIZE // 8)
-    conv = conv_phases(conv_counts)
+    conv = conv_phases(conv_counts, decodes)
     video_per_run = cogvideox_5b_config().num_layers * STEPS_VIDEO  # one generate_video
-    video_k1, video_k3 = video_flash_phases(cogvideox_5b_config(), video_per_run, video_per_run)
+    # K1 in generate_video (bf16, PAIR_HEADS off) and in the w8a8 run
+    video_k1, video_k3 = video_flash_phases(cogvideox_5b_config(), 2 * video_per_run,
+                                            video_per_run)
     torch.cuda.empty_cache()
-    failed = [r["phase"] for r in flash + conv + video_k1 + video_k3 if not r["ok"]]
+    failed = [r["phase"] for r in flash + int8 + conv + video_k1 + video_k3 if not r["ok"]]
     if failed:
         raise AssertionError(f"kernel phases outside their limits or with a blind control: {failed}")
 
@@ -688,6 +977,7 @@ def main() -> int:
                 raise AssertionError(f"bad heatmaps {maps.shape}")
         if out.image.shape != (SIZE, SIZE, 3) or out.image.dtype != np.uint8:
             raise AssertionError(f"bad image {out.image.shape} {out.image.dtype}")
+    bf16_out = out
     print(f"generate_image {SIZE}x{SIZE} {STEPS} steps: launches {dict(zip(['flash_saliency', 'conv3x3'], want_gen))}, "
           f"cold seconds {gen_seconds[0]:.4f}, warm seconds {gen_seconds[1]:.4f}", flush=True)
 
@@ -706,13 +996,21 @@ def main() -> int:
     print(f"encode_image {SIZE}x{SIZE}: launches {{'flash_saliency': {cfg.depth}}}, "
           f"cold seconds {enc_seconds[0]:.4f}, warm seconds {enc_seconds[1]:.4f}", flush=True)
     print(f"peak device memory GiB {torch.cuda.max_memory_allocated() / 2**30:.3f}", flush=True)
-    del pipe, out
+    int8_counters = [fused_concept_flash_attention, fused_concept_flash_attention_int8, conv3x3_same]
+    quant_paths = quantized_flux_path(pipe, bf16_out, int8_counters, want_gen[1])
+    del pipe, out, bf16_out
     gc.collect()
     torch.cuda.empty_cache()
+    quant_paths.update(random_quantized_paths(int8_counters, want_gen[1]))
+    # one run of each path: the warm generate_images stands for it
+    quant_paths = {k.replace(" warm", ""): v[0] for k, v in quant_paths.items() if "cold" not in k}
 
-    per_run, video_summary = video_path(
-        [fused_concept_flash_attention, fused_concept_flash_attention_paired])
+    video_counters = [fused_concept_flash_attention, fused_concept_flash_attention_paired]
+    video_summary = video_path(video_counters)
     print(f"generate_video summary {json.dumps(video_summary)}", flush=True)
+    video_k1_w8a8 = quantized_video_path(video_counters)
+    video_k1_bf16 = video_summary["ddim warm"]["launches [K1, K3]"][0]
+    video_k3_paired = video_summary["ddim heads paired"]["launches [K1, K3]"][1]
 
     def entry(name, source, replaces, launches, phases, per_path):
         on_path = [r for r in phases if r["main_path_launches"]]
@@ -739,18 +1037,28 @@ def main() -> int:
             "phases": phases,
         }
 
+    def per_path(i, base):
+        """{path: launches} of counter i over the base paths and the quantized ones."""
+        out = dict(base, **{k: v[i] for k, v in quant_paths.items() if v[i]})
+        return out, sum(out.values())
+
+    k1_paths, k1_total = per_path(0, {
+        "generate_image": want_gen[0], "encode_image": cfg.depth,
+        "generate_video (PAIR_HEADS off)": video_k1_bf16, "generate_video (w8a8)": video_k1_w8a8})
+    k1b_paths, k1b_total = per_path(1, {})
+    k2_paths, k2_total = per_path(2, {"generate_image": want_gen[1]})
     kernels = [
         entry("flash_saliency", "conceptattention_torch/csrc/flash_saliency.cu",
-              "conceptattention_tpu/kernels/flash_saliency.py:305",
-              want_gen[0] + cfg.depth + per_run, flash + video_k1,
-              {"generate_image": want_gen[0], "encode_image": cfg.depth,
-               "generate_video (PAIR_HEADS off)": per_run}),
+              "conceptattention_tpu/kernels/flash_saliency.py:305", k1_total, flash + video_k1,
+              k1_paths),
         entry("flash_saliency_paired", "conceptattention_torch/csrc/flash_saliency.cu",
-              "conceptattention_tpu/kernels/flash_saliency.py:670", per_run, video_k3,
-              {"generate_video (PAIR_HEADS on)": per_run}),
+              "conceptattention_tpu/kernels/flash_saliency.py:670", video_k3_paired, video_k3,
+              {"generate_video (PAIR_HEADS on)": video_k3_paired}),
         entry("conv3x3", "conceptattention_torch/csrc/conv3x3.cu",
-              "conceptattention_tpu/kernels/conv3x3.py:91", want_gen[1], conv,
-              {"generate_image": want_gen[1]}),
+              "conceptattention_tpu/kernels/conv3x3.py:91", k2_total, conv, k2_paths),
+        entry("flash_saliency_int8", "conceptattention_torch/csrc/flash_saliency_int8.cu",
+              "conceptattention_tpu/kernels/flash_saliency.py:305 (int8_qk)", k1b_total, int8,
+              k1b_paths),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

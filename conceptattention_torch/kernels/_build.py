@@ -2,10 +2,11 @@
 
 Each `csrc/<name>.cu` is compiled on first use into
 `<checkout>/build/torch_kernels/lib<name>-<hash>.so` (the hash covers the
-source and the flags, so an edited source rebuilds) and exposes a plain C
-interface: pointers and the stream are passed as `c_void_p`, every entry
-point returns a `cudaError_t`. Nothing here runs at import time, so the CPU
-tests import the kernel modules where no `nvcc` exists.
+source, the shared `csrc/*.cuh` headers and the flags, so an edit rebuilds)
+and exposes a plain C interface: pointers and the stream are passed as
+`c_void_p`, every entry point returns a `cudaError_t`. Nothing here runs at
+import time, so the CPU tests import the kernel modules where no `nvcc`
+exists.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))  # shared headers
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -19,8 +19,11 @@ it never falls back from one to the other. `fused_concept_flash_attention_paired
 (K3) is the same function for head dim 64, an even head count and RoPE,
 launched as the kernel's two-heads-per-block instance; `joint_concept_attention_fused`
 takes it for such inputs when `PAIR_HEADS` is set (off by default, as the JAX
-package's `_PAIR_HEADS`). Each wrapper's `launches` attribute counts its
-kernel launches.
+package's `_PAIR_HEADS`). `fused_concept_flash_attention_int8` (K1b, what
+`int8_qk=True` selects) is the same function with per-row int8 q and k and
+int8 x int8 -> int32 scores, launched as `csrc/flash_saliency_int8.cu`'s
+pre-pass and main kernel; it never takes K3. Each wrapper's `launches`
+attribute counts its calls that launch its kernels.
 """
 
 from __future__ import annotations
@@ -33,10 +36,12 @@ import torch
 
 from conceptattention_torch.kernels import _build
 from conceptattention_torch.ops.attention import merge_heads
+from conceptattention_torch.ops.quant import INV127
 
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634  # log2(e): the softmax runs in the exp2 domain
 KERNEL_HEAD_DIMS = (32, 64, 128, 512)
+INT8_HEAD_DIMS = (32, 64, 128)  # K1b's instances; the VAE's D=512 never takes int8
 PAIRED_HEAD_DIM = 64
 # Route d=64 attention with an even head count through K3 (the head-paired
 # instance) instead of K1; read at call time.
@@ -66,6 +71,32 @@ def segment_mask(
     return allowed | ((qi >= joint_end) & (qi < concept_end) & concept_keys)
 
 
+def _quantize_rows_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric int8 of f32 rows: s = max|x| * f32(1/127) (what XLA
+    makes of the JAX kernel's `max|x| / 127`), x8 = round_half_even(x /
+    max(s, 1e-9)). Returns (x8, s[..., S]); s is the unguarded scale, so a
+    zero row scores 0."""
+    s = x.abs().amax(dim=-1, keepdim=True) * INV127
+    x8 = torch.round(x / torch.clamp(s, min=1e-9)).to(torch.int8)
+    return x8, s[..., 0]
+
+
+def quantize_qk_rows_plain(q, k, rope_cos=None, rope_sin=None):
+    """K1b's pre-pass in plain PyTorch: (q8, qs, k8, ks), int8 [B, H, S, D]
+    rows and f32 [B, H, S] scales. With tables, q is roped and pre-scaled by
+    log2(e)/sqrt(D) in f32 and quantized from f32; k is roped, rounded to
+    k's dtype, and quantized. Without tables both are quantized as given."""
+    qf, kf = q.float(), k.float()
+    if rope_cos is not None:
+        scale = LOG2E / math.sqrt(q.shape[-1])
+        cos, sin = rope_cos[:, None], rope_sin[:, None]  # [B, 1, S, D]
+        qf = (qf * cos + _pair_swap(qf) * sin) * scale
+        kf = (kf * cos + _pair_swap(kf) * sin).to(k.dtype).float()
+    q8, qs = _quantize_rows_plain(qf)
+    k8, ks = _quantize_rows_plain(kf)
+    return q8, qs, k8, ks
+
+
 def fused_concept_flash_attention_plain(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -77,13 +108,24 @@ def fused_concept_flash_attention_plain(
     self_attention: bool = True,
     rope_cos: Optional[torch.Tensor] = None,
     rope_sin: Optional[torch.Tensor] = None,
+    int8_qk: bool = False,
 ) -> torch.Tensor:
     """The kernel's function in plain PyTorch, with the same rounding points:
     roped q pre-scaled in f32 and rounded to q's dtype, roped k rounded,
-    f32 scores, exp2 softmax, P rounded to v's dtype, f32 P.V."""
+    f32 scores, exp2 softmax, P rounded to v's dtype, f32 P.V. With
+    `int8_qk` (K1b) the scores are int8 x int8 sums of the pre-pass's rows
+    times their row scales (and log2(e)/sqrt(D) without tables); the integer
+    sums are exact in an f32 product, whose partial sums stay below 2^24
+    for D <= 512."""
     d = q.shape[-1]
     scale = LOG2E / math.sqrt(d)
-    if rope_cos is not None:
+    if int8_qk:
+        q8, qs, k8, ks = quantize_qk_rows_plain(q, k, rope_cos, rope_sin)
+        s32 = q8.float() @ k8.float().transpose(-1, -2)
+        scores = s32 * (qs[..., :, None] * ks[..., None, :])
+        if rope_cos is None:
+            scores = scores * scale
+    elif rope_cos is not None:
         cos, sin = rope_cos[:, None], rope_sin[:, None]  # [B, 1, S, D]
         qf, kf = q.float(), k.float()
         q = ((qf * cos + _pair_swap(qf) * sin) * scale).to(q.dtype)
@@ -148,14 +190,19 @@ def fused_concept_flash_attention(
     self_attention: bool = True,
     rope_cos: Optional[torch.Tensor] = None,
     rope_sin: Optional[torch.Tensor] = None,
+    int8_qk: bool = False,
 ) -> torch.Tensor:
     """Fused dual-pass attention over S = [txt | img | concept | pad].
 
     q/k/v: [B, H, S, D], unroped when tables are given. concept_len is the
     number of REAL concept rows; rows past txt+img+concept are padding and
     come out as zeros. rope_cos/rope_sin: optional expanded [B, S, D] f32
-    tables. Returns [B, H, S, D] in v's dtype.
+    tables. `int8_qk` takes K1b (`fused_concept_flash_attention_int8`).
+    Returns [B, H, S, D] in v's dtype.
     """
+    if int8_qk:
+        return fused_concept_flash_attention_int8(
+            q, k, v, txt_len, img_len, concept_len, cross, self_attention, rope_cos, rope_sin)
     if q.device.type == "cpu":
         return fused_concept_flash_attention_plain(
             q, k, v, txt_len, img_len, concept_len, cross, self_attention,
@@ -187,6 +234,80 @@ def _launch(entry, q, k, v, txt_len, img_len, concept_len, cross, self_attention
         )
     _build.check(lib, err, f"{entry} launch")
     return out
+
+
+def _int8_library() -> ctypes.CDLL:
+    lib = _build.load("flash_saliency_int8")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    if lib.ca_flash_saliency_int8.argtypes is None:
+        lib.ca_flash_saliency_int8_prepass.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, f, p]
+        lib.ca_flash_saliency_int8.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, f, p]
+        lib.ca_flash_saliency_int8_prepass.restype = lib.ca_flash_saliency_int8.restype = i
+    return lib
+
+
+def quantize_qk_rows_cuda(q, k, rope_cos=None, rope_sin=None):
+    """K1b's pre-pass kernel on the card: `quantize_qk_rows_plain`'s
+    (q8, qs, k8, ks) for inputs that passed `_check_inputs`."""
+    b, h, s, d = q.shape
+    q8 = torch.empty(q.shape, dtype=torch.int8, device=q.device)
+    k8 = torch.empty_like(q8)
+    qs = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    ks = torch.empty_like(qs)
+    lib = _int8_library()
+    with torch.cuda.device(q.device):
+        err = lib.ca_flash_saliency_int8_prepass(
+            q.data_ptr(), k.data_ptr(),
+            rope_cos.data_ptr() if rope_cos is not None else None,
+            rope_sin.data_ptr() if rope_sin is not None else None,
+            q8.data_ptr(), k8.data_ptr(), qs.data_ptr(), ks.data_ptr(), b, h, s, d,
+            LOG2E / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _build.check(lib, err, "ca_flash_saliency_int8_prepass launch")
+    return q8, qs, k8, ks
+
+
+def fused_concept_flash_attention_int8(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    txt_len: int,
+    img_len: int,
+    concept_len: int,
+    cross: bool = True,
+    self_attention: bool = True,
+    rope_cos: Optional[torch.Tensor] = None,
+    rope_sin: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """K1b: `fused_concept_flash_attention` with per-row int8 q and k and
+    int8 x int8 -> int32 scores (the JAX kernel's `int8_qk=True`). On the
+    card, the pre-pass kernel quantizes every row once, then the main kernel
+    runs the masked online softmax; head dims 32, 64 and 128."""
+    if q.device.type == "cpu":
+        return fused_concept_flash_attention_plain(
+            q, k, v, txt_len, img_len, concept_len, cross, self_attention,
+            rope_cos, rope_sin, int8_qk=True,
+        )
+    _check_inputs(q, k, v, txt_len, img_len, concept_len, rope_cos, rope_sin)
+    b, h, s, d = q.shape
+    if d not in INT8_HEAD_DIMS:
+        raise ValueError(f"the int8 kernel supports head dims {INT8_HEAD_DIMS}, got {d}")
+    q8, qs, k8, ks = quantize_qk_rows_cuda(q, k, rope_cos, rope_sin)
+    out = torch.empty_like(v)
+    lib = _int8_library()
+    with torch.cuda.device(q.device):
+        err = lib.ca_flash_saliency_int8(
+            q8.data_ptr(), k8.data_ptr(), qs.data_ptr(), ks.data_ptr(), v.data_ptr(),
+            out.data_ptr(), b, h, s, d, txt_len, img_len, concept_len, int(cross),
+            int(self_attention), 1.0 if rope_cos is not None else LOG2E / math.sqrt(d),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _build.check(lib, err, "ca_flash_saliency_int8 launch")
+    fused_concept_flash_attention_int8.launches += 1
+    return out
+
+
+fused_concept_flash_attention_int8.launches = 0
 
 
 def _check_paired_contract(q, rope_cos, rope_sin):
@@ -276,11 +397,12 @@ def expand_rope_tables(
 
 def joint_concept_attention_fused(
     txt_qkv, img_qkv, concept_qkv, pe, concept_pe,
-    cross: bool = True, self_attention: bool = True,
+    cross: bool = True, self_attention: bool = True, int8_qk: bool = False,
 ):
-    """`ops.attention.joint_concept_attention` through ONE kernel launch
-    (counterpart of `pallas_joint_concept_attention`): K3 for head dim 64 with
-    an even head count when `PAIR_HEADS` is set, K1 otherwise. Concepts are
+    """`ops.attention.joint_concept_attention` through ONE kernel call
+    (counterpart of `pallas_joint_concept_attention`): K1b with `int8_qk`,
+    else K3 for head dim 64 with an even head count when `PAIR_HEADS` is
+    set, else K1. Concepts are
     appended unpadded; the kernel masks the ragged tail. Returns (txt_attn, img_attn,
     concept_attn, extras) with merged-head [B, L, H*D] outputs and the
     pre-RoPE q/k/v plus head-form outputs in extras."""
@@ -299,7 +421,7 @@ def joint_concept_attention_fused(
     q, k, v = (torch.cat([seq[i] for seq in seqs], dim=2) for i in range(3))
     rope_cos, rope_sin = expand_rope_tables(segments, q.shape[2])
     h, d = q.shape[1], q.shape[3]
-    if PAIR_HEADS and d == PAIRED_HEAD_DIM and h % 2 == 0:
+    if PAIR_HEADS and d == PAIRED_HEAD_DIM and h % 2 == 0 and not int8_qk:
         out = fused_concept_flash_attention_paired(
             q, k, v, rope_cos, rope_sin, txt_len=t, img_len=p, concept_len=c_real,
             cross=cross, self_attention=self_attention,
@@ -308,7 +430,7 @@ def joint_concept_attention_fused(
         out = fused_concept_flash_attention(
             q, k, v, txt_len=t, img_len=p, concept_len=c_real,
             cross=cross, self_attention=self_attention,
-            rope_cos=rope_cos, rope_sin=rope_sin,
+            rope_cos=rope_cos, rope_sin=rope_sin, int8_qk=int8_qk,
         )
     txt_attn = merge_heads(out[:, :, :t])
     img_out_h = out[:, :, t : t + p]

@@ -1,7 +1,9 @@
 """Flux DiT block bodies as plain functions on tensors.
 
-Counterpart of the JAX package's `models/flux/blocks.py` (unquantized, no
-tensor parallelism). The concept stream is an optional input of the double
+Counterpart of the JAX package's `models/flux/blocks.py` (no tensor
+parallelism). Linear weights are dense or quantized cells of `ops/quant.py`:
+w8 and w4 weights are expanded to the activation dtype for the product, w8a8
+runs an exact int8 x int8 -> int32 product. The concept stream is an optional input of the double
 block: concepts reuse the txt weights with their own modulation vector,
 concept queries attend over [concept; img] keys with their own softmax
 denominator, concepts get their own residual and MLP update, and the image
@@ -28,22 +30,55 @@ from conceptattention_torch.ops.attention import (
     similarity_map_heads,
 )
 from conceptattention_torch.ops.norms import layer_norm, modulation, rms_norm
+from conceptattention_torch.ops.quant import (
+    dequantize_w4,
+    int8_matmul,
+    quantize_activations_per_token,
+)
 from conceptattention_torch.ops.rope import apply_rope
 
 
-def _linear(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
-    y = x @ p["w"]
+def _int8_product(x: torch.Tensor, qa: torch.Tensor) -> torch.Tensor:
+    """x @ qa for an int8 weight [D, out...] with x quantized per token:
+    (int32 product * token scale) rounded to x's dtype, [..., prod(out)]."""
+    xq, xs = quantize_activations_per_token(x)
+    y32 = int8_matmul(xq, qa.reshape(qa.shape[0], -1))
+    return (y32.float() * xs).to(x.dtype)
+
+
+def _linear(x: torch.Tensor, p: Dict[str, Any]) -> torch.Tensor:
+    """x @ w + b with w dense or a quantized cell: {"qa", "scale"} (w8a8,
+    both scales fold into the output), {"q4p", "gscale"} (w4, dequantized)
+    or {"q", "scale"} (w8, the scale folds into the output)."""
+    w = p["w"]
+    if isinstance(w, dict) and "qa" in w:
+        y = _int8_product(x, w["qa"]) * w["scale"][0]
+    elif isinstance(w, dict) and "q4p" in w:
+        y = x @ dequantize_w4(w, x.dtype)
+    elif isinstance(w, dict):
+        y = (x @ w["q"].to(x.dtype)) * w["scale"][0]
+    else:
+        y = x @ w
     if "b" in p:
         y = y + p["b"]
     return y
 
 
 def _qkv_heads(x_mod, qkv_p, qnorm, knorm, num_heads: int):
-    """Fused [D, 3, H, head_dim] projection -> QK-normalized per-head
-    (q, k, v), each [B, H, L, head_dim]."""
+    """Fused [D, 3, H, head_dim] projection (dense or quantized) ->
+    QK-normalized per-head (q, k, v), each [B, H, L, head_dim]. Quantized
+    products are rounded to the activation dtype before the weight scale."""
     w = qkv_p["w"]
-    d = w.shape[0]
-    qkv = x_mod @ w.reshape(d, -1)
+    if isinstance(w, dict) and "qa" in w:
+        qkv = _int8_product(x_mod, w["qa"]) * w["scale"][0].reshape(-1)
+    elif isinstance(w, dict) and "q4p" in w:
+        wd = dequantize_w4(w, x_mod.dtype)
+        qkv = x_mod @ wd.reshape(wd.shape[0], -1)
+    elif isinstance(w, dict):
+        q = w["q"]
+        qkv = (x_mod @ q.reshape(q.shape[0], -1).to(x_mod.dtype)) * w["scale"][0].reshape(-1)
+    else:
+        qkv = x_mod @ w.reshape(w.shape[0], -1)
     if "b" in qkv_p:
         qkv = qkv + qkv_p["b"].reshape(-1)
     b, l, _ = qkv.shape
@@ -131,10 +166,14 @@ def single_block(
     num_heads: int,
     mlp_hidden_dim: int,
     backend: str = "fused",
+    int8_qk: bool = False,
 ) -> torch.Tensor:
     """Single-stream block (parallel attention + MLP). backend "fused" runs
     the self-attention through one flash-saliency kernel launch with RoPE in
-    the kernel; "sdpa" is the plain reference path."""
+    the kernel (int8 q/k scores with `int8_qk`); "sdpa" is the plain
+    reference path, which has no int8 scores."""
+    if int8_qk and backend != "fused":
+        raise ValueError(f"int8_qk requires the fused attention backend, got {backend!r}")
     mod, _ = modulation(vec, p["mod"]["w"], p["mod"]["b"], double=False)
     x_mod = (1 + mod.scale) * layer_norm(x) + mod.shift
     q, k, v = _qkv_heads(x_mod, p["qkv"], p["qnorm"], p["knorm"], num_heads)
@@ -145,6 +184,7 @@ def single_block(
         out = fused_concept_flash_attention(
             q.contiguous(), k.contiguous(), v.contiguous(),
             txt_len=l, img_len=0, concept_len=0, rope_cos=rope_cos, rope_sin=rope_sin,
+            int8_qk=int8_qk,
         )
         attn = merge_heads(out)
     elif backend == "sdpa":

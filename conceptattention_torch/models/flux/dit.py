@@ -91,7 +91,7 @@ def flux_forward(
     for i in range(cfg.depth_single_blocks):
         x = single_block(
             layer(params["single"], i), x, vec, pe, cfg.num_heads, cfg.mlp_hidden_dim,
-            backend=spec.backend,
+            backend=spec.backend, int8_qk=spec.int8_qk,
         )
     pred = last_layer(params["final"], x[:, t_len:], vec)
     return pred, saliency

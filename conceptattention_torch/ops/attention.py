@@ -33,6 +33,9 @@ class ConceptAttentionSpec:
     taps: Tuple[str, ...] = ("output", "cross_attention")
     # "fused" (one flash-saliency kernel launch) or "sdpa" (two plain SDPAs).
     backend: str = "fused"
+    # Per-row int8 q and k with int8 x int8 -> int32 scores (the fused
+    # backend's K1b); no other backend computes them.
+    int8_qk: bool = False
     # Storage dtype of the per-step saliency stash: None keeps f32, "bf16"
     # rounds only the stacked copy (similarities are computed in f32).
     stash_dtype: Optional[str] = None
@@ -77,6 +80,11 @@ def joint_concept_attention(
     [B, L, H*D] outputs (concept_attn None without concepts) and the
     pre-RoPE q/k/v plus head-form outputs for the saliency taps.
     """
+    if spec.int8_qk and spec.backend != "fused":
+        raise ValueError(
+            f"ConceptAttentionSpec(int8_qk=True) requires the fused attention backend, "
+            f"got {spec.backend!r}"
+        )
     if spec.backend == "fused":
         from conceptattention_torch.kernels.flash_saliency import (
             joint_concept_attention_fused,
@@ -85,6 +93,7 @@ def joint_concept_attention(
         return joint_concept_attention_fused(
             txt_qkv, img_qkv, concept_qkv, pe, concept_pe,
             cross=spec.cross_attention, self_attention=spec.self_attention,
+            int8_qk=spec.int8_qk,
         )
     if spec.backend != "sdpa":
         raise ValueError(f"unknown attention backend {spec.backend!r}")

@@ -1,10 +1,14 @@
 """Public pipeline: generate or encode an image and extract concept heatmaps.
 
 Counterpart of the JAX package's `pipeline/concept_pipeline.py`:
-`generate_image(prompt, concepts, ...)` and `encode_image(image, concepts,
-...)`, each returning a `ConceptAttentionPipelineOutput(image,
-concept_heatmaps, cross_attention_maps)`. Weights are randomly initialized
-from `init_seed` unless parameter trees are passed in (`weights/from_jax.py`).
+`generate_image(prompt, concepts, ...)`, the batched `generate_images(prompts,
+concepts, ...)` and `encode_image(image, concepts, ...)`, each returning
+`ConceptAttentionPipelineOutput(image, concept_heatmaps, cross_attention_maps)`
+(one per prompt for `generate_images`). Weights are randomly initialized
+from `init_seed` unless parameter trees are passed in (`weights/from_jax.py`);
+`quantize="w8" | "w8a8" | "w4"` draws the layer stacks already quantized
+(`ops/quant.py`), and `int8_qk=True` computes the attention scores of every
+DiT block from int8 q and k (K1b).
 
 The pipeline runs on one device, "cuda" unless the caller names another; it
 never falls back to the CPU. On a card the DiT runs in `dtype` (bf16 by
@@ -35,6 +39,11 @@ from conceptattention_torch.models.text.encoders import (
 )
 from conceptattention_torch.ops.attention import ConceptAttentionSpec
 from conceptattention_torch.ops.packing import make_img_ids, pack_latents, unpack_latents
+from conceptattention_torch.ops.quant import (
+    init_flux_params_quantized,
+    int8_gemm_layout,
+    resolve_quant_mode,
+)
 from conceptattention_torch.ops.schedule import get_schedule
 from conceptattention_torch.pipeline.heatmaps import heatmaps_to_pil, reduce_maps
 from conceptattention_torch.sampling.rectified_flow import denoise, forward_noise, get_noise
@@ -134,7 +143,24 @@ class ConceptAttentionFluxPipeline:
         text_encoders: Optional[TextEncoders] = None,
         init_seed: int = 0,
         device: Optional[Union[str, torch.device]] = None,
+        quantize: Union[bool, str] = False,
+        attention_backend: str = "fused",
+        int8_qk: bool = False,
+        lora: Optional[Any] = None,
     ):
+        """`quantize` (False, True / "w8", "w8a8" or "w4") applies when no
+        `params` are passed: the layer stacks are drawn already quantized.
+        Passed `params` are used as given, quantized or not. `attention_backend`
+        is "fused" (the flash-saliency kernels) or "sdpa" (the plain path);
+        `int8_qk` needs "fused"."""
+        if lora is not None:
+            raise NotImplementedError("LoRA adapters are not ported yet")
+        if attention_backend not in ("fused", "sdpa"):
+            raise ValueError(f"attention_backend must be 'fused' or 'sdpa', got {attention_backend!r}")
+        if int8_qk and attention_backend != "fused":
+            raise ValueError(
+                f"int8_qk=True requires the fused attention backend, got {attention_backend!r}"
+            )
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
@@ -150,10 +176,13 @@ class ConceptAttentionFluxPipeline:
         self.vae_factor = 2 ** (len(self.spec.ae_params.ch_mult) - 1)
         on_card = self.device.type == "cuda"
         self.decode_dtype = torch.bfloat16 if on_card else torch.float32
+        mode = resolve_quant_mode(quantize)
         if params is None:
-            params = init_flux_params(
-                torch.Generator(self.device).manual_seed(init_seed), self.cfg, dtype
-            )
+            gen = torch.Generator(self.device).manual_seed(init_seed)
+            params = (init_flux_params_quantized(gen, self.cfg, dtype, mode=mode) if mode
+                      else init_flux_params(gen, self.cfg, dtype))
+        else:
+            params = int8_gemm_layout(params)
         if ae_params is None:
             ae_params = vae.init_autoencoder_params(
                 torch.Generator(self.device).manual_seed(init_seed + 1), self.spec.ae_params
@@ -169,6 +198,8 @@ class ConceptAttentionFluxPipeline:
         self.text_encoders = text_encoders
         self.attention_spec = ConceptAttentionSpec(
             taps=("output", "cross_attention"),
+            backend=attention_backend,
+            int8_qk=int8_qk,
             stash_dtype="bf16" if on_card else None,
         )
 
@@ -204,8 +235,6 @@ class ConceptAttentionFluxPipeline:
             raise ValueError("height/width must be multiples of 16 (VAE 8x + 2x2 packing)")
 
     # ------------------------------------------------------------------
-    @torch.inference_mode()
-    @_full_f32()
     def generate_image(
         self,
         prompt: str,
@@ -229,23 +258,68 @@ class ConceptAttentionFluxPipeline:
     ) -> ConceptAttentionPipelineOutput:
         """Generate an image and per-concept heatmaps (defaults: layers
         depth-4..depth-1, all timesteps, softmax over concepts; softmax=True
-        overrides attention_norm)."""
+        overrides attention_norm): `generate_images` on the one prompt."""
         if init_image is not None:
             raise NotImplementedError("image-to-image (init_image) is not ported yet")
+        return self.generate_images(
+            [prompt], concepts, width=width, height=height, layer_indices=layer_indices,
+            return_pil_heatmaps=return_pil_heatmaps, num_inference_steps=num_inference_steps,
+            guidance=guidance, timesteps=timesteps, softmax=softmax,
+            attention_norm=attention_norm, cmap=cmap, return_image_array=return_image_array,
+            watermark=watermark, seeds=[seed],
+        )[0]
+
+    # ------------------------------------------------------------------
+    @torch.inference_mode()
+    @_full_f32()
+    def generate_images(
+        self,
+        prompts: List[str],
+        concepts: List[str],
+        width: int = 1024,
+        height: int = 1024,
+        layer_indices: Optional[Sequence[int]] = None,
+        return_pil_heatmaps: bool = True,
+        seed: int = 0,
+        num_inference_steps: int = 4,
+        guidance: float = 0.0,
+        timesteps: Optional[Sequence[int]] = None,
+        softmax: bool = True,
+        attention_norm: str = "sparsemax",
+        cmap: str = "plasma",
+        return_image_array: bool = False,
+        watermark: bool = True,
+        seeds: Optional[Sequence[int]] = None,
+    ) -> List[ConceptAttentionPipelineOutput]:
+        """One batched denoise for all prompts (shared concepts and
+        schedule), then one decode per image; one output per prompt, in
+        order. With `seeds`, prompt i draws exactly the noise of
+        `generate_image(seed=seeds[i])`, so its output does not depend on
+        its batch; without, one [B, ...] draw from `seed`."""
+        b = len(prompts)
+        if b == 0:
+            return []
+        if seeds is not None and len(seeds) != b:
+            raise ValueError(f"seeds has {len(seeds)} entries for {b} prompts")
         layer_indices = self._layer_indices(layer_indices)
         self._check_size(height, width)
         if timesteps is None:
             timesteps = list(range(num_inference_steps))
 
-        noise = get_noise(
-            torch.Generator(self.device).manual_seed(seed), 1, height, width, self.dtype,
-            channels=self.spec.ae_params.z_channels, vae_factor=self.vae_factor,
-        )
-        b, _, lh, lw = noise.shape
+        def noise_of(s, n):
+            return get_noise(
+                torch.Generator(self.device).manual_seed(int(s)), n, height, width, self.dtype,
+                channels=self.spec.ae_params.z_channels, vae_factor=self.vae_factor,
+            )
+
+        noise = noise_of(seed, b) if seeds is None else torch.cat([noise_of(s, 1) for s in seeds])
+        _, _, lh, lw = noise.shape
         schedule = get_schedule(
             num_inference_steps, (lh // 2) * (lw // 2), shift=not self.is_schnell
         )
-        txt, txt_ids, vec = self._prepare_text(prompt, b)
+        txt = self.text_encoders.encode_t5(list(prompts)).to(self.device, self.dtype)
+        vec = self.text_encoders.encode_clip(list(prompts)).to(self.device, self.dtype)
+        txt_ids = torch.zeros((b, txt.shape[1], 3), dtype=torch.float32, device=self.device)
         c_emb, c_ids, c_vec = self._prepare_concepts(concepts, b)
         latents, saliency = denoise(
             self.params, self.cfg, pack_latents(noise),
@@ -260,6 +334,18 @@ class ConceptAttentionFluxPipeline:
         cross_attention_maps = reduce_maps(
             saliency["cross_attention"], layer_indices, timesteps, softmax, attention_norm, grid
         )
+        return [
+            self._package_output(
+                self._decode_image(latents[i : i + 1], grid, watermark, return_image_array),
+                concept_heatmaps[i : i + 1], cross_attention_maps[i : i + 1],
+                return_pil_heatmaps, cmap,
+            )
+            for i in range(b)
+        ]
+
+    def _decode_image(self, latents, grid, watermark: bool, return_image_array: bool):
+        """Packed latents of one image -> HWC uint8 array (or PIL image),
+        watermarked unless `watermark` is False."""
         pixels = _vae_decode(
             self.ae_params, self.spec.ae_params, latents, grid[0], grid[1], dtype=self.decode_dtype
         )
@@ -272,9 +358,7 @@ class ConceptAttentionFluxPipeline:
             import PIL.Image
 
             image = PIL.Image.fromarray(image)
-        return self._package_output(
-            image, concept_heatmaps, cross_attention_maps, return_pil_heatmaps, cmap
-        )
+        return image
 
     # ------------------------------------------------------------------
     @torch.inference_mode()

@@ -14,7 +14,9 @@ reference's `ModifiedCogVideoXPipeline`):
     selected steps are averaged (with a second softmax on the cross maps).
 
 The pipeline runs on one device, "cuda" unless the caller names another,
-and never falls back to the CPU. The DiT runs in `dtype` (bf16 by default)
+and never falls back to the CPU. `quantize` ("w8", "w8a8" or "w4")
+quantizes the DiT's stacked blocks (`ops/quant.py`), whose linears all take
+quantized cells. The DiT runs in `dtype` (bf16 by default)
 and the VAE in f32; f32 matmuls and convolutions run in full f32 for the
 duration of `generate_video` and `decode_latents`.
 """
@@ -35,6 +37,11 @@ from conceptattention_torch.models.video.dit import (
     video_dit_forward,
 )
 from conceptattention_torch.ops.attention import ConceptAttentionSpec
+from conceptattention_torch.ops.quant import (
+    int8_gemm_layout,
+    quantize_video_dit_params,
+    resolve_quant_mode,
+)
 from conceptattention_torch.pipeline.concept_pipeline import _full_f32
 from conceptattention_torch.sampling.ddim import DDIMSchedule, ddim_step, make_ddim_schedule
 from conceptattention_torch.sampling.dpm import dpm_init, dpm_step
@@ -118,8 +125,6 @@ class VideoConceptAttentionPipeline:
         lora_strength=1.0,
         device: Optional[Union[str, torch.device]] = None,
     ):
-        if quantize:
-            raise NotImplementedError("quantized video weights are not ported yet")
         if lora is not None:
             raise NotImplementedError("LoRA adapters for the video DiT are not ported yet")
         self.device = torch.device("cuda" if device is None else device)
@@ -130,9 +135,11 @@ class VideoConceptAttentionPipeline:
             )
         self.cfg = cfg or CogVideoXConfig()
         self.dtype = dtype
-        self.params = params if params is not None else init_video_dit_params(
+        self.params = int8_gemm_layout(params) if params is not None else init_video_dit_params(
             torch.Generator(self.device).manual_seed(init_seed), self.cfg, dtype
         )
+        if quantize:  # False | True / "w8" | "w8a8" | "w4": the stacked blocks
+            self.params = quantize_video_dit_params(self.params, mode=resolve_quant_mode(quantize))
         self.text_encoders = text_encoders or StubTextEncoders(
             t5_dim=self.cfg.text_embed_dim, clip_dim=768,
             t5_max_length=self.cfg.max_text_seq_length,

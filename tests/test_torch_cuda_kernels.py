@@ -116,6 +116,72 @@ def test_flash_kernel_refuses_bad_inputs(dev):
 
 
 @pytest.mark.parametrize(
+    "b,h,s,d,t,p,c,cross,self_attention,rope",
+    [
+        (1, 2, 100, 32, 20, 70, 3, True, True, True),     # ragged tail, pad rows
+        (2, 3, 200, 128, 40, 150, 5, True, False, True),  # per-row tables
+        (1, 2, 200, 128, 40, 150, 5, False, False, True),  # concept rows see nothing
+        (2, 4, 300, 64, 26, 200, 26, False, True, True),
+        (1, 2, 130, 128, 130, 0, 0, True, True, False),  # no tables: the scale after the sums
+        (1, 2, 100, 32, 20, 70, 3, True, True, False),
+    ],
+)
+def test_int8_kernel_matches_plain(dev, b, h, s, d, t, p, c, cross, self_attention, rope):
+    """K1b (pre-pass and main kernel) against its plain version, and the
+    pre-pass's int8 rows and scales equal to the plain quantizer's."""
+    gen = torch.Generator(dev).manual_seed(2)
+    q, k, v = (torch.randn(b, h, s, d, generator=gen, device=dev) for _ in range(3))
+    q, k, v = (3 * q).bfloat16(), k.bfloat16(), v.bfloat16()
+    tables = rope_tables(gen, b, s, d, dev) if rope else (None, None)
+    args = (q, k, v, t, p, c, cross, self_attention, *tables)
+    before = (fs.fused_concept_flash_attention_int8.launches, fs.fused_concept_flash_attention.launches)
+    got = fs.fused_concept_flash_attention(*args, int8_qk=True)
+    torch.cuda.synchronize()
+    assert (fs.fused_concept_flash_attention_int8.launches,
+            fs.fused_concept_flash_attention.launches) == (before[0] + 1, before[1])
+    want = fs.fused_concept_flash_attention_plain(*args, int8_qk=True)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert (got.float() - want.float()).abs().max().item() <= bf16_limit(want)
+    seen_by_nothing = t + p + (c if (cross or self_attention) else 0)
+    assert torch.count_nonzero(got[:, :, seen_by_nothing:]).item() == 0
+    for got_part, want_part in zip(fs.quantize_qk_rows_cuda(q, k, *tables),
+                                   fs.quantize_qk_rows_plain(q, k, *tables)):
+        assert torch.equal(got_part, want_part)
+
+
+def test_int8_kernel_refuses_bad_inputs(dev):
+    q = torch.zeros(1, 1, 64, 512, device=dev, dtype=torch.bfloat16)  # the VAE's head dim
+    before = fs.fused_concept_flash_attention_int8.launches
+    with pytest.raises(ValueError):
+        fs.fused_concept_flash_attention(q, q, q, 64, 0, 0, int8_qk=True)
+    assert fs.fused_concept_flash_attention_int8.launches == before
+
+
+@pytest.mark.parametrize("m", [1, 3, 17])
+def test_int8_gemm_pads_short_inputs(dev, m):
+    """cuBLASLt's int8 GEMM takes more than 16 rows: fewer are padded with
+    zero rows, and the int32 product is exact, with the weight stored
+    column-major (as the quantizers store it)."""
+    from conceptattention_torch.ops.quant import int8_matmul
+
+    gen = torch.Generator(dev).manual_seed(4)
+    x = torch.randint(-127, 128, (m, 3072), generator=gen, device=dev, dtype=torch.int8)
+    w = torch.randint(-127, 128, (3072, 256), generator=gen, device=dev, dtype=torch.int8)
+    got = int8_matmul(x, w.t().contiguous().t())
+    assert got.dtype == torch.int32 and got.shape == (m, 256)
+    assert torch.equal(got.double(), x.double() @ w.double())
+
+
+def test_int8_gemm_refuses_row_major_weight(dev):
+    """A row-major weight would send the GEMM to its slow fallback: refused."""
+    from conceptattention_torch.ops.quant import int8_matmul
+
+    x = torch.zeros(32, 256, device=dev, dtype=torch.int8)
+    with pytest.raises(ValueError, match="column-major"):
+        int8_matmul(x, torch.zeros(256, 64, device=dev, dtype=torch.int8))
+
+
+@pytest.mark.parametrize(
     "b,hh,ww,cin,cout,dtype,swish",
     [
         (1, 16, 16, 128, 128, torch.bfloat16, False),

@@ -435,7 +435,9 @@ def test_default_device_is_cuda_and_never_falls_back():
         TorchPipeline(cfg=configs(True)[0])
 
 
-@pytest.mark.parametrize("option", [dict(quantize="w8"), dict(lora={})])
+@pytest.mark.parametrize("option", [dict(lora={}), dict(lora=[{}], lora_strength=[0.5])])
 def test_unported_options_raise(option):
+    """LoRA adapters, one or a list with strengths, are not ported
+    (`quantize=` is: `tests/test_torch_quant.py`)."""
     with pytest.raises(NotImplementedError):
         TorchPipeline(cfg=configs(True)[0], device="cpu", **option)
