@@ -10,20 +10,24 @@ Run from the root of a checkout: `python3 chip_smoke.py`. In order it
    K1b, the int8-score attention, also against K1 and its pre-pass against
    the plain quantizer;
    at the CogVideoX shape the plain version runs on a subset of heads of
-   the full-shape launch), shows with planted controls (the plain version
-   with one fault) that each limit sees such a fault, and times kernel,
-   plain version and one library call that computes the same function (the
-   port never calls it);
+   the full-shape launch; K4, the ring kernel, on a virtual ring of 4 ranks
+   on card 0, and on a ring of 2 across cards 0 and 1 where there are two),
+   shows with planted controls (the plain version with one fault) that each
+   limit sees such a fault, and times kernel, plain version and one library
+   call that computes the same function (the port never calls it);
 4. checks the full-width models against their plain reference paths on a
-   small input (DiT blocks: kernel vs SDPA backend, with a control for each
-   limit; VAE decodes: card vs CPU f32);
+   small input (DiT blocks: kernel vs SDPA backend, and the ring_rdma
+   backend vs the fused one, with a control for each limit; VAE decodes:
+   card vs CPU f32);
 5. runs flux-schnell `generate_image` (1024x1024, 4 steps, 3 concepts,
    random weights from init_seed 0) twice and `encode_image` (1024x1024)
    twice; the int8 serving path on the same weights quantized to w8a8 with
    int8 scores (K1b): `generate_image` against the bf16 heatmaps,
    `generate_images` of two prompts cold and warm, `encode_image`; one
    `generate_image` each with random already-quantized w8 and w4 weights;
-   then CogVideoX-5b `generate_video` (13 latent frames of 60x90,
+   `generate_image` and `encode_image` twice each with
+   `attention_backend="ring_rdma"` over `make_mesh(seq=4)` on card 0; then
+   CogVideoX-5b `generate_video` (13 latent frames of 60x90,
    STEPS_VIDEO steps, 3 concepts) cold and warm, once with the head-paired
    kernel, once with DPM-Solver++, decodes a short clip, and runs once with
    its blocks quantized to w8a8; every kernel's launch count is set to 0
@@ -37,6 +41,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -475,6 +480,264 @@ def video_flash_phases(vcfg, launches_k1, launches_k3, dev="cuda"):
     return results["k1"], results["k3"]
 
 
+def faulty_ring(qs, ks, vs, t, p, c, origin_shift=0, skip_hop=None):
+    """The plain ring (`parallel.ring_attention`, both concept passes on)
+    with one planted fault: `origin_shift` places each held chunk's keys that
+    many ring steps off their true positions (a kernel that computes the
+    chunk's origin off by one); `skip_hop` leaves out the hop after that
+    step, so the next step reads its double buffer's stale slot (a hop that
+    never ran, or a step that read before the copy landed)."""
+    from conceptattention_torch.parallel import ring_attention as ra
+
+    n = len(qs)
+    b, h, lc, d = qs[0].shape
+    scale = ra.LOG2E / math.sqrt(d)
+    iota = torch.arange(lc, device=qs[0].device)
+    state = [(torch.full((b, h, lc, 1), ra.NEG_INF, device=q.device),
+              torch.zeros((b, h, lc, 1), device=q.device),
+              torch.zeros((b, h, lc, d), device=q.device)) for q in qs]
+    slots = [[(ks[r], vs[r]), None] for r in range(n)]
+    for step in range(n):
+        cur = step % 2
+        if step + 1 < n and step != skip_hop:
+            moved = [slots[r - 1][cur] for r in range(n)]
+            for r in range(n):
+                slots[r][1 - cur] = moved[r]
+        for my in range(n):
+            src = (my - step - origin_shift) % n
+            allowed = ra._segment_mask(my * lc + iota, src * lc + iota, t, p, c, True, True)
+            state[my] = ra._partial_update(qs[my], *slots[my][cur], *state[my], scale, allowed)
+    return torch.cat([(acc / torch.where(l == 0, torch.ones_like(l), l)).to(vs[0].dtype)
+                      for _, l, acc in state], dim=2)
+
+
+def fused_ring_inputs(gen, b, h, d, t, p, c, pe, cpe, n):
+    """The fused [txt | img | concept] q, k, v of one block, roped per
+    segment (K4 takes them roped), q at 3x scale and each concept key along
+    its own query, 4 units long (as `flash_phases`), and the same padded with
+    zero rows to a multiple of the ring size `n`."""
+    from conceptattention_torch.ops.rope import apply_rope
+
+    s, j = t + p + c, t + p
+    q = (Q_SCALE * torch.randn(b, h, s, d, generator=gen, device="cuda")).bfloat16()
+    k, v = (torch.randn(b, h, s, d, generator=gen, device="cuda").bfloat16() for _ in range(2))
+    qc = q[:, :, j:].float()
+    k[:, :, j:] = (4.0 * qc / qc.norm(dim=-1, keepdim=True)).bfloat16()
+    qj, kj = apply_rope(q[:, :, :j], k[:, :, :j], pe)
+    qc, kc = apply_rope(q[:, :, j:], k[:, :, j:], (cpe[0][:, :, :c], cpe[1][:, :, :c]))
+    fused = (torch.cat([qj, qc], 2), torch.cat([kj, kc], 2), v)
+    pad = -(-s // n) * n - s
+    return fused, tuple(F.pad(x, (0, 0, 0, pad)).contiguous() for x in fused)
+
+
+def ring_phases(cfg, vcfg, launches, n=4):
+    """K4 on a virtual ring of `n` ranks on card 0, against its plain
+    version (the "ring" backend's ring on the same mesh): the flux double
+    block (B1 H24 D128, S = 256 + 4096 + 3 padded to a multiple of n) in all
+    four ablations, and the CogVideoX-5b block (B2 H48 D64, S = 226 + 17550
+    + 226 padded), whose plain version runs on 4 of the 96 (batch, head)
+    rows as K1's video phase does. Rows are held per segment; the pad rows'
+    limit is 0 (they must be exact zeros). Controls: the plain ring with the
+    chunk origin one step off, with one hop skipped, and with the
+    self_attention flag flipped. Readings beside the times: K1 on the same
+    fused input (unsharded), the bytes the hops move, the step launches.
+    The library call is masked SDPA over the unsharded sequence."""
+    from conceptattention_torch.kernels import flash_saliency as fs
+    from conceptattention_torch.kernels import ring_rdma as rr
+    from conceptattention_torch.models.video.dit import make_video_ids
+    from conceptattention_torch.ops.packing import make_img_ids
+    from conceptattention_torch.ops.rope import embed_nd
+    from conceptattention_torch.parallel import make_mesh
+    from conceptattention_torch.parallel.ring_attention import make_ring_concept_attention
+
+    dev = "cuda"
+    mesh = make_mesh(seq=n, devices=[torch.device(dev, 0)] * n)
+    gen = torch.Generator(dev).manual_seed(8)
+
+    def shards(x):
+        lc = x.shape[2] // n
+        return [x[:, :, r * lc:(r + 1) * lc].contiguous() for r in range(n)]
+
+    def readings(fused, padded, t, p, c, cross, self_attention):
+        def extra(got):
+            before = rr.ring_attention_rdma.step_launches
+            rr.make_ring_concept_attention_rdma(mesh, "seq", t, p, c, cross, self_attention)(*padded)
+            b, h, s_pad, d = padded[0].shape
+            return {"k1_ms": time_ms(lambda: fs.fused_concept_flash_attention(
+                        *fused, t, p, c, cross, self_attention)),
+                    # N - 1 hops of every rank's bf16 K and V chunk
+                    "hop_bytes_per_call": (n - 1) * 2 * b * h * s_pad * d * 2,
+                    "step_launches_per_call": rr.ring_attention_rdma.step_launches - before}
+        return extra
+
+    def segments(t, p, c, s_pad):
+        return {"joint rows": slice(0, t + p), "concept rows": slice(t + p, t + p + c),
+                "pad rows": slice(t + p + c, s_pad)}
+
+    results = []
+    h, d = cfg.num_heads, cfg.head_dim
+    t, grid = 256, SIZE // 16
+    p, c = grid * grid, len(CONCEPTS)
+    img_ids = make_img_ids(grid, grid, 1, device=dev)
+    pe, cpe = (embed_nd(torch.cat([torch.zeros(1, m, 3, device=dev), img_ids], 1), cfg.axes_dim,
+                        cfg.theta) for m in (t, c))
+    fused, padded = fused_ring_inputs(gen, 1, h, d, t, p, c, pe, cpe, n)
+    s, s_pad = t + p + c, padded[0].shape[2]
+    split = [shards(x) for x in padded]
+    for cross, self_attention in [(True, True), (True, False), (False, True), (False, False)]:
+        mask = fs.segment_mask(s, t, p, c, cross, self_attention, dev)
+        n_pairs = mask.sum().item()
+        controls = [("self_attention flipped", "concept rows",
+                     lambda _, a=(cross, not self_attention):
+                     make_ring_concept_attention(mesh, "seq", t, p, c, *a)(*padded))]
+        if cross and self_attention:
+            controls += [("chunk origin off by one step", "joint rows",
+                          lambda _: faulty_ring(*split, t, p, c, origin_shift=1)),
+                         ("one hop skipped, stale slot reused", "joint rows",
+                          lambda _: faulty_ring(*split, t, p, c, skip_hop=1))]
+        results.append(phase_result(
+            f"ring_attention double_block B=1 H={h} D={d} S={s}->{s_pad} N={n} "
+            f"cross={cross} self={self_attention}",
+            lambda a=(cross, self_attention): rr.make_ring_concept_attention_rdma(
+                mesh, "seq", t, p, c, *a)(*padded),
+            lambda a=(cross, self_attention): make_ring_concept_attention(
+                mesh, "seq", t, p, c, *a)(*padded),
+            lambda m=mask: F.scaled_dot_product_attention(fused[0], fused[1], fused[2], attn_mask=m),
+            4 * d * n_pairs * h, 4 * h * s * d * 2,
+            launches if (cross and self_attention) else 0, segments(t, p, c, s_pad), controls,
+            extra=readings(fused, padded, t, p, c, cross, self_attention),
+        ))
+    del fused, padded, split
+
+    b, h, d = 2, vcfg.num_attention_heads, vcfg.attention_head_dim
+    gh, gw = VIDEO_H // vcfg.patch_size, VIDEO_W // vcfg.patch_size
+    t = c = vcfg.max_text_seq_length
+    p = VIDEO_FRAMES * gh * gw
+    ids = make_video_ids(VIDEO_FRAMES, gh, gw, b, device=dev)
+    pe, cpe = (embed_nd(torch.cat([torch.zeros(b, m, 3, device=dev), ids], 1),
+                        vcfg.rope_axes_dim, 10_000) for m in (t, c))
+    fused, padded = fused_ring_inputs(gen, b, h, d, t, p, c, pe, cpe, n)
+    s, s_pad = t + p + c, padded[0].shape[2]
+    heads = torch.tensor([0, 1, h - 2, h - 1], device=dev)
+    sub = [x[1:2].index_select(1, heads).contiguous() for x in padded]
+    split = [shards(x) for x in sub]
+    mask = fs.segment_mask(s, t, p, c, True, True, dev)
+    plain = make_ring_concept_attention(mesh, "seq", t, p, c)
+    results.append(phase_result(
+        f"ring_attention video B={b} H={h} D={d} S={s}->{s_pad} N={n} cross=True self=True",
+        lambda: rr.make_ring_concept_attention_rdma(mesh, "seq", t, p, c)(*padded),
+        lambda: plain(*sub),
+        lambda: masked_sdpa(*fused, mask),
+        4 * d * mask.sum().item() * h * b, 4 * b * h * s * d * 2, 0, segments(t, p, c, s_pad),
+        [("self_attention flipped", "concept rows",
+          lambda _: make_ring_concept_attention(mesh, "seq", t, p, c, True, False)(*sub)),
+         ("chunk origin off by one step", "joint rows",
+          lambda _: faulty_ring(*split, t, p, c, origin_shift=1)),
+         ("one hop skipped, stale slot reused", "joint rows",
+          lambda _: faulty_ring(*split, t, p, c, skip_hop=1))],
+        select=lambda out: out[1:2].index_select(1, heads),
+        plain_basis=f"head subset: batch row 1, heads 0, 1, {h - 2}, {h - 1} of {b} x {h}",
+        extra=readings(fused, padded, t, p, c, True, True),
+    ))
+    del fused, padded, sub, split, mask
+    torch.cuda.empty_cache()
+    return results
+
+
+def cross_card_ring_phase(cfg):
+    """K4 on a ring of 2 across cards 0 and 1 (each rank's q, state and comm
+    buffers on its own card, the hops peer copies) at the flux double block,
+    against its plain version. Needs two cards; with one it prints why it
+    did not run and returns None."""
+    if torch.cuda.device_count() < 2:
+        print("ring_attention across cards: not run: this machine has "
+              f"{torch.cuda.device_count()} CUDA card; a ring of 2 across cards 0 and 1 needs two",
+              flush=True)
+        return None
+    from conceptattention_torch.kernels import ring_rdma as rr
+    from conceptattention_torch.ops.packing import make_img_ids
+    from conceptattention_torch.ops.rope import embed_nd
+    from conceptattention_torch.parallel import make_mesh
+    from conceptattention_torch.parallel.ring_attention import make_ring_concept_attention
+
+    mesh = make_mesh(seq=2, devices=[torch.device("cuda", 0), torch.device("cuda", 1)])
+    gen = torch.Generator("cuda").manual_seed(9)
+    h, d, t, grid, c = cfg.num_heads, cfg.head_dim, 256, SIZE // 16, len(CONCEPTS)
+    p = grid * grid
+    img_ids = make_img_ids(grid, grid, 1, device="cuda")
+    pe, cpe = (embed_nd(torch.cat([torch.zeros(1, m, 3, device="cuda"), img_ids], 1),
+                        cfg.axes_dim, cfg.theta) for m in (t, c))
+    _, padded = fused_ring_inputs(gen, 1, h, d, t, p, c, pe, cpe, 2)
+    s_pad = padded[0].shape[2]
+    return phase_result(
+        f"ring_attention double_block across cards 0 and 1 S={t + p + c}->{s_pad} N=2",
+        lambda: rr.make_ring_concept_attention_rdma(mesh, "seq", t, p, c)(*padded),
+        lambda: make_ring_concept_attention(mesh, "seq", t, p, c)(*padded),
+        None, 4 * d * h * ((t + p) ** 2 + c * (p + c)), 4 * h * (t + p + c) * d * 2, 0,
+        {"joint rows": slice(0, t + p), "concept rows": slice(t + p, t + p + c),
+         "pad rows": slice(t + p + c, s_pad)},
+        [("self_attention flipped", "concept rows",
+          lambda _: make_ring_concept_attention(mesh, "seq", t, p, c, True, False)(*padded))],
+    )
+
+
+def ring_reference_checks(pipe, mesh):
+    """`flux_dit_outputs` with the double blocks on the ring (`ring_rdma`
+    over `mesh`; the single blocks on the plain path) against the same
+    blocks with the fused kernels, to the DiT limits, with two planted
+    controls on the ring path: 64 txt keys dropped, and the concept
+    self-attention off."""
+    from conceptattention_torch.ops.attention import ConceptAttentionSpec
+
+    ring = dict(backend="ring_rdma", mesh=mesh)
+    outs = flux_dit_outputs(pipe, lambda txt, txt_ids: {
+        "fused": (ConceptAttentionSpec(backend="fused"), txt, txt_ids),
+        "ring_rdma": (ConceptAttentionSpec(**ring), txt, txt_ids),
+        "control: ring_rdma, 64 txt keys dropped": (ConceptAttentionSpec(**ring), txt[:, :-64],
+                                                    txt_ids[:, :-64]),
+        "control: ring_rdma, concept self_attention off": (
+            ConceptAttentionSpec(self_attention=False, **ring), txt, txt_ids),
+    }, torch.Generator(pipe.device).manual_seed(3))
+    readings = flux_dit_readings(outs, "fused", "reference DiT ring (2+2 full-width blocks, 256px)")
+    pred_ok = (readings["ring_rdma"][0] <= DIT_PRED_LIMIT
+               < readings["control: ring_rdma, 64 txt keys dropped"][0])
+    sal_ok = (readings["ring_rdma"][1] <= DIT_SALIENCY_LIMIT
+              < readings["control: ring_rdma, concept self_attention off"][1])
+    print(f"reference DiT ring limits: pred {DIT_PRED_LIMIT} ok={pred_ok}, "
+          f"saliency {DIT_SALIENCY_LIMIT} ok={sal_ok}", flush=True)
+    if not (pred_ok and sal_ok):
+        raise AssertionError("DiT ring path against the fused kernel path: a reading or a "
+                             "control is on the wrong side of its limit")
+
+
+def video_ring_reference_checks(pipe, mesh):
+    """`video_dit_outputs` with `ring_rdma` over `mesh` against the fused
+    kernel path, to the video DiT limits, with the same two controls on the
+    ring path."""
+    from conceptattention_torch.ops.attention import ConceptAttentionSpec
+
+    ring = dict(taps=("output", "cross_attention"), backend="ring_rdma", mesh=mesh)
+    outs = video_dit_outputs(pipe, lambda text: {
+        "fused": (ConceptAttentionSpec(taps=ring["taps"]), text, False),
+        "ring_rdma": (ConceptAttentionSpec(**ring), text, False),
+        "control: ring_rdma, 64 txt keys dropped": (ConceptAttentionSpec(**ring), text[:, :-64],
+                                                    False),
+        "control: ring_rdma, concept self_attention off": (
+            ConceptAttentionSpec(self_attention=False, **ring), text, False),
+    })
+    readings = video_dit_readings(
+        outs, "fused", "reference video DiT ring (2 full-width CogVideoX-5b blocks, 2x60x90 latents)")
+    pred_ok = (readings["ring_rdma"][0] <= VIDEO_PRED_RMS_LIMIT
+               < readings["control: ring_rdma, 64 txt keys dropped"][0])
+    sal_ok = (readings["ring_rdma"][1] <= DIT_SALIENCY_LIMIT
+              < readings["control: ring_rdma, concept self_attention off"][1])
+    print(f"reference video DiT ring limits: pred rms {VIDEO_PRED_RMS_LIMIT} ok={pred_ok}, "
+          f"saliency {DIT_SALIENCY_LIMIT} ok={sal_ok}", flush=True)
+    if not (pred_ok and sal_ok):
+        raise AssertionError("video DiT ring path against the fused kernel path: a reading or a "
+                             "control is on the wrong side of its limit")
+
+
 def decoder_conv_shapes(ae_cfg, latent: int) -> Counter:
     """(H, Cin, Cout) of every 3x3 conv of the decoder that the conv3x3 gate
     routes to the kernel, with its count per decode."""
@@ -520,22 +783,56 @@ def conv_phases(conv_counts: Counter, decodes: int):
     return results
 
 
-def reference_checks(pipe):
-    """The full-width model on a small input against its plain reference path."""
+def flux_dit_outputs(pipe, make_runs, gen):
+    """Two full-width flux double and two single blocks on a 256px input
+    drawn from `gen`, once per run of `make_runs(txt, txt_ids)` ({name:
+    (spec, txt, txt_ids)}). Returns {name: (pred, saliency)}."""
     from conceptattention_torch.models.flux.dit import flux_forward
-    from conceptattention_torch.models.flux.params import tree_map
-    from conceptattention_torch.ops.attention import ConceptAttentionSpec
     from conceptattention_torch.ops.packing import make_img_ids
-    from conceptattention_torch.pipeline.concept_pipeline import _vae_decode
 
     cfg, dev, size = pipe.cfg, pipe.device, 256
     grid = size // 16
-    gen = torch.Generator(dev).manual_seed(3)
     txt, txt_ids, vec = pipe._prepare_text(PROMPT)
     c_emb, c_ids, c_vec = pipe._prepare_concepts(CONCEPTS)
     img = torch.randn(1, grid * grid, cfg.in_channels, generator=gen, device=dev).bfloat16()
     small = dataclasses.replace(cfg, depth=2, depth_single_blocks=2)
-    runs = {
+    return {
+        name: flux_forward(
+            pipe.params, small, img, make_img_ids(grid, grid, 1, device=dev), run_txt, run_ids,
+            torch.full((1,), 0.5, device=dev), vec, concepts=c_emb, concept_ids=c_ids,
+            concept_vec=c_vec, spec=spec,
+        )
+        for name, (spec, run_txt, run_ids) in make_runs(txt, txt_ids).items()
+    }
+
+
+def rel_err(got, want):
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
+def flux_dit_readings(outs, reference, title):
+    """{name: (pred, saliency)} against outs[reference]: max |d| over the
+    reference's max, for pred and for the worst saliency tap; printed."""
+    want_pred, want_sal = outs[reference]
+    readings = {
+        name: (rel_err(pred, want_pred), max(rel_err(sal[k], want_sal[k]) for k in want_sal))
+        for name, (pred, sal) in outs.items() if name != reference
+    }
+    for name, (pred_rel, sal_rel) in readings.items():
+        print(f"{title} {name} vs {reference}: "
+              f"max|d pred|/max|pred| {pred_rel}, saliency max|d|/max {sal_rel}", flush=True)
+    return readings
+
+
+def reference_checks(pipe):
+    """The full-width model on a small input against its plain reference path."""
+    from conceptattention_torch.models.flux.params import tree_map
+    from conceptattention_torch.ops.attention import ConceptAttentionSpec
+    from conceptattention_torch.pipeline.concept_pipeline import _vae_decode
+
+    cfg, dev = pipe.cfg, pipe.device
+    gen = torch.Generator(dev).manual_seed(3)
+    outs = flux_dit_outputs(pipe, lambda txt, txt_ids: {
         "fused": (ConceptAttentionSpec(backend="fused"), txt, txt_ids),
         "sdpa": (ConceptAttentionSpec(backend="sdpa"), txt, txt_ids),
         # Controls, one planted fault away from the sdpa path: the last 64
@@ -545,27 +842,8 @@ def reference_checks(pipe):
                                          txt_ids[:, :-64]),
         "control: concept self_attention off": (
             ConceptAttentionSpec(backend="sdpa", self_attention=False), txt, txt_ids),
-    }
-    outs = {
-        name: flux_forward(
-            pipe.params, small, img, make_img_ids(grid, grid, 1, device=dev), run_txt, run_ids,
-            torch.full((1,), 0.5, device=dev), vec, concepts=c_emb, concept_ids=c_ids,
-            concept_vec=c_vec, spec=spec,
-        )
-        for name, (spec, run_txt, run_ids) in runs.items()
-    }
-    want_pred, want_sal = outs["sdpa"]
-
-    def rel_err(got, want):
-        return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
-
-    readings = {
-        name: (rel_err(pred, want_pred), max(rel_err(sal[k], want_sal[k]) for k in want_sal))
-        for name, (pred, sal) in outs.items() if name != "sdpa"
-    }
-    for name, (pred_rel, sal_rel) in readings.items():
-        print(f"reference DiT (2+2 full-width blocks, {size}px) {name} vs sdpa: "
-              f"max|d pred|/max|pred| {pred_rel}, saliency max|d|/max {sal_rel}", flush=True)
+    }, gen)
+    readings = flux_dit_readings(outs, "sdpa", "reference DiT (2+2 full-width blocks, 256px)")
     # bf16 activations through four blocks put the kernel a few tenths of a
     # percent off the sdpa path; each control must land above its limit.
     pred_ok = readings["fused"][0] <= DIT_PRED_LIMIT < readings["control: 64 txt keys dropped"][0]
@@ -591,15 +869,13 @@ def reference_checks(pipe):
         raise AssertionError("VAE decode on the card disagrees with the CPU f32 decode")
 
 
-def video_reference_checks(pipe):
+def video_dit_outputs(pipe, make_runs):
     """Two full-width CogVideoX-5b blocks on a 2-frame clip (226 + 2700 +
-    226 tokens, CFG batch 2): the kernel paths (K1, and K3 with the heads
-    paired) against the plain SDPA path, on pred and on both saliency taps,
-    each limit with a planted control."""
+    226 tokens, CFG batch 2), once per run of `make_runs(text)` ({name:
+    (spec, text, heads paired)}). Returns {name: (pred, saliency)}."""
     from conceptattention_torch.kernels import flash_saliency as fs
     from conceptattention_torch.models.flux.params import tree_map
     from conceptattention_torch.models.video.dit import video_dit_forward
-    from conceptattention_torch.ops.attention import ConceptAttentionSpec
 
     cfg, dev = pipe.cfg, pipe.device
     small = dataclasses.replace(cfg, num_layers=2)
@@ -610,8 +886,43 @@ def video_reference_checks(pipe):
     text = torch.cat([pipe._encode_text(""), pipe._encode_text(VIDEO_PROMPT)])
     concepts = pipe.encode_concepts(CONCEPTS).expand(2, -1, -1)
     ts = torch.full((2,), 500.0, device=dev)
+    outs = {}
+    for name, (spec, run_text, paired) in make_runs(text).items():
+        fs.PAIR_HEADS = paired
+        outs[name] = video_dit_forward(params, small, video, run_text, ts, concepts=concepts,
+                                       spec=spec)
+    fs.PAIR_HEADS = False
+    return outs
+
+
+def rel_rms(got, want):
+    d = got.float() - want.float()
+    return (d.pow(2).mean().sqrt() / want.float().pow(2).mean().sqrt()).item()
+
+
+def video_dit_readings(outs, reference, title):
+    """{name: (pred relative RMS, worst saliency tap max |d| over max)}
+    against outs[reference]; printed with the pred's max-based reading."""
+    want_pred, want_sal = outs[reference]
+    readings = {
+        name: (rel_rms(pred, want_pred), max(rel_err(sal[k], want_sal[k]) for k in want_sal))
+        for name, (pred, sal) in outs.items() if name != reference
+    }
+    for name, (pred_rms, sal_rel) in readings.items():
+        print(f"{title} {name} vs {reference}: rms|d pred|/rms|pred| {pred_rms}, "
+              f"max|d pred|/max|pred| {rel_err(outs[name][0], want_pred)}, "
+              f"saliency max|d|/max {sal_rel}", flush=True)
+    return readings
+
+
+def video_reference_checks(pipe):
+    """Two full-width CogVideoX-5b blocks on a 2-frame clip: the kernel paths
+    (K1, and K3 with the heads paired) against the plain SDPA path, on pred
+    and on both saliency taps, each limit with a planted control."""
+    from conceptattention_torch.ops.attention import ConceptAttentionSpec
+
     taps = ("output", "cross_attention")
-    runs = {
+    outs = video_dit_outputs(pipe, lambda text: {
         "fused": (ConceptAttentionSpec(taps=taps), text, False),
         "fused, heads paired": (ConceptAttentionSpec(taps=taps), text, True),
         "sdpa": (ConceptAttentionSpec(taps=taps, backend="sdpa"), text, False),
@@ -621,30 +932,9 @@ def video_reference_checks(pipe):
                                          text[:, :-64], False),
         "control: concept self_attention off": (
             ConceptAttentionSpec(taps=taps, backend="sdpa", self_attention=False), text, False),
-    }
-    outs = {}
-    for name, (spec, run_text, paired) in runs.items():
-        fs.PAIR_HEADS = paired
-        outs[name] = video_dit_forward(params, small, video, run_text, ts, concepts=concepts,
-                                       spec=spec)
-    fs.PAIR_HEADS = False
-    want_pred, want_sal = outs["sdpa"]
-
-    def rel_err(got, want):
-        return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
-
-    def rel_rms(got, want):
-        d = got.float() - want.float()
-        return (d.pow(2).mean().sqrt() / want.float().pow(2).mean().sqrt()).item()
-
-    readings = {
-        name: (rel_rms(pred, want_pred), max(rel_err(sal[k], want_sal[k]) for k in taps))
-        for name, (pred, sal) in outs.items() if name != "sdpa"
-    }
-    for name, (pred_rms, sal_rel) in readings.items():
-        print(f"reference video DiT (2 full-width CogVideoX-5b blocks, 2x60x90 latents) {name} "
-              f"vs sdpa: rms|d pred|/rms|pred| {pred_rms}, max|d pred|/max|pred| "
-              f"{rel_err(outs[name][0], want_pred)}, saliency max|d|/max {sal_rel}", flush=True)
+    })
+    readings = video_dit_readings(
+        outs, "sdpa", "reference video DiT (2 full-width CogVideoX-5b blocks, 2x60x90 latents)")
     kernel_runs = ("fused", "fused, heads paired")
     pred_ok = (max(readings[n][0] for n in kernel_runs) <= VIDEO_PRED_RMS_LIMIT
                < readings["control: 64 txt keys dropped"][0])
@@ -700,6 +990,7 @@ def video_path(counters):
     from conceptattention_torch import VideoConceptAttentionPipeline
     from conceptattention_torch.kernels import flash_saliency as fs
     from conceptattention_torch.models.video.dit import cogvideox_5b_config
+    from conceptattention_torch.parallel import make_mesh
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -707,6 +998,7 @@ def video_path(counters):
     torch.cuda.synchronize()
     print(f"video pipeline init seconds {time.perf_counter() - t0:.3f}", flush=True)
     video_reference_checks(pipe)
+    video_ring_reference_checks(pipe, make_mesh(seq=4, devices=[torch.device("cuda", 0)] * 4))
 
     cfg = pipe.cfg
     per_run = cfg.num_layers * STEPS_VIDEO
@@ -890,6 +1182,79 @@ def quantized_video_path(counters):
     return launches[0]
 
 
+def ring_path(counters, bf16_out, conv_per_decode, n=4):
+    """flux-schnell with `attention_backend="ring_rdma"` over a virtual ring
+    of `n` ranks on card 0 (random weights from init_seed 0, the bf16 run's
+    weights): the ring reference checks, `generate_image` (1024x1024, STEPS
+    steps) cold and warm, and `encode_image` cold and warm. Counters are
+    [K4, K1, K2]; K4's step launches are read beside them. Returns
+    {path: (launches, seconds)} of the warm runs."""
+    from conceptattention_torch import ConceptAttentionFluxPipeline
+    from conceptattention_torch.kernels.ring_rdma import ring_attention_rdma
+    from conceptattention_torch.parallel import make_mesh
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mesh = make_mesh(seq=n, devices=[torch.device("cuda", 0)] * n)
+    pipe = ConceptAttentionFluxPipeline("flux-schnell", init_seed=0, attention_backend="ring_rdma",
+                                        mesh=mesh)
+    torch.cuda.synchronize()
+    print(f"ring pipeline (seq={n} on card 0) init seconds {time.perf_counter() - t0:.3f}",
+          flush=True)
+    ring_reference_checks(pipe, mesh)
+    cfg = pipe.cfg
+    image = np.random.default_rng(0).integers(0, 256, (SIZE, SIZE, 3), dtype=np.uint8)
+    runs = {
+        "generate_image (ring_rdma)": (lambda: pipe.generate_image(
+            PROMPT, CONCEPTS, width=SIZE, height=SIZE, num_inference_steps=STEPS,
+            return_pil_heatmaps=False, return_image_array=True),
+            [STEPS * cfg.depth, 1, conv_per_decode]),
+        "encode_image (ring_rdma)": (lambda: pipe.encode_image(
+            image, CONCEPTS, width=SIZE, height=SIZE, return_pil_heatmaps=False),
+            [cfg.depth, 0, 0]),
+    }
+    paths = {}
+    for label, (run, want) in runs.items():
+        seconds = []
+        for _ in range(2):
+            before = ring_attention_rdma.step_launches
+            out, secs, launches = counted(run, counters)
+            steps = ring_attention_rdma.step_launches - before
+            if launches != want or steps != n * want[0]:
+                raise AssertionError(f"{label}: launches [K4, K1, K2] {launches} != {want}, "
+                                     f"or K4 step launches {steps} != {n * want[0]}")
+            check_image_output(out, label)
+            seconds.append(secs)
+        print(f"{label} {SIZE}x{SIZE}: launches [K4, K1, K2] {launches}, K4 step launches {steps}, "
+              f"cold seconds {seconds[0]:.4f}, warm seconds {seconds[1]:.4f}", flush=True)
+        paths[label] = (launches, seconds[1])
+        if label.startswith("generate_image"):
+            agreement = {tap: heatmap_agreement(getattr(out, tap), getattr(bf16_out, tap))
+                         for tap in ("concept_heatmaps", "cross_attention_maps")}
+            print(f"ring_rdma against the fused bf16 run, same weights, prompt and seed: "
+                  f"{json.dumps(agreement)}", flush=True)  # a reading, no limit
+    print(f"ring path peak device memory GiB {torch.cuda.max_memory_allocated() / 2**30:.3f}",
+          flush=True)
+    # The single blocks' plain attention at their shape, as the pipeline runs
+    # it (f32 matmuls in full f32): a reading beside K4's phases.
+    from conceptattention_torch.ops.attention import sdpa
+    from conceptattention_torch.pipeline.concept_pipeline import _full_f32
+
+    s = 256 + (SIZE // 16) ** 2
+    gen = torch.Generator("cuda").manual_seed(10)
+    q, k, v = (torch.randn(1, cfg.num_heads, s, cfg.head_dim, generator=gen, device="cuda").bfloat16()
+               for _ in range(3))
+    with _full_f32():
+        single_ms = time_ms(lambda: sdpa(q, k, v))
+    print(f"ring path single-block plain attention (sdpa, B1 H{cfg.num_heads} S={s} "
+          f"D={cfg.head_dim}): {single_ms:.4f} ms a call, "
+          f"{STEPS * cfg.depth_single_blocks} calls per generate_image", flush=True)
+    del pipe, out, q, k, v
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths
+
+
 def counted(run, counters):
     for fn in counters:
         fn.launches = 0
@@ -918,10 +1283,11 @@ def main() -> int:
         fused_concept_flash_attention_int8,
         fused_concept_flash_attention_paired,
     )
+    from conceptattention_torch.kernels.ring_rdma import ring_attention_rdma
     from conceptattention_torch.models.video.dit import cogvideox_5b_config
 
     t0 = time.perf_counter()
-    logs = _build.build(["flash_saliency", "flash_saliency_int8", "conv3x3"])
+    logs = _build.build(["flash_saliency", "flash_saliency_int8", "conv3x3", "ring_attention"])
     print(f"build seconds {time.perf_counter() - t0:.3f}", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
@@ -932,10 +1298,12 @@ def main() -> int:
     cfg = spec.params
     # Exact-score K1 runs at batch 1 in generate_image (bf16, w8, w4: three
     # runs) and encode_image (bf16); the decodes (K1 at D=512 and K2) run
-    # once per image: bf16, w8a8 + int8_qk, two of generate_images, w8, w4.
+    # once per image: bf16, w8a8 + int8_qk, two of generate_images, w8, w4,
+    # and the ring_rdma generate_image (whose DiT blocks take K4 and the
+    # plain single-block attention).
     n_double = 3 * STEPS * cfg.depth + cfg.depth
     n_single = 3 * STEPS * cfg.depth_single_blocks
-    decodes = 6
+    decodes = 7
     flash = flash_phases(cfg, n_double, n_single, decodes)
     # K1b: generate_image (batch 1) and generate_images (batch 2) with w8a8
     # + int8_qk, and encode_image with int8_qk.
@@ -948,8 +1316,12 @@ def main() -> int:
     # K1 in generate_video (bf16, PAIR_HEADS off) and in the w8a8 run
     video_k1, video_k3 = video_flash_phases(cogvideox_5b_config(), 2 * video_per_run,
                                             video_per_run)
+    # K4 in the ring_rdma generate_image and encode_image (every double block)
+    ring = ring_phases(cfg, cogvideox_5b_config(), STEPS * cfg.depth + cfg.depth)
+    across = cross_card_ring_phase(cfg)
+    ring += [across] if across else []
     torch.cuda.empty_cache()
-    failed = [r["phase"] for r in flash + int8 + conv + video_k1 + video_k3 if not r["ok"]]
+    failed = [r["phase"] for r in flash + int8 + conv + video_k1 + video_k3 + ring if not r["ok"]]
     if failed:
         raise AssertionError(f"kernel phases outside their limits or with a blind control: {failed}")
 
@@ -998,12 +1370,15 @@ def main() -> int:
     print(f"peak device memory GiB {torch.cuda.max_memory_allocated() / 2**30:.3f}", flush=True)
     int8_counters = [fused_concept_flash_attention, fused_concept_flash_attention_int8, conv3x3_same]
     quant_paths = quantized_flux_path(pipe, bf16_out, int8_counters, want_gen[1])
-    del pipe, out, bf16_out
+    del pipe, out
     gc.collect()
     torch.cuda.empty_cache()
     quant_paths.update(random_quantized_paths(int8_counters, want_gen[1]))
     # one run of each path: the warm generate_images stands for it
     quant_paths = {k.replace(" warm", ""): v[0] for k, v in quant_paths.items() if "cold" not in k}
+    ring_paths = ring_path([ring_attention_rdma, fused_concept_flash_attention, conv3x3_same],
+                           bf16_out, want_gen[1])
+    del bf16_out
 
     video_counters = [fused_concept_flash_attention, fused_concept_flash_attention_paired]
     video_summary = video_path(video_counters)
@@ -1042,11 +1417,15 @@ def main() -> int:
         out = dict(base, **{k: v[i] for k, v in quant_paths.items() if v[i]})
         return out, sum(out.values())
 
+    ring_gen = ring_paths["generate_image (ring_rdma)"][0]  # [K4, K1, K2]
     k1_paths, k1_total = per_path(0, {
         "generate_image": want_gen[0], "encode_image": cfg.depth,
-        "generate_video (PAIR_HEADS off)": video_k1_bf16, "generate_video (w8a8)": video_k1_w8a8})
+        "generate_video (PAIR_HEADS off)": video_k1_bf16, "generate_video (w8a8)": video_k1_w8a8,
+        "generate_image (ring_rdma)": ring_gen[1]})
     k1b_paths, k1b_total = per_path(1, {})
-    k2_paths, k2_total = per_path(2, {"generate_image": want_gen[1]})
+    k2_paths, k2_total = per_path(2, {"generate_image": want_gen[1],
+                                      "generate_image (ring_rdma)": ring_gen[2]})
+    k4_paths = {label: launches[0] for label, (launches, _) in ring_paths.items()}
     kernels = [
         entry("flash_saliency", "conceptattention_torch/csrc/flash_saliency.cu",
               "conceptattention_tpu/kernels/flash_saliency.py:305", k1_total, flash + video_k1,
@@ -1059,6 +1438,9 @@ def main() -> int:
         entry("flash_saliency_int8", "conceptattention_torch/csrc/flash_saliency_int8.cu",
               "conceptattention_tpu/kernels/flash_saliency.py:305 (int8_qk)", k1b_total, int8,
               k1b_paths),
+        entry("ring_attention", "conceptattention_torch/csrc/ring_attention.cu",
+              "conceptattention_tpu/kernels/ring_rdma.py:215", sum(k4_paths.values()), ring,
+              k4_paths),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -23,6 +23,7 @@ from conceptattention_torch.kernels.flash_saliency import (
     fused_concept_flash_attention,
 )
 from conceptattention_torch.ops.attention import (
+    RING_BACKENDS,
     ConceptAttentionSpec,
     joint_concept_attention,
     merge_heads,
@@ -171,7 +172,9 @@ def single_block(
     """Single-stream block (parallel attention + MLP). backend "fused" runs
     the self-attention through one flash-saliency kernel launch with RoPE in
     the kernel (int8 q/k scores with `int8_qk`); "sdpa" is the plain
-    reference path, which has no int8 scores."""
+    reference path, which has no int8 scores. The ring backends take the
+    plain path too: the JAX package runs these blocks through XLA's dense
+    SDPA under a ring spec."""
     if int8_qk and backend != "fused":
         raise ValueError(f"int8_qk requires the fused attention backend, got {backend!r}")
     mod, _ = modulation(vec, p["mod"]["w"], p["mod"]["b"], double=False)
@@ -187,7 +190,7 @@ def single_block(
             int8_qk=int8_qk,
         )
         attn = merge_heads(out)
-    elif backend == "sdpa":
+    elif backend == "sdpa" or backend in RING_BACKENDS:
         q, k = apply_rope(q, k, pe)
         attn = merge_heads(sdpa(q, k, v))
     else:

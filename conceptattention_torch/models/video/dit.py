@@ -1,7 +1,10 @@
 """CogVideoX video DiT with a concept-token stream.
 
-Counterpart of the JAX package's `models/video/dit.py` (unquantized, no
-sequence mesh). The diffusers `CogVideoXTransformer3DModel` layout:
+Counterpart of the JAX package's `models/video/dit.py`. The blocks hand
+`spec` to `joint_concept_attention` as it is, so the ring backends
+("ring", "ring_rdma" over `spec.mesh`) split each block's fused sequence
+over the ring as in the flux double blocks. The diffusers
+`CogVideoXTransformer3DModel` layout:
 
   - per-frame 2x2 patchify of the video latents as one linear, and a text
     projection that the concepts share (so the 2B variant's absolute

@@ -11,7 +11,10 @@ from `init_seed` unless parameter trees are passed in (`weights/from_jax.py`);
 DiT block from int8 q and k (K1b).
 
 The pipeline runs on one device, "cuda" unless the caller names another; it
-never falls back to the CPU. On a card the DiT runs in `dtype` (bf16 by
+never falls back to the CPU. With `mesh=` (`parallel.make_mesh(seq=N)`) and a
+ring `attention_backend`, the double blocks' attention is split over the
+mesh's `seq` ring; the parameters live on the mesh's first device. On a
+card the DiT runs in `dtype` (bf16 by
 default), the decode and the saliency stash in bf16, and f32 matmuls and
 convolutions in full f32: `generate_image` and `encode_image` turn TF32 off
 for their own duration and restore the caller's settings after. On the CPU
@@ -37,7 +40,7 @@ from conceptattention_torch.models.text.encoders import (
     TextEncoders,
     embed_concepts,
 )
-from conceptattention_torch.ops.attention import ConceptAttentionSpec
+from conceptattention_torch.ops.attention import RING_BACKENDS, ConceptAttentionSpec
 from conceptattention_torch.ops.packing import make_img_ids, pack_latents, unpack_latents
 from conceptattention_torch.ops.quant import (
     init_flux_params_quantized,
@@ -45,6 +48,7 @@ from conceptattention_torch.ops.quant import (
     resolve_quant_mode,
 )
 from conceptattention_torch.ops.schedule import get_schedule
+from conceptattention_torch.parallel.mesh import Mesh
 from conceptattention_torch.pipeline.heatmaps import heatmaps_to_pil, reduce_maps
 from conceptattention_torch.sampling.rectified_flow import denoise, forward_noise, get_noise
 from conceptattention_torch.utils.images import as_float01_chw
@@ -147,20 +151,38 @@ class ConceptAttentionFluxPipeline:
         attention_backend: str = "fused",
         int8_qk: bool = False,
         lora: Optional[Any] = None,
+        mesh: Optional[Mesh] = None,
     ):
         """`quantize` (False, True / "w8", "w8a8" or "w4") applies when no
         `params` are passed: the layer stacks are drawn already quantized.
         Passed `params` are used as given, quantized or not. `attention_backend`
-        is "fused" (the flash-saliency kernels) or "sdpa" (the plain path);
-        `int8_qk` needs "fused"."""
+        is "fused" (the flash-saliency kernels), "sdpa" (the plain path), or a
+        ring backend over the `seq` axis of `mesh` (`parallel.make_mesh`):
+        "ring_rdma" (the CUDA ring kernel) or "ring" (the plain ring); the
+        double blocks' attention is split over the ring, the single blocks
+        run the plain path. `int8_qk` needs "fused". With a mesh the
+        parameters live on its first device, which is the pipeline's device
+        (a mesh whose only axis above 1 is `seq` replicates them); `device`
+        is then left unset."""
         if lora is not None:
             raise NotImplementedError("LoRA adapters are not ported yet")
-        if attention_backend not in ("fused", "sdpa"):
-            raise ValueError(f"attention_backend must be 'fused' or 'sdpa', got {attention_backend!r}")
+        if attention_backend not in ("fused", "sdpa", *RING_BACKENDS):
+            raise ValueError(
+                f"attention_backend must be 'fused', 'sdpa', 'ring' or 'ring_rdma', "
+                f"got {attention_backend!r}"
+            )
         if int8_qk and attention_backend != "fused":
             raise ValueError(
                 f"int8_qk=True requires the fused attention backend, got {attention_backend!r}"
             )
+        if attention_backend in RING_BACKENDS and mesh is None:
+            raise ValueError(f"attention_backend={attention_backend!r} requires a mesh")
+        if mesh is not None:
+            if device is not None:
+                raise ValueError("pass a device or a mesh, not both: with a mesh the "
+                                 "pipeline runs on the mesh's first device")
+            device = mesh.devices.flat[0]
+        self.mesh = mesh
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
@@ -201,6 +223,7 @@ class ConceptAttentionFluxPipeline:
             backend=attention_backend,
             int8_qk=int8_qk,
             stash_dtype="bf16" if on_card else None,
+            mesh=mesh if attention_backend in RING_BACKENDS else None,
         )
 
     # ------------------------------------------------------------------

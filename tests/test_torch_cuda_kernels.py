@@ -17,6 +17,7 @@ import torch
 
 from conceptattention_torch.kernels import conv3x3 as conv
 from conceptattention_torch.kernels import flash_saliency as fs
+from conceptattention_torch.kernels import ring_rdma as rr
 
 pytestmark = pytest.mark.cuda
 
@@ -213,3 +214,121 @@ def test_conv_kernel_refuses_bad_inputs(dev):
         conv.conv3x3_same(x, w, b)
     with pytest.raises(TypeError):
         conv.conv3x3_same(x.half(), w.half(), b.half())
+
+
+def ring_inputs(gen, n, b, h, lc, d, dev, chunk_offsets=False):
+    """Whole [B, H, N*Lc, D] bf16 q (at 3x scale: a peaked softmax), k, v,
+    and their per-rank shards; with `chunk_offsets` each chunk's values sit
+    4 units apart, so a rank that reads another chunk's slot is far off."""
+    q, k, v = (torch.randn(b, h, n * lc, d, generator=gen, device=dev) for _ in range(3))
+    if chunk_offsets:
+        offset = (4.0 * torch.arange(n, device=dev)).repeat_interleave(lc)[None, None, :, None]
+        v = v + offset
+        k = k + 0.25 * offset
+    q, k, v = (3 * q).bfloat16(), k.bfloat16(), v.bfloat16()
+
+    def split(x):
+        return [x[:, :, r * lc:(r + 1) * lc].contiguous() for r in range(n)]
+
+    return (q, k, v), (split(q), split(k), split(v))
+
+
+@pytest.mark.parametrize(
+    "n,b,h,lc,d,t,p,c,cross,self_attention",
+    [
+        (1, 1, 2, 100, 32, 20, 70, 3, True, True),      # one rank, pad rows
+        (2, 2, 3, 67, 128, 20, 100, 5, True, False),    # ragged Lc
+        (2, 1, 2, 64, 64, 16, 96, 8, False, True),
+        (3, 1, 2, 50, 64, 10, 120, 6, True, True),       # odd ring
+        (4, 1, 2, 75, 64, 20, 200, 10, True, True),      # concepts split across chunks 2 and 3
+        (4, 1, 2, 75, 128, 20, 200, 10, False, True),
+        (4, 2, 2, 75, 32, 20, 200, 10, True, False),
+        (4, 1, 2, 75, 128, 20, 200, 10, False, False),  # concept rows see nothing
+        (4, 1, 3, 1089, 128, 256, 4096, 3, True, True),  # the flux double block's chunks, 3 heads
+    ],
+)
+def test_ring_kernel_matches_plain(dev, n, b, h, lc, d, t, p, c, cross, self_attention):
+    """K4 on a virtual ring of N ranks on one card against its plain version,
+    and padded rows exactly zero."""
+    gen = torch.Generator(dev).manual_seed(5)
+    _, (qs, ks, vs) = ring_inputs(gen, n, b, h, lc, d, dev)
+    kw = dict(masked=True, txt_len=t, img_len=p, concept_len=c, cross=cross,
+              self_attention=self_attention)
+    before = (rr.ring_attention_rdma.launches, rr.ring_attention_rdma.step_launches)
+    got = rr.ring_attention_rdma(qs, ks, vs, **kw)
+    torch.cuda.synchronize()
+    assert (rr.ring_attention_rdma.launches, rr.ring_attention_rdma.step_launches) == (
+        before[0] + 1, before[1] + n)
+    want = torch.cat(rr.ring_attention_rdma_plain(qs, ks, vs, **kw), dim=2)
+    got = torch.cat(got, dim=2)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert (got.float() - want.float()).abs().max().item() <= bf16_limit(want)
+    seen_by_nothing = t + p + (c if (cross or self_attention) else 0)
+    assert torch.count_nonzero(got[:, :, seen_by_nothing:]).item() == 0
+
+
+@pytest.mark.parametrize("n", [2, 4, 5])
+def test_ring_kernel_slot_reuse(dev, n):
+    """Unmasked ring with each chunk's values 4 units apart: a hop that lands
+    in a slot still being read, or a step that reads a stale slot, moves the
+    output by whole units. Many heads keep each step long enough for the
+    copies to race it."""
+    b, h, lc, d = 2, 16, 256, 64
+    gen = torch.Generator(dev).manual_seed(6)
+    (q, k, v), (qs, ks, vs) = ring_inputs(gen, n, b, h, lc, d, dev, chunk_offsets=True)
+    for _ in range(3):
+        got = torch.cat(rr.ring_attention_rdma(qs, ks, vs), dim=2)
+        torch.cuda.synchronize()
+        want = torch.cat(rr.ring_attention_rdma_plain(qs, ks, vs), dim=2)
+        assert (got.float() - want.float()).abs().max().item() <= bf16_limit(want)
+    dense = fs.fused_concept_flash_attention_plain(q, k, v, n * lc, 0, 0)
+    assert (got.float() - dense.float()).abs().max().item() <= bf16_limit(dense)
+
+
+def test_ring_backend_matches_dense_fused_attention(dev):
+    """The whole-tensor wrapper on `make_mesh(seq=4)` over one card (a
+    virtual ring), against the dense fused attention's plain version: the
+    same [txt | img | concept | pad] contract, computed without a ring."""
+    from conceptattention_torch.parallel import make_mesh
+
+    n, t, p, c, d = 4, 40, 230, 6, 128
+    s = t + p + c + 4  # padded to a multiple of 4
+    gen = torch.Generator(dev).manual_seed(7)
+    q, k, v = (torch.randn(1, 2, s, d, generator=gen, device=dev) for _ in range(3))
+    q, k, v = (3 * q).bfloat16(), k.bfloat16(), v.bfloat16()
+    mesh = make_mesh(seq=n, devices=[dev] * n)
+    fn = rr.make_ring_concept_attention_rdma(mesh, "seq", t, p, c)
+    got = fn(q, k, v)
+    torch.cuda.synchronize()
+    want = fs.fused_concept_flash_attention_plain(q, k, v, t, p, c)
+    assert got.shape == q.shape and got.device == q.device
+    assert (got.float() - want.float()).abs().max().item() <= bf16_limit(want)
+
+
+def test_ring_kernel_across_cards():
+    """A ring of 2 across cards 0 and 1: each rank's q, state and comm
+    buffers on its own card, the hops peer copies."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    devs = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    gen = torch.Generator(devs[0]).manual_seed(8)
+    _, (qs, ks, vs) = ring_inputs(gen, 2, 1, 4, 300, 128, devs[0], chunk_offsets=True)
+    qs, ks, vs = ([x.to(d) for x, d in zip(xs, devs)] for xs in (qs, ks, vs))
+    kw = dict(masked=True, txt_len=50, img_len=500, concept_len=7)
+    got = rr.ring_attention_rdma(qs, ks, vs, **kw)
+    for d_ in devs:
+        torch.cuda.synchronize(d_)
+    want = rr.ring_attention_rdma_plain(qs, ks, vs, **kw)
+    for g, w, d_ in zip(got, want, devs):
+        assert g.device == d_
+        assert (g.float() - w.float()).abs().max().item() <= bf16_limit(w)
+
+
+@pytest.mark.parametrize("d,dtype", [(48, torch.bfloat16), (512, torch.bfloat16), (64, torch.float32)])
+def test_ring_kernel_refuses_bad_inputs(dev, d, dtype):
+    """An unsupported head dim or type raises on the card: no fallback."""
+    qs = [torch.zeros(1, 2, 64, d, device=dev, dtype=dtype) for _ in range(2)]
+    before = (rr.ring_attention_rdma.launches, rr.ring_attention_rdma.step_launches)
+    with pytest.raises((ValueError, TypeError)):
+        rr.ring_attention_rdma(qs, qs, qs)
+    assert (rr.ring_attention_rdma.launches, rr.ring_attention_rdma.step_launches) == before

@@ -358,9 +358,13 @@ def test_random_quantized_video_init(mode):
 
 
 @pytest.mark.parametrize("mode", MODES)
-def test_quantized_video_forward_matches_jax(mode):
+def test_quantized_video_forward_matches_jax(mode, monkeypatch):
     """The tiny CogVideoX DiT with its blocks quantized by each package (the
-    values equal), forward against the JAX forward, jitted."""
+    values equal), forward against the JAX forward, jitted. The JAX side
+    runs first, in a fresh jit; with w8a8 cells the port takes its int8
+    activations (`SharedActivationRounding`): both DiTs quantize through the
+    flux blocks' `_linear`, which looks the quantizer up where it is patched."""
+    shared = SharedActivationRounding(monkeypatch)
     t_cfg, j_cfg = t_vdit.CogVideoXConfig(**VIDEO_TINY), j_vdit.CogVideoXConfig(**VIDEO_TINY)
     dense = j_vdit.init_video_dit_params(jax.random.PRNGKey(0), j_cfg, jnp.float32)
     j_tree = j_quant.quantize_video_dit_params(dense, min_size=0, mode=mode)
@@ -374,12 +378,16 @@ def test_quantized_video_forward_matches_jax(mode):
     args = dict(video=rand(40, 2, 3, 4, 8, 8), text=rand(41, 2, 6, 16),
                 timestep=np.array([999.0, 500.0], np.float32))
     concepts = rand(42, 2, 6, 16)
+    fwd = jax.jit(lambda tree, *a, **kw: j_vdit.video_dit_forward(tree, j_cfg, *a, **kw),
+                  static_argnames=("spec",))
+    want_pred, want_sal = fwd(j_tree, *(jnp.asarray(a) for a in args.values()),
+                              concepts=jnp.asarray(concepts), spec=j_attn.ConceptAttentionSpec())
+    jax.effects_barrier()
     got_pred, got_sal = t_vdit.video_dit_forward(
         t_tree, t_cfg, *(torch.from_numpy(a) for a in args.values()),
         concepts=torch.from_numpy(concepts))
-    fwd = jax.jit(j_vdit.video_dit_forward, static_argnames=("cfg", "spec"))
-    want_pred, want_sal = fwd(j_tree, j_cfg, *(jnp.asarray(a) for a in args.values()),
-                              concepts=jnp.asarray(concepts), spec=j_attn.ConceptAttentionSpec())
+    if mode == "w8a8":
+        shared.check()
     close(got_pred, want_pred, msg="pred")
     for tap in ("output", "cross_attention"):
         close(got_sal[tap], want_sal[tap], msg=tap)
