@@ -14,7 +14,9 @@ Run from the root of a checkout: `python3 chip_smoke.py`. In order it
    on card 0, and on a ring of 2 across cards 0 and 1 where there are two),
    shows with planted controls (the plain version with one fault) that each
    limit sees such a fault, and times kernel, plain version and one library
-   call that computes the same function (the port never calls it);
+   call that computes the same function (the port never calls it); where a
+   redesigned Hopper instance took over a shape (K1 at head dim 128, K2 in
+   bf16), the earlier kernel's time on the same input is read beside it;
 4. checks the full-width models against their plain reference paths on a
    small input (DiT blocks: kernel vs SDPA backend, and the ring_rdma
    backend vs the fused one, with a control for each limit; VAE decodes:
@@ -30,9 +32,10 @@ Run from the root of a checkout: `python3 chip_smoke.py`. In order it
    CogVideoX-5b `generate_video` (13 latent frames of 60x90,
    STEPS_VIDEO steps, 3 concepts) cold and warm, once with the head-paired
    kernel, once with DPM-Solver++, decodes a short clip, and runs once with
-   its blocks quantized to w8a8; every kernel's launch count is set to 0
-   just before and read just after each run;
-6. prints one `kernels` JSON line, then the result line.
+   its blocks quantized to w8a8; every kernel's launch count (and each
+   Hopper instance's) is set to 0 just before and read just after each run;
+6. prints the Hopper instances' launches on the bf16 `generate_image` and
+   `encode_image`, one `kernels` JSON line, then the result line.
 Any failed check raises, so the script exits non-zero and prints no result.
 """
 
@@ -185,6 +188,21 @@ def drop_key_tile(want, args, start, **kw):
     return out
 
 
+def mma_sync_reading(args):
+    """Readings beside a head-dim-128 K1 phase: the mma.sync kernel
+    (`csrc/flash_saliency.cu`, which took head dim 128 before the Hopper
+    instance) on the same input, launched directly, uncounted; and the
+    Hopper instance's RoPE pre-pass alone."""
+    from conceptattention_torch.kernels import flash_saliency as fs
+
+    q, k, *_, cos, sin = args
+
+    def extra(got):
+        return {"mma_sync_ms": time_ms(lambda: fs._launch("ca_flash_saliency_bf16", *args)),
+                "rope_prepass_ms": time_ms(lambda: fs.rope_qk_rows_cuda(q, k, cos, sin))}
+    return extra
+
+
 def flash_phases(cfg, main_double, main_single, main_vae):
     from conceptattention_torch.kernels import flash_saliency as fs
     from conceptattention_torch.ops.packing import make_img_ids
@@ -240,6 +258,7 @@ def flash_phases(cfg, main_double, main_single, main_vae):
             lambda m=mask: F.scaled_dot_product_attention(qr, kr, v, attn_mask=m),
             4 * d * n_pairs * h, 4 * h * s * d * 2 + 2 * s * d * 4,
             main_double if (cross and self_attention) else 0, segments, controls,
+            extra=mma_sync_reading(args),
         ))
 
     s = t + p
@@ -254,6 +273,7 @@ def flash_phases(cfg, main_double, main_single, main_vae):
         lambda: F.scaled_dot_product_attention(qs, ks, v),
         4 * d * s * s * h, 4 * h * s * d * 2 + 2 * s * d * 4, main_single,
         controls=[("one key tile dropped", "all", lambda want: drop_key_tile(want, args, t + 64 * 32))],
+        extra=mma_sync_reading(args),
     ))
 
     s, d = (SIZE // 8) ** 2, 512
@@ -757,7 +777,15 @@ def decoder_conv_shapes(ae_cfg, latent: int) -> Counter:
 
 
 def conv_phases(conv_counts: Counter, decodes: int):
-    from conceptattention_torch.kernels.conv3x3 import conv3x3_same, conv3x3_same_plain
+    """K2 at every decoder shape the gate admits (and one with swish): the
+    Hopper instance against the plain version, with the generic kernel
+    (`csrc/conv3x3.cu`, which took these shapes before it) timed beside it."""
+    from conceptattention_torch.kernels.conv3x3 import (
+        conv3x3_instance,
+        conv3x3_same,
+        conv3x3_same_generic,
+        conv3x3_same_plain,
+    )
 
     gen = torch.Generator("cuda").manual_seed(2)
     results = []
@@ -771,6 +799,8 @@ def conv_phases(conv_counts: Counter, decodes: int):
         w_drop = w.clone()
         w_drop[0, 0, :32] = 0  # a kernel that skips one 32-deep K tile
         library = None if swish else (lambda: F.conv2d(x_nchw, w_oihw, b, padding=1))
+        if conv3x3_instance(x.dtype, cin, cout) != "hopper":
+            raise AssertionError(f"decoder conv {res}x{res} {cin}->{cout} would not take the Hopper K2")
         results.append(phase_result(
             f"conv3x3 H=W={res} Cin={cin} Cout={cout} swish={swish}",
             lambda: conv3x3_same(x, w, b, swish), lambda: conv3x3_same_plain(x, w, b, swish),
@@ -779,6 +809,7 @@ def conv_phases(conv_counts: Counter, decodes: int):
             0 if swish else decodes * conv_counts[(res, cin, cout)],
             controls=[("one K tile dropped", "all",
                        lambda _, wd=w_drop: conv3x3_same_plain(x, wd, b, swish))],
+            extra=lambda _: {"generic_ms": time_ms(lambda: conv3x3_same_generic(x, w, b, swish))},
         ))
     return results
 
@@ -1068,7 +1099,7 @@ def quantized_flux_path(pipe, bf16_out, counters, conv_per_decode):
     quantized by `quantize_flux_params`, the VAE shared): `generate_image`
     against the bf16 run's heatmaps, `generate_images` of two prompts
     (seeds 0 and 1) cold and warm, and `encode_image`. Counters are
-    [K1, K1b, K2]. Returns {path: (launches, seconds)}."""
+    [K1, K1b, K2, K1 hopper, K2 hopper]. Returns {path: (launches, seconds)}."""
     from conceptattention_torch import ConceptAttentionFluxPipeline
     from conceptattention_torch.ops.quant import quantize_flux_params
 
@@ -1088,15 +1119,16 @@ def quantized_flux_path(pipe, bf16_out, counters, conv_per_decode):
     def run(label, fn, want):
         out, seconds, launches = counted(fn, counters)
         if launches != want:
-            raise AssertionError(f"{label}: launches [K1, K1b, K2] {launches} != {want}")
+            raise AssertionError(f"{label}: launches [K1, K1b, K2, K1 hopper, K2 hopper] {launches} != {want}")
         for o in out if isinstance(out, list) else [out]:
             check_image_output(o, label)
-        print(f"{label}: launches [K1, K1b, K2] {launches}, seconds {seconds:.4f}", flush=True)
+        print(f"{label}: launches [K1, K1b, K2, K1 hopper, K2 hopper] {launches}, seconds {seconds:.4f}", flush=True)
         paths[label] = (launches, seconds)
         return out
 
     one = run("generate_image (w8a8, int8_qk, same weights)",
-              lambda: qpipe.generate_image(PROMPT, CONCEPTS, **gen_kw), [1, per_image, conv_per_decode])
+              lambda: qpipe.generate_image(PROMPT, CONCEPTS, **gen_kw),
+              [1, per_image, conv_per_decode, 0, conv_per_decode])
     agreement = {tap: heatmap_agreement(getattr(one, tap), getattr(bf16_out, tap))
                  for tap in ("concept_heatmaps", "cross_attention_maps")}  # a reading, no limit
     print(f"w8a8 + int8_qk against bf16, same weights, prompt and seed: {json.dumps(agreement)}",
@@ -1104,20 +1136,20 @@ def quantized_flux_path(pipe, bf16_out, counters, conv_per_decode):
     for label in ("cold", "warm"):
         outs = run(f"generate_images (w8a8, int8_qk, batch 2) {label}",
                    lambda: qpipe.generate_images([PROMPT] * 2, CONCEPTS, seeds=[0, 1], **gen_kw),
-                   [2, per_image, 2 * conv_per_decode])
+                   [2, per_image, 2 * conv_per_decode, 0, 2 * conv_per_decode])
     seed0 = {"concept_heatmaps max abs diff": float(np.abs(
         outs[0].concept_heatmaps - one.concept_heatmaps).max())}
     print(f"generate_images seed 0 against generate_image seed 0: {json.dumps(seed0)}", flush=True)
     image = np.random.default_rng(0).integers(0, 256, (SIZE, SIZE, 3), dtype=np.uint8)
     enc = run("encode_image (int8_qk)", lambda: qpipe.encode_image(
-        image, CONCEPTS, width=SIZE, height=SIZE, return_pil_heatmaps=False), [0, cfg.depth, 0])
+        image, CONCEPTS, width=SIZE, height=SIZE, return_pil_heatmaps=False), [0, cfg.depth, 0, 0, 0])
     del enc
     return paths
 
 
 def random_quantized_paths(counters, conv_per_decode):
     """flux-schnell with random already-quantized weights (`quantize="w8"`
-    and `"w4"`): init, then one `generate_image`. Counters are [K1, K1b, K2]."""
+    and `"w4"`): init, then one `generate_image`. Counters are [K1, K1b, K2, K1 hopper, K2 hopper]."""
     from conceptattention_torch import ConceptAttentionFluxPipeline
 
     paths = {}
@@ -1128,7 +1160,8 @@ def random_quantized_paths(counters, conv_per_decode):
         torch.cuda.synchronize()
         init_seconds = time.perf_counter() - t0
         cfg = pipe.cfg
-        want = [STEPS * (cfg.depth + cfg.depth_single_blocks) + 1, 0, conv_per_decode]
+        per_image = STEPS * (cfg.depth + cfg.depth_single_blocks)
+        want = [per_image + 1, 0, conv_per_decode, per_image, conv_per_decode]
         out, seconds, launches = counted(lambda: pipe.generate_image(
             PROMPT, CONCEPTS, width=SIZE, height=SIZE, num_inference_steps=STEPS,
             return_pil_heatmaps=False, return_image_array=True), counters)
@@ -1137,7 +1170,7 @@ def random_quantized_paths(counters, conv_per_decode):
         check_image_output(out, f"generate_image ({mode})")
         peak = torch.cuda.max_memory_allocated() / 2**30
         print(f"generate_image ({mode}, random quantized init) {SIZE}x{SIZE} {STEPS} steps: "
-              f"launches [K1, K1b, K2] {launches}, init seconds {init_seconds:.3f}, "
+              f"launches [K1, K1b, K2, K1 hopper, K2 hopper] {launches}, init seconds {init_seconds:.3f}, "
               f"seconds {seconds:.4f}, peak device memory GiB {peak:.3f}", flush=True)
         paths[f"generate_image ({mode})"] = (launches, seconds)
         del pipe, out
@@ -1187,7 +1220,7 @@ def ring_path(counters, bf16_out, conv_per_decode, n=4):
     of `n` ranks on card 0 (random weights from init_seed 0, the bf16 run's
     weights): the ring reference checks, `generate_image` (1024x1024, STEPS
     steps) cold and warm, and `encode_image` cold and warm. Counters are
-    [K4, K1, K2]; K4's step launches are read beside them. Returns
+    [K4, K1, K2, K1 hopper, K2 hopper]; K4's step launches are read beside them. Returns
     {path: (launches, seconds)} of the warm runs."""
     from conceptattention_torch import ConceptAttentionFluxPipeline
     from conceptattention_torch.kernels.ring_rdma import ring_attention_rdma
@@ -1208,10 +1241,10 @@ def ring_path(counters, bf16_out, conv_per_decode, n=4):
         "generate_image (ring_rdma)": (lambda: pipe.generate_image(
             PROMPT, CONCEPTS, width=SIZE, height=SIZE, num_inference_steps=STEPS,
             return_pil_heatmaps=False, return_image_array=True),
-            [STEPS * cfg.depth, 1, conv_per_decode]),
+            [STEPS * cfg.depth, 1, conv_per_decode, 0, conv_per_decode]),
         "encode_image (ring_rdma)": (lambda: pipe.encode_image(
             image, CONCEPTS, width=SIZE, height=SIZE, return_pil_heatmaps=False),
-            [cfg.depth, 0, 0]),
+            [cfg.depth, 0, 0, 0, 0]),
     }
     paths = {}
     for label, (run, want) in runs.items():
@@ -1221,11 +1254,11 @@ def ring_path(counters, bf16_out, conv_per_decode, n=4):
             out, secs, launches = counted(run, counters)
             steps = ring_attention_rdma.step_launches - before
             if launches != want or steps != n * want[0]:
-                raise AssertionError(f"{label}: launches [K4, K1, K2] {launches} != {want}, "
+                raise AssertionError(f"{label}: launches [K4, K1, K2, K1 hopper, K2 hopper] {launches} != {want}, "
                                      f"or K4 step launches {steps} != {n * want[0]}")
             check_image_output(out, label)
             seconds.append(secs)
-        print(f"{label} {SIZE}x{SIZE}: launches [K4, K1, K2] {launches}, K4 step launches {steps}, "
+        print(f"{label} {SIZE}x{SIZE}: launches [K4, K1, K2, K1 hopper, K2 hopper] {launches}, K4 step launches {steps}, "
               f"cold seconds {seconds[0]:.4f}, warm seconds {seconds[1]:.4f}", flush=True)
         paths[label] = (launches, seconds[1])
         if label.startswith("generate_image"):
@@ -1277,9 +1310,10 @@ def main() -> int:
     from conceptattention_torch import ConceptAttentionFluxPipeline
     from conceptattention_torch.config import configs
     from conceptattention_torch.kernels import _build
-    from conceptattention_torch.kernels.conv3x3 import conv3x3_same
+    from conceptattention_torch.kernels.conv3x3 import conv3x3_same, conv3x3_same_hopper
     from conceptattention_torch.kernels.flash_saliency import (
         fused_concept_flash_attention,
+        fused_concept_flash_attention_hopper,
         fused_concept_flash_attention_int8,
         fused_concept_flash_attention_paired,
     )
@@ -1287,7 +1321,8 @@ def main() -> int:
     from conceptattention_torch.models.video.dit import cogvideox_5b_config
 
     t0 = time.perf_counter()
-    logs = _build.build(["flash_saliency", "flash_saliency_int8", "conv3x3", "ring_attention"])
+    logs = _build.build(["flash_saliency", "flash_saliency_sm90", "flash_saliency_int8", "conv3x3",
+                         "conv3x3_sm90", "ring_attention"])
     print(f"build seconds {time.perf_counter() - t0:.3f}", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
@@ -1332,8 +1367,10 @@ def main() -> int:
     print(f"pipeline init seconds {time.perf_counter() - t0:.3f}", flush=True)
     reference_checks(pipe)
 
-    counters = [fused_concept_flash_attention, conv3x3_same]
-    want_gen = [STEPS * (cfg.depth + cfg.depth_single_blocks) + 1, sum(conv_counts.values())]
+    hopper = [fused_concept_flash_attention_hopper, conv3x3_same_hopper]
+    counters = [fused_concept_flash_attention, conv3x3_same] + hopper
+    per_image = STEPS * (cfg.depth + cfg.depth_single_blocks)
+    want_gen = [per_image + 1, sum(conv_counts.values()), per_image, sum(conv_counts.values())]
     gen_seconds = []
     for _ in range(2):
         out, seconds, launches = counted(lambda: pipe.generate_image(
@@ -1360,15 +1397,20 @@ def main() -> int:
             image, CONCEPTS, width=SIZE, height=SIZE, return_pil_heatmaps=False,
         ), counters)
         enc_seconds.append(seconds)
-        if launches != [cfg.depth, 0]:
-            raise AssertionError(f"encode_image launches {launches} != {[cfg.depth, 0]}")
+        if launches != [cfg.depth, 0, cfg.depth, 0]:
+            raise AssertionError(f"encode_image launches {launches} != {[cfg.depth, 0, cfg.depth, 0]}")
         for maps in (out.concept_heatmaps, out.cross_attention_maps):
             if maps.shape != (len(CONCEPTS), grid, grid) or not np.isfinite(maps).all():
                 raise AssertionError(f"bad heatmaps {maps.shape}")
     print(f"encode_image {SIZE}x{SIZE}: launches {{'flash_saliency': {cfg.depth}}}, "
           f"cold seconds {enc_seconds[0]:.4f}, warm seconds {enc_seconds[1]:.4f}", flush=True)
     print(f"peak device memory GiB {torch.cuda.max_memory_allocated() / 2**30:.3f}", flush=True)
-    int8_counters = [fused_concept_flash_attention, fused_concept_flash_attention_int8, conv3x3_same]
+    names = ["flash_saliency", "conv3x3", "flash_saliency (Hopper instance)", "conv3x3 (Hopper instance)"]
+    print("launches per kernel instance: " + json.dumps({
+        "generate_image": dict(zip(names, want_gen)),
+        "encode_image": dict(zip(names, [cfg.depth, 0, cfg.depth, 0]))}), flush=True)
+    int8_counters = [fused_concept_flash_attention, fused_concept_flash_attention_int8,
+                     conv3x3_same] + hopper
     quant_paths = quantized_flux_path(pipe, bf16_out, int8_counters, want_gen[1])
     del pipe, out
     gc.collect()
@@ -1376,7 +1418,7 @@ def main() -> int:
     quant_paths.update(random_quantized_paths(int8_counters, want_gen[1]))
     # one run of each path: the warm generate_images stands for it
     quant_paths = {k.replace(" warm", ""): v[0] for k, v in quant_paths.items() if "cold" not in k}
-    ring_paths = ring_path([ring_attention_rdma, fused_concept_flash_attention, conv3x3_same],
+    ring_paths = ring_path([ring_attention_rdma, fused_concept_flash_attention, conv3x3_same] + hopper,
                            bf16_out, want_gen[1])
     del bf16_out
 
@@ -1387,7 +1429,7 @@ def main() -> int:
     video_k1_bf16 = video_summary["ddim warm"]["launches [K1, K3]"][0]
     video_k3_paired = video_summary["ddim heads paired"]["launches [K1, K3]"][1]
 
-    def entry(name, source, replaces, launches, phases, per_path):
+    def entry(name, source, replaces, launches, phases, per_path, **more):
         on_path = [r for r in phases if r["main_path_launches"]]
         if sum(r["main_path_launches"] for r in on_path) != launches:
             raise AssertionError(f"{name}: per-shape launches do not add up to {launches}")
@@ -1406,6 +1448,7 @@ def main() -> int:
             "bound_by": "operations" if 2 * ops_ms >= total("bound_ms") else "bytes",
             "library_ms": total("library_ms"),
             "launches_per_path": per_path,
+            **more,
             "ms_basis": "per main paths (one run of each path in launches_per_path): "
                         "sum over shapes of launches x median ms; kernel and library on the "
                         "full shape, plain on the head subset at the video shape (plain_basis)",
@@ -1417,7 +1460,7 @@ def main() -> int:
         out = dict(base, **{k: v[i] for k, v in quant_paths.items() if v[i]})
         return out, sum(out.values())
 
-    ring_gen = ring_paths["generate_image (ring_rdma)"][0]  # [K4, K1, K2]
+    ring_gen = ring_paths["generate_image (ring_rdma)"][0]  # [K4, K1, K2, K1 hopper, K2 hopper]
     k1_paths, k1_total = per_path(0, {
         "generate_image": want_gen[0], "encode_image": cfg.depth,
         "generate_video (PAIR_HEADS off)": video_k1_bf16, "generate_video (w8a8)": video_k1_w8a8,
@@ -1427,14 +1470,23 @@ def main() -> int:
                                       "generate_image (ring_rdma)": ring_gen[2]})
     k4_paths = {label: launches[0] for label, (launches, _) in ring_paths.items()}
     kernels = [
-        entry("flash_saliency", "conceptattention_torch/csrc/flash_saliency.cu",
+        entry("flash_saliency", "conceptattention_torch/csrc/flash_saliency_sm90.cu",
               "conceptattention_tpu/kernels/flash_saliency.py:305", k1_total, flash + video_k1,
-              k1_paths),
+              k1_paths, instances={
+                  "conceptattention_torch/csrc/flash_saliency_sm90.cu": "head dim 128 (Hopper)",
+                  "conceptattention_torch/csrc/flash_saliency.cu": "head dims 32, 64, 512 (mma.sync)"},
+              hopper_launches_per_path={"generate_image": want_gen[2], "encode_image": cfg.depth,
+                                        **{k: v[3] for k, v in quant_paths.items() if v[3]}}),
         entry("flash_saliency_paired", "conceptattention_torch/csrc/flash_saliency.cu",
               "conceptattention_tpu/kernels/flash_saliency.py:670", video_k3_paired, video_k3,
               {"generate_video (PAIR_HEADS on)": video_k3_paired}),
-        entry("conv3x3", "conceptattention_torch/csrc/conv3x3.cu",
-              "conceptattention_tpu/kernels/conv3x3.py:91", k2_total, conv, k2_paths),
+        entry("conv3x3", "conceptattention_torch/csrc/conv3x3_sm90.cu",
+              "conceptattention_tpu/kernels/conv3x3.py:91", k2_total, conv, k2_paths, instances={
+                  "conceptattention_torch/csrc/conv3x3_sm90.cu": "bf16, Cin % 64 == 0 (Hopper)",
+                  "conceptattention_torch/csrc/conv3x3.cu": "f32, other bf16 channel counts"},
+              hopper_launches_per_path={"generate_image": want_gen[3],
+                                        "generate_image (ring_rdma)": ring_gen[4],
+                                        **{k: v[4] for k, v in quant_paths.items() if v[4]}}),
         entry("flash_saliency_int8", "conceptattention_torch/csrc/flash_saliency_int8.cu",
               "conceptattention_tpu/kernels/flash_saliency.py:305 (int8_qk)", k1b_total, int8,
               k1b_paths),

@@ -13,9 +13,12 @@ Rows that see nothing (padding, or concepts with both ablations off) come out
 as exact zeros. Interleaved-pair RoPE is applied inside the kernel from the
 expanded tables of `expand_rope_tables`.
 
-`fused_concept_flash_attention` (K1) launches `csrc/flash_saliency.cu` for a
-CUDA tensor and runs `fused_concept_flash_attention_plain` for a CPU tensor;
-it never falls back from one to the other. `fused_concept_flash_attention_paired`
+`fused_concept_flash_attention` (K1) runs `fused_concept_flash_attention_plain`
+for a CPU tensor and, for a CUDA tensor, launches the instance that
+`flash_instance` names for its head dim: `fused_concept_flash_attention_hopper`
+(head dim 128: `csrc/flash_saliency_sm90.cu`, a RoPE pre-pass, then TMA, an
+mbarrier ring and wgmma) or `csrc/flash_saliency.cu` (head dims 32, 64, 512:
+mma.sync). It never falls back from one to another. `fused_concept_flash_attention_paired`
 (K3) is the same function for head dim 64, an even head count and RoPE,
 launched as the kernel's two-heads-per-block instance; `joint_concept_attention_fused`
 takes it for such inputs when `PAIR_HEADS` is set (off by default, as the JAX
@@ -41,6 +44,7 @@ from conceptattention_torch.ops.quant import INV127
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634  # log2(e): the softmax runs in the exp2 domain
 KERNEL_HEAD_DIMS = (32, 64, 128, 512)
+HOPPER_HEAD_DIMS = (128,)  # the flux DiT blocks; the rest stay on mma.sync
 INT8_HEAD_DIMS = (32, 64, 128)  # K1b's instances; the VAE's D=512 never takes int8
 PAIRED_HEAD_DIM = 64
 # Route d=64 attention with an even head count through K3 (the head-paired
@@ -97,6 +101,40 @@ def quantize_qk_rows_plain(q, k, rope_cos=None, rope_sin=None):
     return q8, qs, k8, ks
 
 
+def rope_qk_rows_plain(q, k, rope_cos, rope_sin):
+    """The Hopper instance's pre-pass in plain PyTorch: (q', k') [B, H, S, D]
+    with q' = rope(q) * log2(e)/sqrt(D) in f32 rounded to q's dtype and k' =
+    rope(k) in f32 rounded to k's dtype, over the expanded [B, S, D] tables.
+    The attention of q' and k' without tables at score scale 1 is the
+    attention of q and k with them."""
+    scale = LOG2E / math.sqrt(q.shape[-1])
+    cos, sin = rope_cos[:, None], rope_sin[:, None]  # [B, 1, S, D]
+    qf, kf = q.float(), k.float()
+    return (((qf * cos + _pair_swap(qf) * sin) * scale).to(q.dtype),
+            (kf * cos + _pair_swap(kf) * sin).to(k.dtype))
+
+
+def scaled_concept_attention_plain(q, k, v, txt_len, img_len, concept_len, cross=True,
+                                   self_attention=True, score_scale=1.0):
+    """The segment-masked exp2-softmax attention of q and k as given: f32
+    scores times `score_scale`, P rounded to v's dtype, f32 P.V; rows that
+    see nothing come out as zeros."""
+    scores = (q.float() @ k.float().transpose(-1, -2)) * score_scale
+    return _masked_softmax_pv(scores, v, txt_len, img_len, concept_len, cross, self_attention)
+
+
+def _masked_softmax_pv(scores, v, txt_len, img_len, concept_len, cross, self_attention):
+    allowed = segment_mask(
+        scores.shape[-1], txt_len, img_len, concept_len, cross, self_attention, scores.device
+    )
+    scores = scores.masked_fill(~allowed, NEG_INF)
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.exp2(scores - m).masked_fill(~allowed, 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    acc = p.to(v.dtype).float() @ v.float()
+    return (acc / torch.where(l == 0, torch.ones_like(l), l)).to(v.dtype)
+
+
 def fused_concept_flash_attention_plain(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -117,31 +155,19 @@ def fused_concept_flash_attention_plain(
     times their row scales (and log2(e)/sqrt(D) without tables); the integer
     sums are exact in an f32 product, whose partial sums stay below 2^24
     for D <= 512."""
-    d = q.shape[-1]
-    scale = LOG2E / math.sqrt(d)
-    if int8_qk:
-        q8, qs, k8, ks = quantize_qk_rows_plain(q, k, rope_cos, rope_sin)
-        s32 = q8.float() @ k8.float().transpose(-1, -2)
-        scores = s32 * (qs[..., :, None] * ks[..., None, :])
-        if rope_cos is None:
-            scores = scores * scale
-    elif rope_cos is not None:
-        cos, sin = rope_cos[:, None], rope_sin[:, None]  # [B, 1, S, D]
-        qf, kf = q.float(), k.float()
-        q = ((qf * cos + _pair_swap(qf) * sin) * scale).to(q.dtype)
-        k = (kf * cos + _pair_swap(kf) * sin).to(k.dtype)
-        scores = q.float() @ k.float().transpose(-1, -2)
-    else:
-        scores = (q.float() @ k.float().transpose(-1, -2)) * scale
-    allowed = segment_mask(
-        q.shape[2], txt_len, img_len, concept_len, cross, self_attention, q.device
-    )
-    scores = scores.masked_fill(~allowed, NEG_INF)
-    m = scores.amax(dim=-1, keepdim=True)
-    p = torch.exp2(scores - m).masked_fill(~allowed, 0.0)
-    l = p.sum(dim=-1, keepdim=True)
-    acc = p.to(v.dtype).float() @ v.float()
-    return (acc / torch.where(l == 0, torch.ones_like(l), l)).to(v.dtype)
+    segments = (txt_len, img_len, concept_len, cross, self_attention)
+    if not int8_qk:
+        if rope_cos is not None:
+            return scaled_concept_attention_plain(
+                *rope_qk_rows_plain(q, k, rope_cos, rope_sin), v, *segments)
+        return scaled_concept_attention_plain(
+            q, k, v, *segments, score_scale=LOG2E / math.sqrt(q.shape[-1]))
+    q8, qs, k8, ks = quantize_qk_rows_plain(q, k, rope_cos, rope_sin)
+    s32 = q8.float() @ k8.float().transpose(-1, -2)
+    scores = s32 * (qs[..., :, None] * ks[..., None, :])
+    if rope_cos is None:
+        scores = scores * (LOG2E / math.sqrt(q.shape[-1]))
+    return _masked_softmax_pv(scores, v, *segments)
 
 
 def _library() -> ctypes.CDLL:
@@ -209,13 +235,95 @@ def fused_concept_flash_attention(
             rope_cos, rope_sin,
         )
     _check_inputs(q, k, v, txt_len, img_len, concept_len, rope_cos, rope_sin)
-    out = _launch("ca_flash_saliency_bf16", q, k, v, txt_len, img_len, concept_len,
-                  cross, self_attention, rope_cos, rope_sin)
+    if flash_instance(q.shape[-1]) == "hopper":
+        out = fused_concept_flash_attention_hopper(
+            q, k, v, txt_len, img_len, concept_len, cross, self_attention, rope_cos, rope_sin)
+    else:
+        out = _launch("ca_flash_saliency_bf16", q, k, v, txt_len, img_len, concept_len,
+                      cross, self_attention, rope_cos, rope_sin)
     fused_concept_flash_attention.launches += 1
     return out
 
 
 fused_concept_flash_attention.launches = 0
+
+
+def flash_instance(head_dim: int) -> str:
+    """The K1 kernel that takes a card call at this head dim: "hopper"
+    (`csrc/flash_saliency_sm90.cu`) or "mma_sync" (`csrc/flash_saliency.cu`)."""
+    return "hopper" if head_dim in HOPPER_HEAD_DIMS else "mma_sync"
+
+
+def _sm90_library() -> ctypes.CDLL:
+    lib = _build.load("flash_saliency_sm90")
+    if lib.ca_flash_saliency_sm90_bf16.argtypes is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.ca_rope_qk_rows_bf16.argtypes = [p, p, p, p, p, p, i, i, i, i, f, p]
+        lib.ca_flash_saliency_sm90_bf16.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, f, p]
+        lib.ca_rope_qk_rows_bf16.restype = lib.ca_flash_saliency_sm90_bf16.restype = i
+    return lib
+
+
+def rope_qk_rows_cuda(q, k, rope_cos, rope_sin):
+    """The Hopper instance's pre-pass kernel: `rope_qk_rows_plain`'s (q', k')
+    for inputs that passed `_check_inputs`, head dim 128."""
+    b, h, s, d = q.shape
+    q_out, k_out = torch.empty_like(q), torch.empty_like(k)
+    lib = _sm90_library()
+    with torch.cuda.device(q.device):
+        err = lib.ca_rope_qk_rows_bf16(
+            q.data_ptr(), k.data_ptr(), rope_cos.data_ptr(), rope_sin.data_ptr(),
+            q_out.data_ptr(), k_out.data_ptr(), b, h, s, d, LOG2E / math.sqrt(d),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _build.check(lib, err, "ca_rope_qk_rows_bf16 launch")
+    return q_out, k_out
+
+
+def fused_concept_flash_attention_hopper(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    txt_len: int,
+    img_len: int,
+    concept_len: int,
+    cross: bool = True,
+    self_attention: bool = True,
+    rope_cos: Optional[torch.Tensor] = None,
+    rope_sin: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """`fused_concept_flash_attention` through `csrc/flash_saliency_sm90.cu`,
+    head dim 128: with tables, the pre-pass ropes and rounds every q and k row
+    once (`rope_qk_rows_cuda`) and the main kernel scores them at scale 1;
+    without, it scores q and k as given at log2(e)/sqrt(D)."""
+    if q.device.type == "cpu":
+        return fused_concept_flash_attention_plain(
+            q, k, v, txt_len, img_len, concept_len, cross, self_attention, rope_cos, rope_sin)
+    _check_inputs(q, k, v, txt_len, img_len, concept_len, rope_cos, rope_sin)
+    b, h, s, d = q.shape
+    if flash_instance(d) != "hopper":
+        raise ValueError(f"the Hopper flash kernel takes head dims {HOPPER_HEAD_DIMS}, got {d}")
+    score_mul = LOG2E / math.sqrt(d)
+    if rope_cos is not None:
+        q, k = rope_qk_rows_cuda(q, k, rope_cos, rope_sin)
+        score_mul = 1.0
+    out = torch.empty_like(v)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned for TMA")
+    lib = _sm90_library()
+    with torch.cuda.device(q.device):
+        err = lib.ca_flash_saliency_sm90_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, s, d,
+            txt_len, img_len, concept_len, int(cross), int(self_attention), score_mul,
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _build.check(lib, err, "ca_flash_saliency_sm90_bf16 launch")
+    fused_concept_flash_attention_hopper.launches += 1
+    return out
+
+
+fused_concept_flash_attention_hopper.launches = 0
 
 
 def _launch(entry, q, k, v, txt_len, img_len, concept_len, cross, self_attention,

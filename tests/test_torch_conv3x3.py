@@ -119,3 +119,60 @@ def test_cpu_tensors_launch_no_kernel():
     before = t_conv.conv3x3_same.launches
     port(*inputs(3, 1, 8, 8, 128, 128))
     assert t_conv.conv3x3_same.launches == before
+
+
+# (H = W, Cin, Cout) of the flux VAE decoder's 3x3 convs that the gate
+# admits, at a 1024x1024 image: 31 convs over these eight shapes.
+DECODER_SHAPES = [(128, 512, 512), (256, 512, 512), (512, 256, 256), (512, 512, 256),
+                  (512, 512, 512), (1024, 128, 128), (1024, 256, 128), (1024, 256, 256)]
+
+
+@pytest.mark.parametrize("res,cin,cout", DECODER_SHAPES)
+def test_decoder_shapes_take_the_hopper_kernel(res, cin, cout):
+    """Every decoder conv the gate admits takes the Hopper instance in bf16,
+    as one 128-pixel row segment per block and 256 output channels where
+    Cout >= 256."""
+    assert t_conv.use_conv3x3_kernel(_on("cuda", (1, res, res, cin)), cin, cout)
+    assert t_conv.conv3x3_instance(torch.bfloat16, cin, cout) == "hopper"
+    assert t_conv.hopper_conv_tiles(res, cout) == (128, 256 if cout >= 256 else 128)
+
+
+@pytest.mark.parametrize(
+    "w,cin,cout,dtype,instance,tiles",
+    [
+        (16, 128, 128, torch.bfloat16, "hopper", (16, 128)),    # 16 x 8 pixel rectangles
+        (24, 256, 128, torch.bfloat16, "hopper", (32, 128)),    # 32 x 4, ragged columns
+        (13, 64, 136, torch.bfloat16, "hopper", (16, 128)),     # ragged M and N tiles
+        (200, 192, 384, torch.bfloat16, "hopper", (128, 256)),  # two row segments, one ragged
+        (16, 96, 128, torch.bfloat16, "generic", None),         # Cin % 64 != 0
+        (16, 128, 132, torch.bfloat16, "generic", None),        # Cout % 8 != 0: refused there
+        (16, 128, 256, torch.float32, "generic", None),
+    ],
+)
+def test_conv_instance_dispatch(w, cin, cout, dtype, instance, tiles):
+    """The card tests' shapes: which instance takes them, and the Hopper
+    instance's (bw, bn)."""
+    assert t_conv.conv3x3_instance(dtype, cin, cout) == instance
+    if tiles is not None:
+        assert t_conv.hopper_conv_tiles(w, cout) == tiles
+
+
+def test_hopper_tiles_cover_each_row():
+    """bw is a power of two that divides 128 and covers a whole row below
+    128 columns; bw x (128 / bw) is always 128 pixels."""
+    for w in range(1, 300):
+        bw, _ = t_conv.hopper_conv_tiles(w, 128)
+        assert bw & (bw - 1) == 0 and 128 % bw == 0
+        assert bw >= min(w, 128) and (bw == 128 or bw < 2 * w)
+
+
+def test_instances_on_cpu_run_plain():
+    """On CPU tensors each instance wrapper is the plain version and
+    launches nothing."""
+    args = tuple(torch.from_numpy(a) for a in inputs(4, 1, 8, 8, 128, 128))
+    fns = (t_conv.conv3x3_same, t_conv.conv3x3_same_hopper, t_conv.conv3x3_same_generic)
+    before = [fn.launches for fn in fns]
+    want = t_conv.conv3x3_same_plain(*args, True)
+    for fn in fns:
+        assert torch.equal(fn(*args, True), want)
+    assert [fn.launches for fn in fns] == before

@@ -150,6 +150,58 @@ def test_int8_kernel_matches_plain(dev, b, h, s, d, t, p, c, cross, self_attenti
         assert torch.equal(got_part, want_part)
 
 
+@pytest.mark.parametrize(
+    "b,h,s,t,p,c,cross,self_attention,rope",
+    [
+        (1, 2, 300, 40, 250, 5, True, True, True),      # S not a multiple of 128, pad rows
+        (1, 2, 150, 40, 80, 20, True, True, True),      # concepts 120..140 straddle key tile 128
+        (1, 2, 150, 40, 80, 20, True, False, True),
+        (1, 2, 150, 40, 80, 20, False, True, True),
+        (1, 2, 150, 40, 80, 20, False, False, True),    # concept rows see nothing
+        (2, 3, 391, 60, 300, 17, True, True, True),     # B=2 with per-row tables
+        (1, 2, 300, 300, 0, 0, True, True, False),      # no tables, ragged tail
+        (1, 2, 270, 40, 200, 9, True, True, False),     # no tables, concepts
+    ],
+)
+def test_hopper_flash_kernel_matches_plain(dev, b, h, s, t, p, c, cross, self_attention, rope):
+    """K1 at head dim 128 goes through the Hopper instance: its counter and
+    K1's move by one, the output holds to the plain version, pad rows are
+    exact zeros, and the RoPE pre-pass equals its plain version bit for bit."""
+    d = 128
+    gen = torch.Generator(dev).manual_seed(9)
+    q, k, v = (torch.randn(b, h, s, d, generator=gen, device=dev) for _ in range(3))
+    q, k, v = (3 * q).bfloat16(), k.bfloat16(), v.bfloat16()
+    tables = rope_tables(gen, b, s, d, dev) if rope else (None, None)
+    args = (q, k, v, t, p, c, cross, self_attention, *tables)
+    assert fs.flash_instance(d) == "hopper"
+    before = (fs.fused_concept_flash_attention.launches,
+              fs.fused_concept_flash_attention_hopper.launches)
+    got = fs.fused_concept_flash_attention(*args)
+    torch.cuda.synchronize()
+    assert (fs.fused_concept_flash_attention.launches,
+            fs.fused_concept_flash_attention_hopper.launches) == (before[0] + 1, before[1] + 1)
+    want = fs.fused_concept_flash_attention_plain(*args)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert (got.float() - want.float()).abs().max().item() <= bf16_limit(want)
+    seen_by_nothing = t + p + (c if (cross or self_attention) else 0)
+    assert torch.count_nonzero(got[:, :, seen_by_nothing:]).item() == 0
+    if rope:
+        for got_part, want_part in zip(fs.rope_qk_rows_cuda(q, k, *tables),
+                                       fs.rope_qk_rows_plain(q, k, *tables)):
+            assert torch.equal(got_part, want_part)
+
+
+@pytest.mark.parametrize("d", [32, 64, 512])
+def test_other_head_dims_stay_on_mma_sync(dev, d):
+    """Head dims 32, 64 and 512 keep the mma.sync kernel."""
+    q = torch.randn(1, 1, 70, d, device=dev).bfloat16()
+    before = fs.fused_concept_flash_attention_hopper.launches
+    fs.fused_concept_flash_attention(q, q, q, 70, 0, 0)
+    torch.cuda.synchronize()
+    assert fs.flash_instance(d) == "mma_sync"
+    assert fs.fused_concept_flash_attention_hopper.launches == before
+
+
 def test_int8_kernel_refuses_bad_inputs(dev):
     q = torch.zeros(1, 1, 64, 512, device=dev, dtype=torch.bfloat16)  # the VAE's head dim
     before = fs.fused_concept_flash_attention_int8.launches
@@ -206,6 +258,43 @@ def test_conv_kernel_matches_plain(dev, b, hh, ww, cin, cout, dtype, swish):
     assert got.dtype == dtype and (got.float() - want.float()).abs().max().item() <= limit
 
 
+@pytest.mark.parametrize(
+    "b,hh,ww,cin,cout,dtype,swish,instance",
+    [
+        (1, 8, 128, 128, 128, torch.bfloat16, False, "hopper"),
+        (1, 4, 128, 256, 256, torch.bfloat16, True, "hopper"),
+        (1, 3, 128, 512, 512, torch.bfloat16, True, "hopper"),
+        (1, 4, 256, 128, 128, torch.bfloat16, True, "hopper"),
+        (1, 3, 256, 512, 256, torch.bfloat16, False, "hopper"),
+        (2, 2, 256, 256, 512, torch.bfloat16, True, "hopper"),
+        (1, 16, 16, 128, 128, torch.bfloat16, False, "hopper"),   # a 16 x 8 pixel rectangle
+        (2, 8, 24, 256, 128, torch.bfloat16, True, "hopper"),     # 32 x 4, ragged columns
+        (1, 9, 13, 64, 136, torch.bfloat16, False, "hopper"),     # ragged M and N tiles
+        (1, 5, 200, 192, 384, torch.bfloat16, False, "hopper"),   # W past one row segment
+        (1, 8, 16, 96, 128, torch.bfloat16, True, "generic"),     # Cin % 64 != 0
+        (1, 8, 16, 128, 128, torch.float32, False, "generic"),
+    ],
+)
+def test_conv_kernel_instances(dev, b, hh, ww, cin, cout, dtype, swish, instance):
+    """Each shape takes the instance `conv3x3_instance` names (its counter
+    and the sum move by one, the other instance's does not) and holds to the
+    plain version."""
+    assert conv.conv3x3_instance(dtype, cin, cout) == instance
+    gen = torch.Generator(dev).manual_seed(2)
+    x = torch.randn(b, hh, ww, cin, generator=gen, device=dev).to(dtype)
+    w = (torch.randn(3, 3, cin, cout, generator=gen, device=dev) / (9 * cin) ** 0.5).to(dtype)
+    bias = (0.1 * torch.randn(cout, generator=gen, device=dev)).to(dtype)
+    counters = (conv.conv3x3_same, conv.conv3x3_same_hopper, conv.conv3x3_same_generic)
+    before = [fn.launches for fn in counters]
+    got = conv.conv3x3_same(x, w, bias, swish)
+    torch.cuda.synchronize()
+    moved = [fn.launches - n for fn, n in zip(counters, before)]
+    assert moved == [1, int(instance == "hopper"), int(instance == "generic")]
+    want = conv.conv3x3_same_plain(x, w, bias, swish)
+    limit = bf16_limit(want) if dtype == torch.bfloat16 else 1e-4 * want.abs().max().item()
+    assert got.dtype == dtype and (got.float() - want.float()).abs().max().item() <= limit
+
+
 def test_conv_kernel_refuses_bad_inputs(dev):
     x = torch.zeros(1, 8, 8, 48, device=dev, dtype=torch.bfloat16)
     w = torch.zeros(3, 3, 48, 128, device=dev, dtype=torch.bfloat16)
@@ -214,6 +303,8 @@ def test_conv_kernel_refuses_bad_inputs(dev):
         conv.conv3x3_same(x, w, b)
     with pytest.raises(TypeError):
         conv.conv3x3_same(x.half(), w.half(), b.half())
+    with pytest.raises(ValueError):  # the Hopper instance refuses f32
+        conv.conv3x3_same_hopper(x.float(), w.float(), b.float())
 
 
 def ring_inputs(gen, n, b, h, lc, d, dev, chunk_offsets=False):

@@ -9,10 +9,13 @@ dot products of up to 512 terms in f32, where the two sides differ in
 reduction order and in online (tiled) versus one-pass softmax.
 """
 
+import jax
 import jax.numpy as jnp
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
+from jax.experimental import pallas as pl
 
 from conceptattention_torch.kernels import flash_saliency as t_fs
 from conceptattention_torch.ops import attention as t_attn
@@ -239,3 +242,77 @@ def test_kernel_input_checks(case):
         sin = None
     with pytest.raises((TypeError, ValueError)):
         t_fs._check_inputs(q, q, q, args["txt_len"], args["img_len"], args["concept_len"], cos, sin)
+
+
+def _pallas_rope_rows(q, k, cos, sin, scale):
+    """The JAX kernel's rotation and rounding, run in a Pallas kernel in
+    interpret mode (`_pair_swap` rolls lanes, which only a kernel can do):
+    q as `_flash_kernel` ropes its q tile (rotated and scaled in f32, then
+    rounded), k through `_rot`. Rows [R, D], tables [R, D] f32."""
+    def kernel(q_ref, k_ref, c_ref, s_ref, qo_ref, ko_ref):
+        qf = q_ref[...].astype(jnp.float32)
+        qo_ref[...] = ((qf * c_ref[...] + j_fs._pair_swap(qf) * s_ref[...]) * scale).astype(
+            qo_ref.dtype)
+        ko_ref[...] = j_fs._rot(k_ref[...], c_ref[...], s_ref[...])
+
+    shape = jax.ShapeDtypeStruct(q.shape, q.dtype)
+    return pl.pallas_call(kernel, out_shape=(shape, shape), interpret=True)(q, k, cos, sin)
+
+
+@pytest.mark.parametrize("d", [32, 128])
+def test_rope_rows_match_pallas_rotation(d):
+    """`rope_qk_rows_plain` (the Hopper instance's pre-pass) against the JAX
+    kernel's rotation and rounding, bf16 in and out, per-row tables: equal
+    bit for bit."""
+    b, h, s = 2, 2, 24
+    rng = np.random.default_rng(11)
+    q, k = (rng.standard_normal((b, h, s, d)).astype(ml_dtypes.bfloat16) for _ in range(2))
+    ang = rng.uniform(0, 6.28, (b, s, d // 2)).astype(np.float32)
+    cos = np.repeat(np.cos(ang), 2, axis=-1)
+    sin = np.stack([-np.sin(ang), np.sin(ang)], axis=-1).reshape(b, s, d)
+    got_q, got_k = t_fs.rope_qk_rows_plain(
+        *(torch.from_numpy(x.astype(np.float32)).bfloat16() for x in (q, k)),
+        torch.from_numpy(cos), torch.from_numpy(sin))
+    rows = lambda x: np.broadcast_to(x[:, None], (b, h, s, d)).reshape(-1, d)  # noqa: E731
+    want_q, want_k = _pallas_rope_rows(
+        jnp.asarray(q.reshape(-1, d)), jnp.asarray(k.reshape(-1, d)),
+        jnp.asarray(rows(cos)), jnp.asarray(rows(sin)), t_fs.LOG2E / np.sqrt(d))
+    for got, want in ((got_q, want_q), (got_k, want_k)):
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_array_equal(got.float().numpy().reshape(-1, d),
+                                      np.asarray(want.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("cross,self_attention", ABLATIONS)
+def test_prepass_then_attention_equals_plain(data, cross, self_attention):
+    """The Hopper instance's decomposition: the pre-pass's rows, attended
+    without tables at score scale 1, equal the plain attention with tables,
+    exactly, in bf16 with a ragged tail and pad rows."""
+    (q, k, v), t_tab, _ = fused_inputs(data, 64)
+    q, k, v = (x.bfloat16() for x in to_t((q, k, v)))
+    qr, kr = t_fs.rope_qk_rows_plain(q, k, *t_tab)
+    got = t_fs.scaled_concept_attention_plain(qr, kr, v, T, P, C, cross, self_attention,
+                                              score_scale=1.0)
+    want = t_fs.fused_concept_flash_attention_plain(q, k, v, T, P, C, cross, self_attention, *t_tab)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("d,instance", [(32, "mma_sync"), (64, "mma_sync"), (128, "hopper"),
+                                        (512, "mma_sync")])
+def test_flash_instance(d, instance):
+    """Head dim 128 (the flux DiT blocks) takes the Hopper kernel; 32, 64
+    (CogVideoX) and 512 (the VAE) keep the mma.sync kernel."""
+    assert t_fs.flash_instance(d) == instance
+
+
+def test_hopper_instance_on_cpu_runs_plain(data):
+    """On CPU tensors the Hopper wrapper is the plain version and launches
+    nothing."""
+    (q, k, v), t_tab, _ = fused_inputs(data, 64)
+    before = (t_fs.fused_concept_flash_attention.launches,
+              t_fs.fused_concept_flash_attention_hopper.launches)
+    args = (*to_t((q, k, v)), T, P, C, True, True, *t_tab)
+    got = t_fs.fused_concept_flash_attention_hopper(*args)
+    assert torch.equal(got, t_fs.fused_concept_flash_attention_plain(*args))
+    assert (t_fs.fused_concept_flash_attention.launches,
+            t_fs.fused_concept_flash_attention_hopper.launches) == before
