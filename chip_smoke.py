@@ -15,8 +15,9 @@ Run from the root of a checkout: `python3 chip_smoke.py`. In order it
    shows with planted controls (the plain version with one fault) that each
    limit sees such a fault, and times kernel, plain version and one library
    call that computes the same function (the port never calls it); where a
-   redesigned Hopper instance took over a shape (K1 at head dim 128, K2 in
-   bf16), the earlier kernel's time on the same input is read beside it;
+   redesigned Hopper instance took over a shape (K1 at head dims 64, 128 and
+   512, K2 in bf16), the earlier kernel's time on the same input is read
+   beside it;
 4. checks the full-width models against their plain reference paths on a
    small input (DiT blocks: kernel vs SDPA backend, and the ring_rdma
    backend vs the fused one, with a control for each limit; VAE decodes:
@@ -32,8 +33,9 @@ Run from the root of a checkout: `python3 chip_smoke.py`. In order it
    CogVideoX-5b `generate_video` (13 latent frames of 60x90,
    STEPS_VIDEO steps, 3 concepts) cold and warm, once with the head-paired
    kernel, once with DPM-Solver++, decodes a short clip, and runs once with
-   its blocks quantized to w8a8; every kernel's launch count (and each
-   Hopper instance's) is set to 0 just before and read just after each run;
+   its blocks quantized to w8a8; every kernel's launch count (and the Hopper
+   instances', which take K1 at head dims 64, 128 and 512) is set to 0 just
+   before and read just after each run;
 6. prints the Hopper instances' launches on the bf16 `generate_image` and
    `encode_image`, one `kernels` JSON line, then the result line.
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -189,17 +191,19 @@ def drop_key_tile(want, args, start, **kw):
 
 
 def mma_sync_reading(args):
-    """Readings beside a head-dim-128 K1 phase: the mma.sync kernel
-    (`csrc/flash_saliency.cu`, which took head dim 128 before the Hopper
-    instance) on the same input, launched directly, uncounted; and the
-    Hopper instance's RoPE pre-pass alone."""
+    """Readings beside a K1 phase that the Hopper instance takes: the
+    mma.sync kernel (`csrc/flash_saliency.cu`, which took head dims 64, 128
+    and 512 before it) on the same input, launched directly, uncounted; and,
+    with tables, the Hopper instance's RoPE pre-pass alone."""
     from conceptattention_torch.kernels import flash_saliency as fs
 
     q, k, *_, cos, sin = args
 
     def extra(got):
-        return {"mma_sync_ms": time_ms(lambda: fs._launch("ca_flash_saliency_bf16", *args)),
-                "rope_prepass_ms": time_ms(lambda: fs.rope_qk_rows_cuda(q, k, cos, sin))}
+        out = {"mma_sync_ms": time_ms(lambda: fs._launch("ca_flash_saliency_bf16", *args))}
+        if cos is not None:
+            out["rope_prepass_ms"] = time_ms(lambda: fs.rope_qk_rows_cuda(q, k, cos, sin))
+        return out
     return extra
 
 
@@ -286,6 +290,7 @@ def flash_phases(cfg, main_double, main_single, main_vae):
         lambda: F.scaled_dot_product_attention(q, k, v),
         4 * d * s * s, 4 * s * d * 2, main_vae,
         controls=[("one key tile dropped", "all", lambda want: drop_key_tile(want, vae_args, 64 * 128))],
+        extra=mma_sync_reading((*vae_args, True, True, None, None)),
     ))
     return results
 
@@ -480,12 +485,13 @@ def video_flash_phases(vcfg, launches_k1, launches_k3, dev="cuda"):
         common = dict(segments=segments, controls=controls, select=select, plain_basis=basis)
         cost = (4 * d * n_pairs * h * b, 4 * b * h * s * d * 2 + 2 * b * s * d * 4)
         library = lambda m=mask: masked_sdpa(qr, kr, v, m)
+        full_args = (q, k, v, t, p, c, cross, self_attention, cos, sin)
         results["k1"].append(phase_result(
             f"flash_saliency video {tag}",
-            lambda a=(q, k, v, t, p, c, cross, self_attention, cos, sin):
-                fs.fused_concept_flash_attention(*a),
+            lambda a=full_args: fs.fused_concept_flash_attention(*a),
             lambda a=sub_args: fs.fused_concept_flash_attention_plain(*a),
             library, *cost, launches_k1 if on_path else 0, **common,
+            extra=mma_sync_reading(full_args),
         ))
         results["k3"].append(phase_result(
             f"flash_saliency_paired video {tag}",
@@ -1017,7 +1023,7 @@ def video_decode_checks(pipe, latents):
 def video_path(counters):
     """CogVideoX-5b `generate_video` at 13x60x90: cold and warm with K1,
     once with the heads paired (K3), once with DPM-Solver++, then the
-    decode. Returns a summary of each run."""
+    decode. Counters are [K1, K3, K1 hopper]. Returns a summary of each run."""
     from conceptattention_torch import VideoConceptAttentionPipeline
     from conceptattention_torch.kernels import flash_saliency as fs
     from conceptattention_torch.models.video.dit import cogvideox_5b_config
@@ -1047,18 +1053,20 @@ def video_path(counters):
             scheduler=scheduler,
         ), counters)
         fs.PAIR_HEADS = False
-        want = [0, per_run] if paired else [per_run, 0]
+        want = [0, per_run, 0] if paired else [per_run, 0, per_run]
         if launches != want:
-            raise AssertionError(f"generate_video {label}: launches [K1, K3] {launches} != {want}")
+            raise AssertionError(
+                f"generate_video {label}: launches [K1, K3, K1 hopper] {launches} != {want}")
         for maps in (out.concept_heatmaps, out.cross_attention_maps):
             if maps.shape != grid or not np.isfinite(maps).all():
                 raise AssertionError(f"bad video heatmaps {maps.shape}, want {grid}")
         if not torch.isfinite(out.video_latents).all():
             raise AssertionError("non-finite video latents")
         outs[label] = out
-        summary[label] = {"seconds": seconds, "launches [K1, K3]": launches}
+        summary[label] = {"seconds": seconds, "launches [K1, K3, K1 hopper]": launches}
         print(f"generate_video {label}: {VIDEO_FRAMES}x{VIDEO_H}x{VIDEO_W} latents, "
-              f"{STEPS_VIDEO} steps, launches [K1, K3] {launches}, seconds {seconds:.4f}", flush=True)
+              f"{STEPS_VIDEO} steps, launches [K1, K3, K1 hopper] {launches}, seconds {seconds:.4f}",
+              flush=True)
     a, b = outs["ddim warm"], outs["ddim heads paired"]
     paired_vs_k1 = {
         "concept_heatmaps max abs diff": float(np.abs(a.concept_heatmaps - b.concept_heatmaps).max()),
@@ -1128,7 +1136,7 @@ def quantized_flux_path(pipe, bf16_out, counters, conv_per_decode):
 
     one = run("generate_image (w8a8, int8_qk, same weights)",
               lambda: qpipe.generate_image(PROMPT, CONCEPTS, **gen_kw),
-              [1, per_image, conv_per_decode, 0, conv_per_decode])
+              [1, per_image, conv_per_decode, 1, conv_per_decode])
     agreement = {tap: heatmap_agreement(getattr(one, tap), getattr(bf16_out, tap))
                  for tap in ("concept_heatmaps", "cross_attention_maps")}  # a reading, no limit
     print(f"w8a8 + int8_qk against bf16, same weights, prompt and seed: {json.dumps(agreement)}",
@@ -1136,7 +1144,7 @@ def quantized_flux_path(pipe, bf16_out, counters, conv_per_decode):
     for label in ("cold", "warm"):
         outs = run(f"generate_images (w8a8, int8_qk, batch 2) {label}",
                    lambda: qpipe.generate_images([PROMPT] * 2, CONCEPTS, seeds=[0, 1], **gen_kw),
-                   [2, per_image, 2 * conv_per_decode, 0, 2 * conv_per_decode])
+                   [2, per_image, 2 * conv_per_decode, 2, 2 * conv_per_decode])
     seed0 = {"concept_heatmaps max abs diff": float(np.abs(
         outs[0].concept_heatmaps - one.concept_heatmaps).max())}
     print(f"generate_images seed 0 against generate_image seed 0: {json.dumps(seed0)}", flush=True)
@@ -1161,7 +1169,7 @@ def random_quantized_paths(counters, conv_per_decode):
         init_seconds = time.perf_counter() - t0
         cfg = pipe.cfg
         per_image = STEPS * (cfg.depth + cfg.depth_single_blocks)
-        want = [per_image + 1, 0, conv_per_decode, per_image, conv_per_decode]
+        want = [per_image + 1, 0, conv_per_decode, per_image + 1, conv_per_decode]
         out, seconds, launches = counted(lambda: pipe.generate_image(
             PROMPT, CONCEPTS, width=SIZE, height=SIZE, num_inference_steps=STEPS,
             return_pil_heatmaps=False, return_image_array=True), counters)
@@ -1181,8 +1189,8 @@ def random_quantized_paths(counters, conv_per_decode):
 
 def quantized_video_path(counters):
     """CogVideoX-5b with its blocks quantized to w8a8: one `generate_video`
-    at 13x60x90, STEPS_VIDEO DDIM steps. Counters are [K1, K3]. Returns the
-    run's K1 launches."""
+    at 13x60x90, STEPS_VIDEO DDIM steps. Counters are [K1, K3, K1 hopper].
+    Returns the run's K1 launches."""
     from conceptattention_torch import VideoConceptAttentionPipeline
     from conceptattention_torch.models.video.dit import cogvideox_5b_config
 
@@ -1197,8 +1205,9 @@ def quantized_video_path(counters):
         VIDEO_PROMPT, CONCEPTS, num_frames=VIDEO_FRAMES, height=VIDEO_H, width=VIDEO_W,
         num_inference_steps=STEPS_VIDEO, guidance_scale=6.0, return_cross_attention=True,
     ), counters)
-    if launches != [per_run, 0]:
-        raise AssertionError(f"generate_video (w8a8): launches [K1, K3] {launches} != {[per_run, 0]}")
+    if launches != [per_run, 0, per_run]:
+        raise AssertionError(
+            f"generate_video (w8a8): launches [K1, K3, K1 hopper] {launches} != {[per_run, 0, per_run]}")
     grid = (len(CONCEPTS), VIDEO_FRAMES, VIDEO_H // cfg.patch_size, VIDEO_W // cfg.patch_size)
     for maps in (out.concept_heatmaps, out.cross_attention_maps):
         if maps.shape != grid or not np.isfinite(maps).all():
@@ -1207,7 +1216,8 @@ def quantized_video_path(counters):
         raise AssertionError("non-finite w8a8 video latents")
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"generate_video (w8a8) {VIDEO_FRAMES}x{VIDEO_H}x{VIDEO_W}, {STEPS_VIDEO} steps: "
-          f"launches [K1, K3] {launches}, init seconds {init_seconds:.3f}, seconds {seconds:.4f}, "
+          f"launches [K1, K3, K1 hopper] {launches}, init seconds {init_seconds:.3f}, "
+          f"seconds {seconds:.4f}, "
           f"peak device memory GiB {peak:.3f}", flush=True)
     del pipe, out
     gc.collect()
@@ -1241,7 +1251,7 @@ def ring_path(counters, bf16_out, conv_per_decode, n=4):
         "generate_image (ring_rdma)": (lambda: pipe.generate_image(
             PROMPT, CONCEPTS, width=SIZE, height=SIZE, num_inference_steps=STEPS,
             return_pil_heatmaps=False, return_image_array=True),
-            [STEPS * cfg.depth, 1, conv_per_decode, 0, conv_per_decode]),
+            [STEPS * cfg.depth, 1, conv_per_decode, 1, conv_per_decode]),
         "encode_image (ring_rdma)": (lambda: pipe.encode_image(
             image, CONCEPTS, width=SIZE, height=SIZE, return_pil_heatmaps=False),
             [cfg.depth, 0, 0, 0, 0]),
@@ -1326,7 +1336,7 @@ def main() -> int:
     print(f"build seconds {time.perf_counter() - t0:.3f}", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("Compiling entry", "registers", "spill", "Performance Loss")):
                 print(f"ptxas {name}: {line.strip()}", flush=True)
 
     spec = configs["flux-schnell"]
@@ -1370,7 +1380,9 @@ def main() -> int:
     hopper = [fused_concept_flash_attention_hopper, conv3x3_same_hopper]
     counters = [fused_concept_flash_attention, conv3x3_same] + hopper
     per_image = STEPS * (cfg.depth + cfg.depth_single_blocks)
-    want_gen = [per_image + 1, sum(conv_counts.values()), per_image, sum(conv_counts.values())]
+    # K1's Hopper instance takes every DiT block (head dim 128) and the VAE's
+    # mid-attention (head dim 512)
+    want_gen = [per_image + 1, sum(conv_counts.values()), per_image + 1, sum(conv_counts.values())]
     gen_seconds = []
     for _ in range(2):
         out, seconds, launches = counted(lambda: pipe.generate_image(
@@ -1422,12 +1434,13 @@ def main() -> int:
                            bf16_out, want_gen[1])
     del bf16_out
 
-    video_counters = [fused_concept_flash_attention, fused_concept_flash_attention_paired]
+    video_counters = [fused_concept_flash_attention, fused_concept_flash_attention_paired,
+                      fused_concept_flash_attention_hopper]
     video_summary = video_path(video_counters)
     print(f"generate_video summary {json.dumps(video_summary)}", flush=True)
     video_k1_w8a8 = quantized_video_path(video_counters)
-    video_k1_bf16 = video_summary["ddim warm"]["launches [K1, K3]"][0]
-    video_k3_paired = video_summary["ddim heads paired"]["launches [K1, K3]"][1]
+    video_k1_bf16 = video_summary["ddim warm"]["launches [K1, K3, K1 hopper]"][0]
+    video_k3_paired = video_summary["ddim heads paired"]["launches [K1, K3, K1 hopper]"][1]
 
     def entry(name, source, replaces, launches, phases, per_path, **more):
         on_path = [r for r in phases if r["main_path_launches"]]
@@ -1473,10 +1486,17 @@ def main() -> int:
         entry("flash_saliency", "conceptattention_torch/csrc/flash_saliency_sm90.cu",
               "conceptattention_tpu/kernels/flash_saliency.py:305", k1_total, flash + video_k1,
               k1_paths, instances={
-                  "conceptattention_torch/csrc/flash_saliency_sm90.cu": "head dim 128 (Hopper)",
-                  "conceptattention_torch/csrc/flash_saliency.cu": "head dims 32, 64, 512 (mma.sync)"},
-              hopper_launches_per_path={"generate_image": want_gen[2], "encode_image": cfg.depth,
-                                        **{k: v[3] for k, v in quant_paths.items() if v[3]}}),
+                  "conceptattention_torch/csrc/flash_saliency_sm90.cu":
+                      "head dims 64, 128, 512 (Hopper)",
+                  "conceptattention_torch/csrc/flash_saliency.cu":
+                      "head dim 32 (mma.sync; its 64, 128, 512 instances timed as mma_sync_ms)"},
+              hopper_launches_per_path={
+                  "generate_image": want_gen[2], "encode_image": cfg.depth,
+                  "generate_video (PAIR_HEADS off)":
+                      video_summary["ddim warm"]["launches [K1, K3, K1 hopper]"][2],
+                  "generate_video (w8a8)": video_k1_w8a8,
+                  "generate_image (ring_rdma)": ring_gen[3],
+                  **{k: v[3] for k, v in quant_paths.items() if v[3]}}),
         entry("flash_saliency_paired", "conceptattention_torch/csrc/flash_saliency.cu",
               "conceptattention_tpu/kernels/flash_saliency.py:670", video_k3_paired, video_k3,
               {"generate_video (PAIR_HEADS on)": video_k3_paired}),

@@ -45,9 +45,10 @@
 // keeps two 16 x 64 f32 accumulators and a running max and sum per head, the
 // register footprint of the D = 128 instance. The TPU kernel's block-diagonal
 // [[k1|0],[0|k2]] packing is not copied: mma.sync gains nothing from zeros.
-// Still single-stage per key tile and on mma.sync. Head dim 128 runs on the
-// Hopper design in flash_saliency_sm90.cu; the D=128 instance here stays as
-// the yardstick chip_smoke.py times beside it in the same call.
+// Still single-stage per key tile and on mma.sync. K1 at head dims 64, 128
+// and 512 runs on the Hopper design in flash_saliency_sm90.cu; this file's
+// K1 takes head dim 32, and its D=64, 128 and 512 instances stay as the
+// yardsticks chip_smoke.py times beside the Hopper kernel in the same call.
 
 #include "flash_common.cuh"
 

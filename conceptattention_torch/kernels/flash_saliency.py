@@ -16,9 +16,9 @@ expanded tables of `expand_rope_tables`.
 `fused_concept_flash_attention` (K1) runs `fused_concept_flash_attention_plain`
 for a CPU tensor and, for a CUDA tensor, launches the instance that
 `flash_instance` names for its head dim: `fused_concept_flash_attention_hopper`
-(head dim 128: `csrc/flash_saliency_sm90.cu`, a RoPE pre-pass, then TMA, an
-mbarrier ring and wgmma) or `csrc/flash_saliency.cu` (head dims 32, 64, 512:
-mma.sync). It never falls back from one to another. `fused_concept_flash_attention_paired`
+(head dims 64, 128 and 512: `csrc/flash_saliency_sm90.cu`, a RoPE pre-pass,
+then TMA, an mbarrier ring and wgmma) or `csrc/flash_saliency.cu` (head dim
+32: mma.sync). It never falls back from one to another. `fused_concept_flash_attention_paired`
 (K3) is the same function for head dim 64, an even head count and RoPE,
 launched as the kernel's two-heads-per-block instance; `joint_concept_attention_fused`
 takes it for such inputs when `PAIR_HEADS` is set (off by default, as the JAX
@@ -44,7 +44,9 @@ from conceptattention_torch.ops.quant import INV127
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634  # log2(e): the softmax runs in the exp2 domain
 KERNEL_HEAD_DIMS = (32, 64, 128, 512)
-HOPPER_HEAD_DIMS = (128,)  # the flux DiT blocks; the rest stay on mma.sync
+# The flux DiT blocks (128), the CogVideoX blocks (64) and the flux VAE's
+# mid-attention (512); head dim 32 stays on mma.sync.
+HOPPER_HEAD_DIMS = (64, 128, 512)
 INT8_HEAD_DIMS = (32, 64, 128)  # K1b's instances; the VAE's D=512 never takes int8
 PAIRED_HEAD_DIM = 64
 # Route d=64 attention with an even head count through K3 (the head-paired
@@ -250,7 +252,8 @@ fused_concept_flash_attention.launches = 0
 
 def flash_instance(head_dim: int) -> str:
     """The K1 kernel that takes a card call at this head dim: "hopper"
-    (`csrc/flash_saliency_sm90.cu`) or "mma_sync" (`csrc/flash_saliency.cu`)."""
+    (`csrc/flash_saliency_sm90.cu`: 64, 128, 512) or "mma_sync"
+    (`csrc/flash_saliency.cu`: 32)."""
     return "hopper" if head_dim in HOPPER_HEAD_DIMS else "mma_sync"
 
 
@@ -266,7 +269,7 @@ def _sm90_library() -> ctypes.CDLL:
 
 def rope_qk_rows_cuda(q, k, rope_cos, rope_sin):
     """The Hopper instance's pre-pass kernel: `rope_qk_rows_plain`'s (q', k')
-    for inputs that passed `_check_inputs`, head dim 128."""
+    for inputs that passed `_check_inputs`, head dims 64, 128 and 512."""
     b, h, s, d = q.shape
     q_out, k_out = torch.empty_like(q), torch.empty_like(k)
     lib = _sm90_library()
@@ -293,9 +296,10 @@ def fused_concept_flash_attention_hopper(
     rope_sin: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """`fused_concept_flash_attention` through `csrc/flash_saliency_sm90.cu`,
-    head dim 128: with tables, the pre-pass ropes and rounds every q and k row
-    once (`rope_qk_rows_cuda`) and the main kernel scores them at scale 1;
-    without, it scores q and k as given at log2(e)/sqrt(D)."""
+    head dims 64, 128 and 512: with tables, the pre-pass ropes and rounds
+    every q and k row once (`rope_qk_rows_cuda`) and the main kernel scores
+    them at scale 1; without, it scores q and k as given at
+    log2(e)/sqrt(D)."""
     if q.device.type == "cpu":
         return fused_concept_flash_attention_plain(
             q, k, v, txt_len, img_len, concept_len, cross, self_attention, rope_cos, rope_sin)
@@ -307,10 +311,10 @@ def fused_concept_flash_attention_hopper(
     if rope_cos is not None:
         q, k = rope_qk_rows_cuda(q, k, rope_cos, rope_sin)
         score_mul = 1.0
-    out = torch.empty_like(v)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned for TMA")
+    out = torch.empty_like(v)
     lib = _sm90_library()
     with torch.cuda.device(q.device):
         err = lib.ca_flash_saliency_sm90_bf16(

@@ -191,15 +191,107 @@ def test_hopper_flash_kernel_matches_plain(dev, b, h, s, t, p, c, cross, self_at
             assert torch.equal(got_part, want_part)
 
 
-@pytest.mark.parametrize("d", [32, 64, 512])
+HOPPER_D64_CASES = [
+    (1, 2, 300, 40, 250, 5, True, True, True),      # S not a multiple of 128, pad rows
+    (1, 2, 150, 40, 80, 20, True, True, True),      # concepts 120..140 straddle key tile 128
+    (1, 2, 150, 40, 80, 20, True, False, True),
+    (1, 2, 150, 40, 80, 20, False, True, True),
+    (1, 2, 150, 40, 80, 20, False, False, True),    # concept rows see nothing
+    (2, 3, 391, 60, 300, 17, True, True, True),     # B=2 with per-row tables, odd head count
+    (2, 3, 300, 300, 0, 0, True, True, False),      # no tables, ragged tail, odd head count
+    (1, 2, 270, 40, 200, 9, True, True, False),     # no tables, concepts
+    (1, 1, 1300, 30, 1200, 50, True, True, True),   # 11 key tiles: the 4-stage ring wraps
+    (2, 3, 1370, 30, 1250, 50, True, True, True),   # the ring wraps at B=2, odd head count
+    (2, 3, 1370, 30, 1250, 50, False, True, True),
+]
+
+
+@pytest.mark.parametrize("b,h,s,t,p,c,cross,self_attention,rope", HOPPER_D64_CASES)
+def test_hopper_flash_kernel_d64_matches_plain(dev, b, h, s, t, p, c, cross, self_attention, rope):
+    """K1 at head dim 64 (the CogVideoX blocks) goes through the Hopper
+    instance: its counter and K1's move by one,
+    the output holds to the plain version, pad rows are exact zeros, and the
+    RoPE pre-pass equals its plain version bit for bit."""
+    d = 64
+    gen = torch.Generator(dev).manual_seed(10)
+    q, k, v = (torch.randn(b, h, s, d, generator=gen, device=dev) for _ in range(3))
+    q, k, v = (3 * q).bfloat16(), k.bfloat16(), v.bfloat16()
+    tables = rope_tables(gen, b, s, d, dev) if rope else (None, None)
+    args = (q, k, v, t, p, c, cross, self_attention, *tables)
+    assert fs.flash_instance(d) == "hopper"
+    before = (fs.fused_concept_flash_attention.launches,
+              fs.fused_concept_flash_attention_hopper.launches)
+    got = fs.fused_concept_flash_attention(*args)
+    torch.cuda.synchronize()
+    assert (fs.fused_concept_flash_attention.launches,
+            fs.fused_concept_flash_attention_hopper.launches) == (before[0] + 1, before[1] + 1)
+    want = fs.fused_concept_flash_attention_plain(*args)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert (got.float() - want.float()).abs().max().item() <= bf16_limit(want)
+    seen_by_nothing = t + p + (c if (cross or self_attention) else 0)
+    assert torch.count_nonzero(got[:, :, seen_by_nothing:]).item() == 0
+    if rope:
+        for got_part, want_part in zip(fs.rope_qk_rows_cuda(q, k, *tables),
+                                       fs.rope_qk_rows_plain(q, k, *tables)):
+            assert torch.equal(got_part, want_part)
+
+
+@pytest.mark.parametrize("b", [1, 2])
+def test_hopper_flash_kernel_d512_matches_plain(dev, b):
+    """K1 at head dim 512 (the flux VAE's mid-attention: one head, no tables,
+    no concepts) at a ragged S goes through the Hopper instance (four
+    128-column chunks, 64-key tiles) and holds to the plain version."""
+    s, d = 4096 + 37, 512
+    gen = torch.Generator(dev).manual_seed(12)
+    q, k, v = (torch.randn(b, 1, s, d, generator=gen, device=dev) for _ in range(3))
+    q, k, v = (3 * q).bfloat16(), k.bfloat16(), v.bfloat16()
+    before = (fs.fused_concept_flash_attention.launches,
+              fs.fused_concept_flash_attention_hopper.launches)
+    got = fs.fused_concept_flash_attention(q, k, v, s, 0, 0)
+    torch.cuda.synchronize()
+    assert (fs.fused_concept_flash_attention.launches,
+            fs.fused_concept_flash_attention_hopper.launches) == (before[0] + 1, before[1] + 1)
+    want = fs.fused_concept_flash_attention_plain(q, k, v, s, 0, 0)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert (got.float() - want.float()).abs().max().item() <= bf16_limit(want)
+
+
+@pytest.mark.parametrize("d", [64, 512])
+def test_head_dims_64_and_512_take_the_hopper_instance(dev, d):
+    """Head dims 64 (CogVideoX) and 512 (the VAE) launch the Hopper kernel."""
+    q = torch.randn(1, 1, 70, d, device=dev).bfloat16()
+    before = fs.fused_concept_flash_attention_hopper.launches
+    fs.fused_concept_flash_attention(q, q, q, 70, 0, 0)
+    torch.cuda.synchronize()
+    assert fs.flash_instance(d) == "hopper"
+    assert fs.fused_concept_flash_attention_hopper.launches == before + 1
+
+
+@pytest.mark.parametrize("d", [32])
 def test_other_head_dims_stay_on_mma_sync(dev, d):
-    """Head dims 32, 64 and 512 keep the mma.sync kernel."""
+    """Head dim 32 keeps the mma.sync kernel."""
     q = torch.randn(1, 1, 70, d, device=dev).bfloat16()
     before = fs.fused_concept_flash_attention_hopper.launches
     fs.fused_concept_flash_attention(q, q, q, 70, 0, 0)
     torch.cuda.synchronize()
     assert fs.flash_instance(d) == "mma_sync"
     assert fs.fused_concept_flash_attention_hopper.launches == before
+
+
+@pytest.mark.parametrize("d", [64, 512])
+def test_hopper_flash_kernel_raises_without_fallback(dev, d):
+    """A head-dim-64 or -512 call the Hopper kernel cannot take (q not
+    16-byte aligned for TMA) raises; it is not sent to the mma.sync kernel or
+    the plain version, and no counter moves."""
+    buf = torch.zeros(70 * d + 1, device=dev, dtype=torch.bfloat16)
+    q = buf[1:].view(1, 1, 70, d)  # contiguous, 2 bytes off alignment
+    k = torch.zeros_like(q)
+    before = (fs.fused_concept_flash_attention.launches,
+              fs.fused_concept_flash_attention_hopper.launches)
+    with pytest.raises(ValueError, match="aligned"):
+        fs.fused_concept_flash_attention(q, k, k, 70, 0, 0)
+    assert (fs.fused_concept_flash_attention.launches,
+            fs.fused_concept_flash_attention_hopper.launches) == before
 
 
 def test_int8_kernel_refuses_bad_inputs(dev):

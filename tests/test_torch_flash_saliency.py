@@ -297,12 +297,47 @@ def test_prepass_then_attention_equals_plain(data, cross, self_attention):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("d,instance", [(32, "mma_sync"), (64, "mma_sync"), (128, "hopper"),
-                                        (512, "mma_sync")])
+@pytest.mark.parametrize("d,instance", [(32, "mma_sync"), (64, "hopper"), (128, "hopper"),
+                                        (512, "hopper")])
 def test_flash_instance(d, instance):
-    """Head dim 128 (the flux DiT blocks) takes the Hopper kernel; 32, 64
-    (CogVideoX) and 512 (the VAE) keep the mma.sync kernel."""
+    """Head dims 128 (the flux DiT blocks), 64 (CogVideoX) and 512 (the VAE)
+    take the Hopper kernel; 32 keeps the mma.sync kernel."""
     assert t_fs.flash_instance(d) == instance
+
+
+@pytest.mark.parametrize("d,h,s,cross,self_attention,rope", [
+    (64, 3, 70, True, True, True),     # CogVideoX's head dim: concepts, pad rows, tables
+    (64, 3, 70, False, True, True),
+    (64, 1, 59, True, False, True),    # ragged tail
+    (512, 1, 70, True, True, False),   # the VAE's: one head, no tables, no concepts
+])
+def test_hopper_head_dims_match_pallas_kernel(d, h, s, cross, self_attention, rope):
+    """What the Hopper instance computes at head dims 64 (with per-row RoPE
+    tables) and 512 (without), as `fused_concept_flash_attention` gives it on
+    CPU tensors, against the JAX kernel in interpret mode on the same numpy
+    inputs."""
+    b = 2 if rope else 1
+    rng = np.random.default_rng(d + s)
+    q, k, v = (rng.standard_normal((b, h, s, d)).astype(np.float32) for _ in range(3))
+    seg = (T, P, C) if rope else (s, 0, 0)
+    kw, t_tab = {}, (None, None)
+    if rope:
+        ang = rng.uniform(0, 6.28, (b, s, d // 2)).astype(np.float32)
+        cos = np.repeat(np.cos(ang), 2, axis=-1)
+        sin = np.stack([-np.sin(ang), np.sin(ang)], axis=-1).reshape(b, s, d)
+        t_tab = (torch.from_numpy(cos), torch.from_numpy(sin))
+        kw = dict(rope_cos=jnp.asarray(cos), rope_sin=jnp.asarray(sin))
+    got = t_fs.fused_concept_flash_attention(*to_t((q, k, v)), *seg, cross, self_attention, *t_tab)
+    pad = -s % BLOCK  # the Pallas kernel takes whole blocks; its pad rows see nothing
+    padded = [np.pad(x, ((0, 0), (0, 0), (0, pad), (0, 0))) for x in (q, k, v)]
+    if rope:
+        kw = {n: jnp.pad(x, ((0, 0), (0, pad), (0, 0))) for n, x in kw.items()}
+    want = j_fs.fused_concept_flash_attention(
+        *to_j(padded), txt_len=seg[0], img_len=seg[1], concept_len=seg[2], cross=cross,
+        self_attention=self_attention, block_q=BLOCK, block_k=BLOCK, interpret=True, **kw)
+    close(got, np.asarray(want)[:, :, :s])
+    if rope:
+        np.testing.assert_array_equal(got[:, :, T + P + C:].numpy(), 0.0)
 
 
 def test_hopper_instance_on_cpu_runs_plain(data):
