@@ -16,8 +16,10 @@ Run from the root of a checkout: `python3 chip_smoke.py`. In order it
    limit sees such a fault, and times kernel, plain version and one library
    call that computes the same function (the port never calls it); where a
    redesigned Hopper instance took over a shape (K1 at head dims 64, 128 and
-   512, K2 in bf16), the earlier kernel's time on the same input is read
-   beside it;
+   512, K2 in bf16, K3, K4 at head dims 64 and 128), the earlier kernel's
+   time on the same input is read beside it; K4 also reads its N step
+   launches alone (no hops) and checks its f32 running state against the
+   plain step after every step but the last;
 4. checks the full-width models against their plain reference paths on a
    small input (DiT blocks: kernel vs SDPA backend, and the ring_rdma
    backend vs the fused one, with a control for each limit; VAE decodes:
@@ -34,8 +36,9 @@ Run from the root of a checkout: `python3 chip_smoke.py`. In order it
    STEPS_VIDEO steps, 3 concepts) cold and warm, once with the head-paired
    kernel, once with DPM-Solver++, decodes a short clip, and runs once with
    its blocks quantized to w8a8; every kernel's launch count (and the Hopper
-   instances', which take K1 at head dims 64, 128 and 512) is set to 0 just
-   before and read just after each run;
+   instances', which take K1 at head dims 64, 128 and 512, K3, and K4's
+   steps at head dims 64 and 128) is set to 0 just before and read just
+   after each run;
 6. prints the Hopper instances' launches on the bf16 `generate_image` and
    `encode_image`, one `kernels` JSON line, then the result line.
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -93,6 +96,21 @@ def time_ms(fn, reps: int = 7) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def host_ms(fn, reps: int = 7) -> float:
+    """Median host time to enqueue one call of `fn`, from an idle card (no
+    synchronise inside the timed span): where it reaches the call's event
+    time, the host, not the card, sets the call's pace."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
     return statistics.median(times)
 
 
@@ -204,6 +222,19 @@ def mma_sync_reading(args):
         if cos is not None:
             out["rope_prepass_ms"] = time_ms(lambda: fs.rope_qk_rows_cuda(q, k, cos, sin))
         return out
+    return extra
+
+
+def paired_readings(args):
+    """Readings beside a K3 phase: the mma.sync two-heads-per-block kernel
+    (`csrc/flash_saliency.cu`, which took K3 before the Hopper instance) and
+    K1 (its Hopper instance, the same function head by head) on the same
+    input, both launched directly, uncounted."""
+    from conceptattention_torch.kernels import flash_saliency as fs
+
+    def extra(got):
+        return {"mma_sync_ms": time_ms(lambda: fs._launch("ca_flash_saliency_paired_bf16", *args)),
+                "k1_ms": time_ms(lambda: fs._launch_sm90("ca_flash_saliency_sm90_bf16", *args))}
     return extra
 
 
@@ -494,12 +525,13 @@ def video_flash_phases(vcfg, launches_k1, launches_k3, dev="cuda"):
             extra=mma_sync_reading(full_args),
         ))
         results["k3"].append(phase_result(
-            f"flash_saliency_paired video {tag}",
+            f"flash_saliency_paired (hopper) video {tag}",
             lambda a=(q, k, v, cos, sin, t, p, c, cross, self_attention):
                 fs.fused_concept_flash_attention_paired(*a),
             lambda a=(qs, ks, vs, cs, ss, t, p, c, cross, self_attention):
                 fs.fused_concept_flash_attention_paired_plain(*a),
             library, *cost, launches_k3 if on_path else 0, **common,
+            extra=paired_readings(full_args),
         ))
         del mask
         torch.cuda.empty_cache()
@@ -556,25 +588,99 @@ def fused_ring_inputs(gen, b, h, d, t, p, c, pe, cpe, n):
     return fused, tuple(F.pad(x, (0, 0, 0, pad)).contiguous() for x in fused)
 
 
+def state_readings(acc, ml, want, v):
+    """The Hopper step kernel's f32 running state against `ring_step_plain`'s:
+    each error over its limit (the max within 1e-4 of 1 + |max|, f32 sums in
+    another order; the sum within 1e-3 of itself, an approximate exp2; acc
+    within 2^-7 of sum x max|v|, each term's bf16 P at most one step apart)
+    and whether the same rows are empty (max -inf, sum 0, acc 0)."""
+    want_acc, want_ml = want
+    m, l, wm, wl = ml[..., 0], ml[..., 1], want_ml[..., 0], want_ml[..., 1]
+    empty = torch.isinf(wm)
+    same_empty = (torch.equal(torch.isinf(m), empty) and bool((m[empty] < 0).all())
+                  and torch.count_nonzero(l[empty]).item() == 0
+                  and torch.count_nonzero(acc[empty]).item() == 0)
+    seen = ~empty
+
+    def ratio(err, lim):
+        return (err / lim)[seen].max().item() if bool(seen.any()) else 0.0
+
+    acc_lim = (2.0**-7 * wl[..., None] * v.float().abs().max()).clamp_min(1e-30)
+    return {"max": ratio((m - wm).abs(), 1e-4 * (1 + wm.abs())),
+            "sum": ratio((l - wl).abs(), 1e-3 * wl),
+            "acc": ((acc - want_acc).abs() / acc_lim)[seen[..., None].expand_as(acc)].max().item()
+            if bool(seen.any()) else 0.0,
+            "same_empty_rows": same_empty}
+
+
+def ring_state_check(qs, ks, vs, segments, masked_kw):
+    """The Hopper step kernel launched step by step (uncounted) on the
+    ranks' shards, each rank given the chunk it holds: after each of steps
+    0..N-2 its state against `ring_step_plain` (`state_readings`), worst
+    over ranks and steps. Control: the plain state of step 1 with the chunk
+    origin one step off must break the acc limit."""
+    from conceptattention_torch.kernels import ring_rdma as rr
+
+    n = len(qs)
+    accs = [torch.empty(q.shape, device=q.device) for q in qs]
+    mls = [torch.empty((*q.shape[:3], 2), device=q.device) for q in qs]
+    outs = [torch.empty_like(q) for q in qs]
+    plain, worst, control = [None] * n, {"max": 0.0, "sum": 0.0, "acc": 0.0}, 0.0
+    same_empty = True
+    for step in range(n - 1):
+        held = [(r - step) % n for r in range(n)]
+        rr._launch_step("hopper", qs, [ks[i] for i in held], [vs[i] for i in held], accs, mls,
+                        outs, list(range(n)), n, step, segments)
+        torch.cuda.synchronize()
+        for my in range(n):
+            before = plain[my]
+            plain[my] = rr.ring_step_plain(qs[my], ks[held[my]], vs[held[my]], before, my, step, n,
+                                           **masked_kw)
+            got = state_readings(accs[my], mls[my], plain[my], vs[held[my]])
+            same_empty = same_empty and got.pop("same_empty_rows")
+            worst = {key: max(worst[key], got[key]) for key in worst}
+            if step == 1:
+                off = (held[my] - 1) % n
+                wrong = rr.ring_step_plain(qs[my], ks[off], vs[off], before, my, step, n, **masked_kw)
+                control = max(control, state_readings(wrong[0], wrong[1], plain[my],
+                                                      vs[held[my]])["acc"])
+    ok = same_empty and max(worst.values()) <= 1.0 and control > 1.0
+    return {"state_check": {"err_over_limit": worst, "same_empty_rows": same_empty,
+                            "control: chunk origin off by one step, acc err_over_limit": control,
+                            "ok": ok}}
+
+
 def ring_phases(cfg, vcfg, launches, n=4):
     """K4 on a virtual ring of `n` ranks on card 0, against its plain
     version (the "ring" backend's ring on the same mesh): the flux double
     block (B1 H24 D128, S = 256 + 4096 + 3 padded to a multiple of n) in all
     four ablations, and the CogVideoX-5b block (B2 H48 D64, S = 226 + 17550
     + 226 padded), whose plain version runs on 4 of the 96 (batch, head)
-    rows as K1's video phase does. Rows are held per segment; the pad rows'
-    limit is 0 (they must be exact zeros). Controls: the plain ring with the
-    chunk origin one step off, with one hop skipped, and with the
-    self_attention flag flipped. Readings beside the times: K1 on the same
-    fused input (unsharded), the bytes the hops move, the step launches.
-    The library call is masked SDPA over the unsharded sequence."""
+    rows as K1's video phase does. Both head dims take the Hopper step
+    kernel. Rows are held per segment; the pad rows' limit is 0 (they must
+    be exact zeros). Controls: the plain ring with the chunk origin one step
+    off, with one hop skipped, and with the self_attention flag flipped.
+    Readings beside the call's time (shard copies, hops, step launches,
+    concatenation): the host's time to enqueue one call (`call_host_ms`),
+    the N step launches alone on the same shards (`steps_ms`), the mma.sync
+    kernel (`csrc/ring_attention.cu`, which took
+    these head dims before) in the whole call and in its step launches
+    alone, K1 on the same fused input (unsharded), the bytes the hops move,
+    the step launches of one call and the Hopper ones, and, on the path's
+    ablation, the per-step state check (`ring_state_check`). The library
+    call is masked SDPA over the unsharded sequence."""
+    from functools import partial
+
     from conceptattention_torch.kernels import flash_saliency as fs
     from conceptattention_torch.kernels import ring_rdma as rr
     from conceptattention_torch.models.video.dit import make_video_ids
     from conceptattention_torch.ops.packing import make_img_ids
     from conceptattention_torch.ops.rope import embed_nd
     from conceptattention_torch.parallel import make_mesh
-    from conceptattention_torch.parallel.ring_attention import make_ring_concept_attention
+    from conceptattention_torch.parallel.ring_attention import (
+        make_ring_concept_attention,
+        shard_over_ring,
+    )
 
     dev = "cuda"
     mesh = make_mesh(seq=n, devices=[torch.device(dev, 0)] * n)
@@ -584,16 +690,50 @@ def ring_phases(cfg, vcfg, launches, n=4):
         lc = x.shape[2] // n
         return [x[:, :, r * lc:(r + 1) * lc].contiguous() for r in range(n)]
 
-    def readings(fused, padded, t, p, c, cross, self_attention):
+    def steps_only(instance, qs, ks, vs, segments):
+        """The N step launches of one ring on pre-placed chunks, no hops."""
+        accs = [torch.empty(q.shape, device=q.device) for q in qs]
+        mls = [torch.empty((*q.shape[:3], 2), device=q.device) for q in qs]
+        outs = [torch.empty_like(q) for q in qs]
+
+        def run():
+            for step in range(n):
+                held = [(r - step) % n for r in range(n)]
+                rr._launch_step(instance, qs, [ks[i] for i in held], [vs[i] for i in held], accs,
+                                mls, outs, list(range(n)), n, step, segments)
+        return run
+
+    def readings(fused, padded, state_shards, t, p, c, cross, self_attention):
+        segments = (t, p, c, cross, self_attention)
+        masked_kw = dict(masked=True, txt_len=t, img_len=p, concept_len=c, cross=cross,
+                         self_attention=self_attention)
+        old_call = shard_over_ring(mesh, "seq", lambda qs, ks, vs: rr._run_ring(
+            qs, ks, vs, segments, partial(rr._launch_step, "mma_sync")))
+        call = rr.make_ring_concept_attention_rdma(mesh, "seq", t, p, c, cross, self_attention)
+
         def extra(got):
-            before = rr.ring_attention_rdma.step_launches
-            rr.make_ring_concept_attention_rdma(mesh, "seq", t, p, c, cross, self_attention)(*padded)
+            counts = (rr.ring_attention_rdma.step_launches, rr.ring_attention_rdma.hopper_step_launches)
+            call(*padded)
+            steps = rr.ring_attention_rdma.step_launches - counts[0]
+            hopper_steps = rr.ring_attention_rdma.hopper_step_launches - counts[1]
+            qs, ks, vs = (shards(x) for x in padded)
             b, h, s_pad, d = padded[0].shape
-            return {"k1_ms": time_ms(lambda: fs.fused_concept_flash_attention(
-                        *fused, t, p, c, cross, self_attention)),
-                    # N - 1 hops of every rank's bf16 K and V chunk
-                    "hop_bytes_per_call": (n - 1) * 2 * b * h * s_pad * d * 2,
-                    "step_launches_per_call": rr.ring_attention_rdma.step_launches - before}
+            out = {"call_host_ms": host_ms(lambda: call(*padded)),
+                   "steps_ms": time_ms(steps_only("hopper", qs, ks, vs, segments)),
+                   "mma_sync_ms": time_ms(lambda: old_call(*padded)),
+                   "mma_sync_steps_ms": time_ms(steps_only("mma_sync", qs, ks, vs, segments)),
+                   "k1_ms": time_ms(lambda: fs.fused_concept_flash_attention(
+                       *fused, t, p, c, cross, self_attention)),
+                   # N - 1 hops of every rank's bf16 K and V chunk
+                   "hop_bytes_per_call": (n - 1) * 2 * b * h * s_pad * d * 2,
+                   "step_launches_per_call": steps, "hopper_step_launches_per_call": hopper_steps}
+            del qs, ks, vs
+            ok = steps == hopper_steps == n
+            if state_shards is not None:
+                out.update(ring_state_check(*state_shards, segments, masked_kw))
+                ok = ok and out["state_check"]["ok"]
+            out["ok"] = ok
+            return out
         return extra
 
     def segments(t, p, c, s_pad):
@@ -621,8 +761,9 @@ def ring_phases(cfg, vcfg, launches, n=4):
                           lambda _: faulty_ring(*split, t, p, c, origin_shift=1)),
                          ("one hop skipped, stale slot reused", "joint rows",
                           lambda _: faulty_ring(*split, t, p, c, skip_hop=1))]
+        on_path = cross and self_attention
         results.append(phase_result(
-            f"ring_attention double_block B=1 H={h} D={d} S={s}->{s_pad} N={n} "
+            f"ring_attention (hopper) double_block B=1 H={h} D={d} S={s}->{s_pad} N={n} "
             f"cross={cross} self={self_attention}",
             lambda a=(cross, self_attention): rr.make_ring_concept_attention_rdma(
                 mesh, "seq", t, p, c, *a)(*padded),
@@ -630,8 +771,9 @@ def ring_phases(cfg, vcfg, launches, n=4):
                 mesh, "seq", t, p, c, *a)(*padded),
             lambda m=mask: F.scaled_dot_product_attention(fused[0], fused[1], fused[2], attn_mask=m),
             4 * d * n_pairs * h, 4 * h * s * d * 2,
-            launches if (cross and self_attention) else 0, segments(t, p, c, s_pad), controls,
-            extra=readings(fused, padded, t, p, c, cross, self_attention),
+            launches if on_path else 0, segments(t, p, c, s_pad), controls,
+            extra=readings(fused, padded, split if on_path else None, t, p, c, cross,
+                           self_attention),
         ))
     del fused, padded, split
 
@@ -650,7 +792,7 @@ def ring_phases(cfg, vcfg, launches, n=4):
     mask = fs.segment_mask(s, t, p, c, True, True, dev)
     plain = make_ring_concept_attention(mesh, "seq", t, p, c)
     results.append(phase_result(
-        f"ring_attention video B={b} H={h} D={d} S={s}->{s_pad} N={n} cross=True self=True",
+        f"ring_attention (hopper) video B={b} H={h} D={d} S={s}->{s_pad} N={n} cross=True self=True",
         lambda: rr.make_ring_concept_attention_rdma(mesh, "seq", t, p, c)(*padded),
         lambda: plain(*sub),
         lambda: masked_sdpa(*fused, mask),
@@ -662,8 +804,9 @@ def ring_phases(cfg, vcfg, launches, n=4):
          ("one hop skipped, stale slot reused", "joint rows",
           lambda _: faulty_ring(*split, t, p, c, skip_hop=1))],
         select=lambda out: out[1:2].index_select(1, heads),
-        plain_basis=f"head subset: batch row 1, heads 0, 1, {h - 2}, {h - 1} of {b} x {h}",
-        extra=readings(fused, padded, t, p, c, True, True),
+        plain_basis=f"head subset: batch row 1, heads 0, 1, {h - 2}, {h - 1} of {b} x {h} "
+                    f"(the per-step state check on the same subset)",
+        extra=readings(fused, padded, split, t, p, c, True, True),
     ))
     del fused, padded, sub, split, mask
     torch.cuda.empty_cache()
@@ -1260,17 +1403,20 @@ def ring_path(counters, bf16_out, conv_per_decode, n=4):
     for label, (run, want) in runs.items():
         seconds = []
         for _ in range(2):
-            before = ring_attention_rdma.step_launches
+            before = (ring_attention_rdma.step_launches, ring_attention_rdma.hopper_step_launches)
             out, secs, launches = counted(run, counters)
-            steps = ring_attention_rdma.step_launches - before
-            if launches != want or steps != n * want[0]:
+            steps = ring_attention_rdma.step_launches - before[0]
+            hopper_steps = ring_attention_rdma.hopper_step_launches - before[1]
+            # every step of the DiT's head dim 128 goes through the Hopper step kernel
+            if launches != want or not steps == hopper_steps == n * want[0]:
                 raise AssertionError(f"{label}: launches [K4, K1, K2, K1 hopper, K2 hopper] {launches} != {want}, "
-                                     f"or K4 step launches {steps} != {n * want[0]}")
+                                     f"or K4 step launches {steps} (Hopper {hopper_steps}) != {n * want[0]}")
             check_image_output(out, label)
             seconds.append(secs)
-        print(f"{label} {SIZE}x{SIZE}: launches [K4, K1, K2, K1 hopper, K2 hopper] {launches}, K4 step launches {steps}, "
+        print(f"{label} {SIZE}x{SIZE}: launches [K4, K1, K2, K1 hopper, K2 hopper] {launches}, K4 step launches {steps} "
+              f"(Hopper instance {hopper_steps}), "
               f"cold seconds {seconds[0]:.4f}, warm seconds {seconds[1]:.4f}", flush=True)
-        paths[label] = (launches, seconds[1])
+        paths[label] = (launches, seconds[1], hopper_steps)
         if label.startswith("generate_image"):
             agreement = {tap: heatmap_agreement(getattr(out, tap), getattr(bf16_out, tap))
                          for tap in ("concept_heatmaps", "cross_attention_maps")}
@@ -1332,7 +1478,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     logs = _build.build(["flash_saliency", "flash_saliency_sm90", "flash_saliency_int8", "conv3x3",
-                         "conv3x3_sm90", "ring_attention"])
+                         "conv3x3_sm90", "ring_attention", "ring_attention_sm90"])
     print(f"build seconds {time.perf_counter() - t0:.3f}", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
@@ -1442,7 +1588,7 @@ def main() -> int:
     video_k1_bf16 = video_summary["ddim warm"]["launches [K1, K3, K1 hopper]"][0]
     video_k3_paired = video_summary["ddim heads paired"]["launches [K1, K3, K1 hopper]"][1]
 
-    def entry(name, source, replaces, launches, phases, per_path, **more):
+    def entry(name, source, replaces, launches, phases, per_path, also=(), **more):
         on_path = [r for r in phases if r["main_path_launches"]]
         if sum(r["main_path_launches"] for r in on_path) != launches:
             raise AssertionError(f"{name}: per-shape launches do not add up to {launches}")
@@ -1460,6 +1606,7 @@ def main() -> int:
             "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
             "bound_by": "operations" if 2 * ops_ms >= total("bound_ms") else "bytes",
             "library_ms": total("library_ms"),
+            **{key: total(key) for key in also},  # readings summed as ms is
             "launches_per_path": per_path,
             **more,
             "ms_basis": "per main paths (one run of each path in launches_per_path): "
@@ -1481,7 +1628,7 @@ def main() -> int:
     k1b_paths, k1b_total = per_path(1, {})
     k2_paths, k2_total = per_path(2, {"generate_image": want_gen[1],
                                       "generate_image (ring_rdma)": ring_gen[2]})
-    k4_paths = {label: launches[0] for label, (launches, _) in ring_paths.items()}
+    k4_paths = {label: launches[0] for label, (launches, _, _) in ring_paths.items()}
     kernels = [
         entry("flash_saliency", "conceptattention_torch/csrc/flash_saliency_sm90.cu",
               "conceptattention_tpu/kernels/flash_saliency.py:305", k1_total, flash + video_k1,
@@ -1497,9 +1644,15 @@ def main() -> int:
                   "generate_video (w8a8)": video_k1_w8a8,
                   "generate_image (ring_rdma)": ring_gen[3],
                   **{k: v[3] for k, v in quant_paths.items() if v[3]}}),
-        entry("flash_saliency_paired", "conceptattention_torch/csrc/flash_saliency.cu",
+        entry("flash_saliency_paired", "conceptattention_torch/csrc/flash_saliency_sm90.cu",
               "conceptattention_tpu/kernels/flash_saliency.py:670", video_k3_paired, video_k3,
-              {"generate_video (PAIR_HEADS on)": video_k3_paired}),
+              {"generate_video (PAIR_HEADS on)": video_k3_paired}, also=("mma_sync_ms", "k1_ms"),
+              instances={
+                  "conceptattention_torch/csrc/flash_saliency_sm90.cu":
+                      "head dim 64, two heads a block (Hopper; ca_flash_saliency_paired_sm90_bf16)",
+                  "conceptattention_torch/csrc/flash_saliency.cu":
+                      "not launched by the port; its mma.sync instance timed as mma_sync_ms"},
+              hopper_launches_per_path={"generate_video (PAIR_HEADS on)": video_k3_paired}),
         entry("conv3x3", "conceptattention_torch/csrc/conv3x3_sm90.cu",
               "conceptattention_tpu/kernels/conv3x3.py:91", k2_total, conv, k2_paths, instances={
                   "conceptattention_torch/csrc/conv3x3_sm90.cu": "bf16, Cin % 64 == 0 (Hopper)",
@@ -1510,9 +1663,16 @@ def main() -> int:
         entry("flash_saliency_int8", "conceptattention_torch/csrc/flash_saliency_int8.cu",
               "conceptattention_tpu/kernels/flash_saliency.py:305 (int8_qk)", k1b_total, int8,
               k1b_paths),
-        entry("ring_attention", "conceptattention_torch/csrc/ring_attention.cu",
+        entry("ring_attention", "conceptattention_torch/csrc/ring_attention_sm90.cu",
               "conceptattention_tpu/kernels/ring_rdma.py:215", sum(k4_paths.values()), ring,
-              k4_paths),
+              k4_paths, also=("steps_ms", "mma_sync_ms", "mma_sync_steps_ms"), instances={
+                  "conceptattention_torch/csrc/ring_attention_sm90.cu":
+                      "head dims 64, 128 (Hopper step kernel)",
+                  "conceptattention_torch/csrc/ring_attention.cu":
+                      "head dim 32 (mma.sync) and the hop; its 64, 128 instances timed as "
+                      "mma_sync_ms / mma_sync_steps_ms"},
+              hopper_step_launches_per_path={
+                  label: hopper for label, (_, _, hopper) in ring_paths.items()}),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

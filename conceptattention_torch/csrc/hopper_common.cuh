@@ -1,6 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the redesigned kernels
-// (csrc/flash_saliency_sm90.cu, csrc/conv3x3_sm90.cu): mbarrier waits and
-// arrivals, named barriers, TMA tensor loads and stores, the wgmma
+// (csrc/flash_saliency_sm90.cu, csrc/ring_attention_sm90.cu through
+// csrc/flash_sm90.cuh, and csrc/conv3x3_sm90.cu): mbarrier waits and
+// arrivals, named barriers, predicated global loads and stores, TMA tensor
+// loads and stores, the wgmma
 // shared-memory descriptor for 128-byte swizzled tiles, wgmma fences and
 // bf16 products with f32 accumulators (m64 by n64, n128 or n256 with A from
 // shared memory; by n64 or n128 with A from registers), and the host-side
@@ -132,6 +134,36 @@ __device__ __forceinline__ void fence_proxy_async() {
 // bar.sync on a named barrier for `count` threads (a multiple of 32).
 __device__ __forceinline__ void named_barrier_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// ---- predicated global loads and stores -------------------------------------
+// A per-thread row guard as a predicate on the instruction, not a branch, so
+// it adds no divergent path between wgmma issues (the address is not touched
+// when the guard is false).
+
+__device__ __forceinline__ void st_global_u32_if(void* p, uint32_t v, bool pred) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %2, 0;\n@p st.global.b32 [%0], %1;\n}\n" ::"l"(p),
+               "r"(v), "r"((int)pred)
+               : "memory");
+}
+
+__device__ __forceinline__ void st_global_f2_if(void* p, float x, float y, bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %3, 0;\n@p st.global.v2.f32 [%0], {%1, %2};\n}\n" ::"l"(p),
+      "f"(x), "f"(y), "r"((int)pred)
+      : "memory");
+}
+
+// Two floats at p (8-byte aligned), or (0, 0) when pred is false.
+__device__ __forceinline__ float2 ld_global_f2_if(const void* p, bool pred) {
+  float x, y;
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %3, 0;\nmov.f32 %0, 0f00000000;\nmov.f32 %1, 0f00000000;\n"
+      "@p ld.global.v2.f32 {%0, %1}, [%2];\n}\n"
+      : "=f"(x), "=f"(y)
+      : "l"(p), "r"((int)pred)
+      : "memory");
+  return make_float2(x, y);
 }
 
 // ---- wgmma ----------------------------------------------------------------

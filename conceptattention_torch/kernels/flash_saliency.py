@@ -20,9 +20,13 @@ for a CPU tensor and, for a CUDA tensor, launches the instance that
 then TMA, an mbarrier ring and wgmma) or `csrc/flash_saliency.cu` (head dim
 32: mma.sync). It never falls back from one to another. `fused_concept_flash_attention_paired`
 (K3) is the same function for head dim 64, an even head count and RoPE,
-launched as the kernel's two-heads-per-block instance; `joint_concept_attention_fused`
-takes it for such inputs when `PAIR_HEADS` is set (off by default, as the JAX
-package's `_PAIR_HEADS`). `fused_concept_flash_attention_int8` (K1b, what
+launched as the RoPE pre-pass and the Hopper kernel's instance that walks the
+two heads of a pair through one block (`csrc/flash_saliency_sm90.cu`,
+`ca_flash_saliency_paired_sm90_bf16`); `csrc/flash_saliency.cu` keeps its
+mma.sync two-heads-per-block instance only as a yardstick, never called
+here. `joint_concept_attention_fused` takes K3 for such inputs when
+`PAIR_HEADS` is set (off by default, as the JAX package's `_PAIR_HEADS`).
+`fused_concept_flash_attention_int8` (K1b, what
 `int8_qk=True` selects) is the same function with per-row int8 q and k and
 int8 x int8 -> int32 scores, launched as `csrc/flash_saliency_int8.cu`'s
 pre-pass and main kernel; it never takes K3. Each wrapper's `launches`
@@ -262,8 +266,10 @@ def _sm90_library() -> ctypes.CDLL:
     if lib.ca_flash_saliency_sm90_bf16.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.ca_rope_qk_rows_bf16.argtypes = [p, p, p, p, p, p, i, i, i, i, f, p]
-        lib.ca_flash_saliency_sm90_bf16.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, f, p]
-        lib.ca_rope_qk_rows_bf16.restype = lib.ca_flash_saliency_sm90_bf16.restype = i
+        for fn in (lib.ca_flash_saliency_sm90_bf16, lib.ca_flash_saliency_paired_sm90_bf16):
+            fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, f, p]
+            fn.restype = i
+        lib.ca_rope_qk_rows_bf16.restype = i
     return lib
 
 
@@ -304,26 +310,36 @@ def fused_concept_flash_attention_hopper(
         return fused_concept_flash_attention_plain(
             q, k, v, txt_len, img_len, concept_len, cross, self_attention, rope_cos, rope_sin)
     _check_inputs(q, k, v, txt_len, img_len, concept_len, rope_cos, rope_sin)
+    if flash_instance(q.shape[-1]) != "hopper":
+        raise ValueError(f"the Hopper flash kernel takes head dims {HOPPER_HEAD_DIMS}, "
+                         f"got {q.shape[-1]}")
+    out = _launch_sm90("ca_flash_saliency_sm90_bf16", q, k, v, txt_len, img_len, concept_len,
+                       cross, self_attention, rope_cos, rope_sin)
+    fused_concept_flash_attention_hopper.launches += 1
+    return out
+
+
+def _launch_sm90(entry, q, k, v, txt_len, img_len, concept_len, cross, self_attention,
+                 rope_cos, rope_sin):
+    """The RoPE pre-pass (with tables) and one launch of the Hopper kernel's
+    `entry` on checked inputs, uncounted."""
     b, h, s, d = q.shape
-    if flash_instance(d) != "hopper":
-        raise ValueError(f"the Hopper flash kernel takes head dims {HOPPER_HEAD_DIMS}, got {d}")
+    for name, t in (("q", q), ("k", k), ("v", v)):  # TMA, and the pre-pass's 16-byte loads
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned for TMA")
     score_mul = LOG2E / math.sqrt(d)
     if rope_cos is not None:
         q, k = rope_qk_rows_cuda(q, k, rope_cos, rope_sin)
         score_mul = 1.0
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned for TMA")
     out = torch.empty_like(v)
     lib = _sm90_library()
     with torch.cuda.device(q.device):
-        err = lib.ca_flash_saliency_sm90_bf16(
+        err = getattr(lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, s, d,
             txt_len, img_len, concept_len, int(cross), int(self_attention), score_mul,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
-    _build.check(lib, err, "ca_flash_saliency_sm90_bf16 launch")
-    fused_concept_flash_attention_hopper.launches += 1
+    _build.check(lib, err, f"{entry} launch")
     return out
 
 
@@ -465,17 +481,18 @@ def fused_concept_flash_attention_paired(
     self_attention: bool = True,
 ) -> torch.Tensor:
     """`fused_concept_flash_attention` for head dim 64, an even head count and
-    RoPE tables, two heads per kernel block (counterpart of the JAX
-    package's `fused_concept_flash_attention_paired`). Returns [B, H, S, 64]
-    with rows that see nothing zero."""
+    RoPE tables, the two heads of a pair in one kernel block (counterpart of
+    the JAX package's `fused_concept_flash_attention_paired`): on the card the
+    RoPE pre-pass, then the Hopper kernel's paired instance. Returns [B, H,
+    S, 64] with rows that see nothing zero."""
     if q.device.type == "cpu":
         return fused_concept_flash_attention_paired_plain(
             q, k, v, rope_cos, rope_sin, txt_len, img_len, concept_len, cross, self_attention
         )
     _check_paired_contract(q, rope_cos, rope_sin)
     _check_inputs(q, k, v, txt_len, img_len, concept_len, rope_cos, rope_sin)
-    out = _launch("ca_flash_saliency_paired_bf16", q, k, v, txt_len, img_len, concept_len,
-                  cross, self_attention, rope_cos, rope_sin)
+    out = _launch_sm90("ca_flash_saliency_paired_sm90_bf16", q, k, v, txt_len, img_len,
+                       concept_len, cross, self_attention, rope_cos, rope_sin)
     fused_concept_flash_attention_paired.launches += 1
     return out
 

@@ -11,10 +11,14 @@ fused concept attention with padded rows exactly zero.
 
 For CUDA tensors `ring_attention_rdma` runs the ring on the card:
 
-- each ring step is one launch of `csrc/ring_attention.cu` per run of
+- each ring step is one launch of the step kernel (`ring_step`) per run of
   consecutive ranks that share a device (the rank is a grid axis, so a
   virtual ring on one card is one launch per step); the online-softmax state
-  lives between steps in f32 buffers of each rank;
+  lives between steps in f32 buffers of each rank. `ring_instance` names the
+  kernel for a head dim: the Hopper instance `csrc/ring_attention_sm90.cu`
+  (TMA, an mbarrier ring and wgmma, K1's mainloop; head dims 64 and 128) or
+  `csrc/ring_attention.cu` (mma.sync; head dim 32). Neither falls back to
+  the other;
 - each rank owns a double-buffered comm buffer [2 slots, 2 (k, v), B, H, Lc,
   D], as the JAX kernel's `kv_comm`. The hop of step s copies the chunk rank
   r holds (its input at step 0, slot s % 2 after) into slot (s + 1) % 2 of
@@ -29,15 +33,18 @@ For CUDA tensors `ring_attention_rdma` runs the ring on the card:
 
 For CPU tensors it runs `ring_attention_rdma_plain`, the "ring" backend of
 `parallel/ring_attention.py`; it never falls back from one to the other.
+`ring_step_plain` is the function of one step launch in plain PyTorch, on
+the state buffers' layout; folded over the N steps it is the ring.
 `ring_attention_rdma.launches` counts the calls that launch the kernel,
-`ring_attention_rdma.step_launches` the kernel launches.
+`ring_attention_rdma.step_launches` the step launches (through `ring_step`),
+`ring_attention_rdma.hopper_step_launches` those of the Hopper instance.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -46,13 +53,15 @@ from conceptattention_torch.parallel.mesh import Mesh
 from conceptattention_torch.parallel.ring_attention import (
     LOG2E,
     Shards,
+    _segment_mask,
     ring_attention,
     ring_concept_attention,
     shard_over_ring,
 )
 
 KERNEL_HEAD_DIMS = (32, 64, 128)
-MAX_LOCAL_RANKS = 8  # ranks one launch covers (csrc/ring_attention.cu)
+HOPPER_HEAD_DIMS = (64, 128)  # the flux (128) and CogVideoX (64) blocks
+MAX_LOCAL_RANKS = 8  # ranks one launch covers (both step kernels)
 
 _copy_streams: Dict[torch.device, torch.cuda.Stream] = {}
 
@@ -68,21 +77,87 @@ def ring_attention_rdma_plain(
     return ring_attention(qs, ks, vs)
 
 
+def ring_instance(head_dim: int) -> str:
+    """The K4 step kernel that takes a card call at this head dim: "hopper"
+    (`csrc/ring_attention_sm90.cu`: 64, 128) or "mma_sync"
+    (`csrc/ring_attention.cu`: 32)."""
+    return "hopper" if head_dim in HOPPER_HEAD_DIMS else "mma_sync"
+
+
+def ring_step_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    state: Optional[Tuple[torch.Tensor, torch.Tensor]], my: int, step: int, ring_size: int,
+    masked: bool = False, txt_len: int = 0, img_len: int = 0, concept_len: int = 0,
+    cross: bool = True, self_attention: bool = True,
+):
+    """One step launch's function for rank `my` in plain PyTorch: q [B, H,
+    Lc, D] and the K/V chunk it holds at `step` (the chunk of rank (my -
+    step) mod N) folded into the running state (acc [B, H, Lc, D], ml [B,
+    H, Lc, 2] f32: the row max of the scaled scores, -inf for a row that
+    has seen nothing, and the row sum; None at step 0). The kernel's
+    rounding points: f32 scores times log2(e)/sqrt(D), exp2, P rounded to
+    v's dtype, f32 P.V. Returns the new (acc, ml), or at step N - 1 the
+    output acc / l in v's dtype (0 where l == 0)."""
+    b, h, lc, d = q.shape
+    src = (my - step) % ring_size
+    t, p, c = _kernel_segments(masked, ring_size, lc, txt_len, img_len, concept_len)
+    iota = torch.arange(lc, device=q.device)
+    allowed = _segment_mask(my * lc + iota, src * lc + iota, t, p, c, cross, self_attention)
+    s = (q.float() @ k.float().transpose(-1, -2)) * (LOG2E / math.sqrt(d))
+    s = s.masked_fill(~allowed, -math.inf)
+    if state is None:
+        m = torch.full((b, h, lc, 1), -math.inf, device=q.device)
+        l, acc = torch.zeros_like(m), torch.zeros((b, h, lc, d), device=q.device)
+    else:
+        acc, ml = state
+        m, l = ml[..., :1], ml[..., 1:]
+    m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+    ref = torch.where(m_new == -math.inf, torch.zeros_like(m_new), m_new)  # empty rows: exp2 -> 0
+    p = torch.exp2(s - ref)
+    alpha = torch.exp2(m - ref)
+    l_new = l * alpha + p.sum(dim=-1, keepdim=True)
+    acc_new = acc * alpha + p.to(v.dtype).float() @ v.float()
+    if step == ring_size - 1:
+        return (acc_new / torch.where(l_new == 0, torch.ones_like(l_new), l_new)).to(v.dtype)
+    return acc_new, torch.cat([m_new, l_new], dim=-1)
+
+
+def _kernel_segments(masked, ring_size, lc, txt_len, img_len, concept_len):
+    """The segment lengths a step computes with: the unmasked ring is every
+    position in txt (nothing masked but the chunk tails)."""
+    if not masked:
+        return ring_size * lc, 0, 0
+    return txt_len, img_len, concept_len
+
+
 def _library() -> ctypes.CDLL:
+    """`csrc/ring_attention.cu`: the mma.sync step kernel and the hop."""
     lib = _build.load("ring_attention")
     if lib.ca_ring_flash_step_bf16.argtypes is None:
-        ptrs, i = ctypes.POINTER(ctypes.c_void_p), ctypes.c_int
-        lib.ca_ring_flash_step_bf16.argtypes = [
-            ptrs, ptrs, ptrs, ptrs, ptrs, ptrs, ctypes.POINTER(ctypes.c_int),
-            i, i, i, i, i, i, i, i, i, i, i, i, ctypes.c_float, ctypes.c_void_p,
-        ]
-        lib.ca_ring_copy.argtypes = [ctypes.c_void_p, i, ctypes.c_void_p, i, ctypes.c_size_t,
-                                     ctypes.c_void_p]
-        lib.ca_ring_flash_step_bf16.restype = lib.ca_ring_copy.restype = i
+        lib.ca_ring_flash_step_bf16.argtypes = _STEP_ARGTYPES
+        lib.ca_ring_copy.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                                     ctypes.c_int, ctypes.c_size_t, ctypes.c_void_p]
+        lib.ca_ring_flash_step_bf16.restype = lib.ca_ring_copy.restype = ctypes.c_int
     return lib
 
 
-def _check_inputs(qs, ks, vs, txt_len, img_len, concept_len):
+def _sm90_library() -> ctypes.CDLL:
+    """`csrc/ring_attention_sm90.cu`: the Hopper step kernel."""
+    lib = _build.load("ring_attention_sm90")
+    if lib.ca_ring_step_sm90_bf16.argtypes is None:
+        lib.ca_ring_step_sm90_bf16.argtypes = _STEP_ARGTYPES
+        lib.ca_ring_step_sm90_bf16.restype = ctypes.c_int
+    return lib
+
+
+_PTRS = ctypes.POINTER(ctypes.c_void_p)
+_STEP_ARGTYPES = [_PTRS] * 6 + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 12 + [
+    ctypes.c_float, ctypes.c_void_p]
+_STEP_ENTRIES = {"hopper": (_sm90_library, "ca_ring_step_sm90_bf16"),
+                 "mma_sync": (_library, "ca_ring_flash_step_bf16")}
+
+
+def _check_inputs(qs, ks, vs, txt_len, img_len, concept_len, ring_size=None):
     n = len(qs)
     if n < 1 or len(ks) != n or len(vs) != n:
         raise ValueError(f"one q, k and v shard per rank: {len(qs)} / {len(ks)} / {len(vs)}")
@@ -90,6 +165,7 @@ def _check_inputs(qs, ks, vs, txt_len, img_len, concept_len):
     if len(shape) != 4 or shape[-1] not in KERNEL_HEAD_DIMS:
         raise ValueError(f"the ring kernel takes [B, H, Lc, D] shards with D in "
                          f"{KERNEL_HEAD_DIMS}, got {tuple(shape)}")
+    tma = ring_instance(shape[-1]) == "hopper"
     for r, group in enumerate(zip(qs, ks, vs)):
         for name, t in zip("qkv", group):
             if t.dtype != torch.bfloat16:
@@ -99,8 +175,110 @@ def _check_inputs(qs, ks, vs, txt_len, img_len, concept_len):
                                  f"on q[{r}]'s device, got {tuple(t.shape)} on {t.device}")
             if not t.is_contiguous():
                 raise ValueError(f"{name}[{r}] must be contiguous")
-    if min(txt_len, img_len, concept_len) < 0 or txt_len + img_len + concept_len > n * shape[2]:
-        raise ValueError(f"segments {txt_len}+{img_len}+{concept_len} exceed S={n * shape[2]}")
+            if tma and t.data_ptr() % 16:
+                raise ValueError(f"{name}[{r}] must be 16-byte aligned for TMA")
+    total = (ring_size or n) * shape[2]
+    if min(txt_len, img_len, concept_len) < 0 or txt_len + img_len + concept_len > total:
+        raise ValueError(f"segments {txt_len}+{img_len}+{concept_len} exceed S={total}")
+
+
+def _check_state(qs, accs, mls, outs, ranks, ring_size, step):
+    """The buffers of one step launch: len(qs) ranks on q[0]'s device, the f32
+    state read or written at this step, the bf16 output at the last."""
+    m = len(qs)
+    if not 1 <= m <= MAX_LOCAL_RANKS or len(ranks) != m or len(set(ranks)) != m:
+        raise ValueError(f"one launch takes 1 to {MAX_LOCAL_RANKS} distinct ranks, got {ranks}")
+    if not 0 <= step < ring_size or not all(0 <= r < ring_size for r in ranks):
+        raise ValueError(f"step {step} and ranks {ranks} must lie in a ring of {ring_size}")
+    b, h, lc, d = qs[0].shape
+    need = {}
+    if ring_size > 1:
+        need.update(acc=(accs, torch.float32, (b, h, lc, d)), ml=(mls, torch.float32, (b, h, lc, 2)))
+    if step == ring_size - 1:
+        need["out"] = (outs, torch.bfloat16, (b, h, lc, d))
+    for name, (bufs, dtype, shape) in need.items():
+        for i, t in enumerate(bufs):
+            if (t.dtype != dtype or t.shape != shape or t.device != qs[0].device
+                    or not t.is_contiguous()):
+                raise ValueError(f"{name}[{i}] must be a contiguous {dtype} {shape} on "
+                                 f"{qs[0].device}")
+
+
+def _launch_step(instance, qs, ks, vs, accs, mls, outs, ranks, ring_size, step, segments):
+    """One launch of the step kernel `instance` on q[0]'s device and current
+    stream, uncounted (`ring_step` counts)."""
+    make_lib, entry = _STEP_ENTRIES[instance]
+    lib = make_lib()
+    m = len(qs)
+    b, h, lc, d = qs[0].shape
+    ptrs = ctypes.c_void_p * m
+
+    def addresses(ts):
+        return ptrs(*[t.data_ptr() if t is not None else None for t in ts])
+
+    dev = qs[0].device
+    with torch.cuda.device(dev):
+        err = getattr(lib, entry)(
+            addresses(qs), addresses(ks), addresses(vs), addresses(accs), addresses(mls),
+            addresses(outs), (ctypes.c_int * m)(*ranks), m, b, h, lc, d, ring_size, step,
+            *segments[:3], int(segments[3]), int(segments[4]), LOG2E / math.sqrt(d),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(lib, err, f"{entry} launch")
+
+
+def _counted_step(qs, ks, vs, accs, mls, outs, ranks, ring_size, step, segments):
+    instance = ring_instance(qs[0].shape[-1])
+    _launch_step(instance, qs, ks, vs, accs, mls, outs, ranks, ring_size, step, segments)
+    ring_attention_rdma.step_launches += 1
+    if instance == "hopper":
+        ring_attention_rdma.hopper_step_launches += 1
+
+
+def ring_step(
+    qs: Sequence[torch.Tensor],
+    ks: Sequence[torch.Tensor],
+    vs: Sequence[torch.Tensor],
+    accs: Sequence[Optional[torch.Tensor]],
+    mls: Sequence[Optional[torch.Tensor]],
+    outs: Sequence[Optional[torch.Tensor]],
+    ranks: Sequence[int],
+    ring_size: int,
+    step: int,
+    *,
+    masked: bool = False,
+    txt_len: int = 0,
+    img_len: int = 0,
+    concept_len: int = 0,
+    cross: bool = True,
+    self_attention: bool = True,
+) -> None:
+    """One ring step for the ranks `ranks`, all on one device, on the
+    caller's buffers: rank ranks[i] holds the query shard qs[i] and the K/V
+    chunk ks[i], vs[i] of rank (ranks[i] - step) mod N; its state accs[i]
+    [B, H, Lc, D] and mls[i] [B, H, Lc, 2] (f32) is read unless step == 0
+    and written unless step == N - 1, when outs[i] (bf16) gets the output
+    (`ring_step_plain`'s contract). On CUDA tensors one launch of the step
+    kernel `ring_instance` names, counted; on CPU tensors
+    `ring_step_plain` into the same buffers."""
+    segments = dict(masked=masked, txt_len=txt_len, img_len=img_len, concept_len=concept_len,
+                    cross=cross, self_attention=self_attention)
+    if all(q.device.type == "cpu" for q in qs):
+        for i, r in enumerate(ranks):
+            state = None if step == 0 else (accs[i], mls[i])
+            res = ring_step_plain(qs[i], ks[i], vs[i], state, r, step, ring_size, **segments)
+            if step == ring_size - 1:
+                outs[i].copy_(res)
+            else:
+                accs[i].copy_(res[0])
+                mls[i].copy_(res[1])
+        return
+    _check_inputs(qs, ks, vs, txt_len, img_len, concept_len, ring_size)
+    _check_state(qs, accs, mls, outs, ranks, ring_size, step)
+    lc = qs[0].shape[2]
+    _counted_step(qs, ks, vs, accs, mls, outs, ranks, ring_size, step,
+                  (*_kernel_segments(masked, ring_size, lc, txt_len, img_len, concept_len),
+                   cross, self_attention))
 
 
 def _copy_stream(device: torch.device) -> torch.cuda.Stream:
@@ -128,33 +306,16 @@ def _launch_groups(devices: List[torch.device]) -> List[List[int]]:
     return groups
 
 
-def ring_attention_rdma(
-    qs: Shards,
-    ks: Shards,
-    vs: Shards,
-    *,
-    masked: bool = False,
-    txt_len: int = 0,
-    img_len: int = 0,
-    concept_len: int = 0,
-    cross: bool = True,
-    self_attention: bool = True,
-) -> Shards:
-    """Ring attention over per-rank shards [B, H, Lc, D] (rank r's q, k and v
-    on rank r's device; the sequence is the ranks' chunks in order). Equals
-    `ring_attention` (masked=False) or `ring_concept_attention` (masked=True,
-    segment lengths in positions of the whole sequence). Returns one output
-    shard per rank, in bf16 for the kernel."""
-    if all(q.device.type == "cpu" for q in qs):
-        return ring_attention_rdma_plain(qs, ks, vs, masked, txt_len, img_len, concept_len,
-                                         cross, self_attention)
-    _check_inputs(qs, ks, vs, txt_len, img_len, concept_len)
+def _run_ring(qs: Shards, ks: Shards, vs: Shards, segments: Tuple, step_fn: Callable) -> Shards:
+    """The ring on the card for checked shards: each rank's state buffers
+    and comm slots, the hops on copy streams, one `step_fn(qs, ks, vs, accs,
+    mls, outs, ranks, N, step, segments)` per launch group and step, all
+    ordered by events. `segments` are the kernel's (txt, img, concept,
+    cross, self_attention)."""
     n = len(qs)
     b, h, lc, d = qs[0].shape
-    if not masked:  # every position joint: nothing is masked but the chunk tails
-        txt_len, img_len, concept_len = n * lc, 0, 0
     devices = [q.device for q in qs]
-    lib = _library()
+    lib = _library()  # the hop
 
     out = [torch.empty_like(q) for q in qs]
     comm = acc = ml = [None] * n
@@ -202,23 +363,10 @@ def ring_attention_rdma(
             if step > 0:
                 for r in group:
                     stream.wait_event(sent_prev[r - 1])  # recv: this step's chunk arrived
-            m = len(group)
-            ptrs = ctypes.c_void_p * m
             chunks = [held(r, step) for r in group]
-            with torch.cuda.device(dev):
-                err = lib.ca_ring_flash_step_bf16(
-                    ptrs(*[qs[r].data_ptr() for r in group]),
-                    ptrs(*[k.data_ptr() for k, _ in chunks]),
-                    ptrs(*[v.data_ptr() for _, v in chunks]),
-                    ptrs(*[acc[r].data_ptr() if acc[r] is not None else None for r in group]),
-                    ptrs(*[ml[r].data_ptr() if ml[r] is not None else None for r in group]),
-                    ptrs(*[out[r].data_ptr() for r in group]),
-                    (ctypes.c_int * m)(*group), m, b, h, lc, d, n, step,
-                    txt_len, img_len, concept_len, int(cross), int(self_attention),
-                    LOG2E / math.sqrt(d), stream.cuda_stream,
-                )
-            _build.check(lib, err, "ca_ring_flash_step_bf16 launch")
-            ring_attention_rdma.step_launches += 1
+            step_fn([qs[r] for r in group], [k for k, _ in chunks], [v for _, v in chunks],
+                    [acc[r] for r in group], [ml[r] for r in group], [out[r] for r in group],
+                    group, n, step, segments)
             event = _event(stream)
             for r in group:
                 done[r] = event
@@ -227,12 +375,40 @@ def ring_attention_rdma(
     if sent_prev is not None:  # the last hops read each rank's buffers: done before they go
         for r, dev in enumerate(devices):
             compute[dev].wait_event(sent_prev[r])
+    return out
+
+
+def ring_attention_rdma(
+    qs: Shards,
+    ks: Shards,
+    vs: Shards,
+    *,
+    masked: bool = False,
+    txt_len: int = 0,
+    img_len: int = 0,
+    concept_len: int = 0,
+    cross: bool = True,
+    self_attention: bool = True,
+) -> Shards:
+    """Ring attention over per-rank shards [B, H, Lc, D] (rank r's q, k and v
+    on rank r's device; the sequence is the ranks' chunks in order). Equals
+    `ring_attention` (masked=False) or `ring_concept_attention` (masked=True,
+    segment lengths in positions of the whole sequence). Returns one output
+    shard per rank, in bf16 for the kernel."""
+    if all(q.device.type == "cpu" for q in qs):
+        return ring_attention_rdma_plain(qs, ks, vs, masked, txt_len, img_len, concept_len,
+                                         cross, self_attention)
+    _check_inputs(qs, ks, vs, txt_len, img_len, concept_len)
+    segments = (*_kernel_segments(masked, len(qs), qs[0].shape[2], txt_len, img_len, concept_len),
+                cross, self_attention)
+    out = _run_ring(qs, ks, vs, segments, _counted_step)
     ring_attention_rdma.launches += 1
     return out
 
 
 ring_attention_rdma.launches = 0
 ring_attention_rdma.step_launches = 0
+ring_attention_rdma.hopper_step_launches = 0
 
 
 def make_ring_attention_rdma(mesh: Mesh, axis_name: str = "seq",

@@ -69,42 +69,65 @@ def test_flash_kernel_matches_plain(dev, b, h, s, d, t, p, c, cross, self_attent
     assert torch.count_nonzero(got[:, :, seen_by_nothing:]).item() == 0
 
 
-@pytest.mark.parametrize("cross,self_attention", [(True, True), (True, False), (False, True),
-                                                  (False, False)])
-def test_paired_kernel_matches_plain(dev, cross, self_attention):
-    """K3 at head dim 64 on 4 heads (two pairs, per-row tables), a ragged
-    tail and pad rows, against its plain version and against K1."""
-    b, h, s, d, t, p, c = 2, 4, 300, 64, 26, 200, 26
-    gen = torch.Generator(dev).manual_seed(3)
-    q, k, v = (torch.randn(b, h, s, d, generator=gen, device=dev).bfloat16() for _ in range(3))
+@pytest.mark.parametrize("case", ["odd_heads", "head_dim", "no_tables", "misaligned"])
+def test_paired_kernel_refuses_bad_inputs(dev, case):
+    """What K3 does not take raises before any launch; a q not 16-byte
+    aligned (TMA, and the RoPE pre-pass's 16-byte loads) too."""
+    h, d = (3, 64) if case == "odd_heads" else (2, 128) if case == "head_dim" else (2, 64)
+    q = torch.zeros(1, h, 64, d, device=dev, dtype=torch.bfloat16)
+    cos = sin = torch.ones(1, 64, d, device=dev)
+    if case == "no_tables":
+        cos = sin = None
+    elif case == "misaligned":  # contiguous, 2 bytes off alignment
+        q = torch.zeros(q.numel() + 1, device=dev, dtype=torch.bfloat16)[1:].view(q.shape)
+    before = fs.fused_concept_flash_attention_paired.launches
+    with pytest.raises(ValueError):
+        fs.fused_concept_flash_attention_paired(q, q, q, cos, sin, 64, 0, 0)
+    assert fs.fused_concept_flash_attention_paired.launches == before
+
+
+PAIRED_CASES = [
+    (2, 4, 300, 26, 200, 26, True, True),     # B=2 with per-row tables, ragged tail, pad rows
+    (2, 4, 300, 26, 200, 26, True, False),
+    (2, 4, 300, 26, 200, 26, False, True),
+    (2, 4, 300, 26, 200, 26, False, False),   # concept rows see nothing
+    (1, 4, 300, 40, 250, 5, True, True),      # two pairs, S not a multiple of 128, pad rows
+    (1, 6, 300, 40, 250, 5, True, True),      # three pairs
+    (2, 4, 391, 60, 300, 17, True, True),
+    (1, 4, 150, 40, 80, 20, True, True),      # concepts 120..140 straddle key tile 128
+    (1, 4, 150, 40, 80, 20, True, False),
+    (1, 4, 150, 40, 80, 20, False, True),
+    (1, 4, 150, 40, 80, 20, False, False),
+    (1, 2, 1300, 30, 1200, 50, True, True),   # 11 key tiles: the 4-stage ring's phase
+    (2, 6, 1300, 30, 1200, 50, False, True),  # crosses the head boundary mid-ring
+]
+
+
+@pytest.mark.parametrize("b,h,s,t,p,c,cross,self_attention", PAIRED_CASES)
+def test_paired_kernel_matches_plain(dev, b, h, s, t, p, c, cross, self_attention):
+    """K3 goes through the Hopper kernel's paired instance (one block walks
+    both heads of a pair through one ring): its counter moves by one and
+    K1's do not, the output holds to the plain version and to K1, and pad
+    rows are exact zeros."""
+    d = 64
+    gen = torch.Generator(dev).manual_seed(11)
+    q, k, v = (torch.randn(b, h, s, d, generator=gen, device=dev) for _ in range(3))
+    q, k, v = (3 * q).bfloat16(), k.bfloat16(), v.bfloat16()
     cos, sin = rope_tables(gen, b, s, d, dev)
-    before = (fs.fused_concept_flash_attention_paired.launches,
-              fs.fused_concept_flash_attention.launches)
-    got = fs.fused_concept_flash_attention_paired(q, k, v, cos, sin, t, p, c, cross, self_attention)
+    args = (q, k, v, cos, sin, t, p, c, cross, self_attention)
+    counters = (fs.fused_concept_flash_attention_paired, fs.fused_concept_flash_attention,
+                fs.fused_concept_flash_attention_hopper)
+    before = [fn.launches for fn in counters]
+    got = fs.fused_concept_flash_attention_paired(*args)
     torch.cuda.synchronize()
-    assert (fs.fused_concept_flash_attention_paired.launches,
-            fs.fused_concept_flash_attention.launches) == (before[0] + 1, before[1])
-    want = fs.fused_concept_flash_attention_paired_plain(
-        q, k, v, cos, sin, t, p, c, cross, self_attention)
+    assert [fn.launches - n for fn, n in zip(counters, before)] == [1, 0, 0]
+    want = fs.fused_concept_flash_attention_paired_plain(*args)
     assert got.dtype == torch.bfloat16 and got.shape == q.shape
     assert (got.float() - want.float()).abs().max().item() <= bf16_limit(want)
     single = fs.fused_concept_flash_attention(q, k, v, t, p, c, cross, self_attention, cos, sin)
     assert (got.float() - single.float()).abs().max().item() <= bf16_limit(want)
     seen_by_nothing = t + p + (c if (cross or self_attention) else 0)
     assert torch.count_nonzero(got[:, :, seen_by_nothing:]).item() == 0
-
-
-@pytest.mark.parametrize("case", ["odd_heads", "head_dim", "no_tables"])
-def test_paired_kernel_refuses_bad_inputs(dev, case):
-    h, d = (3, 64) if case == "odd_heads" else (2, 128) if case == "head_dim" else (2, 64)
-    q = torch.zeros(1, h, 64, d, device=dev, dtype=torch.bfloat16)
-    cos = sin = torch.ones(1, 64, d, device=dev)
-    if case == "no_tables":
-        cos = sin = None
-    before = fs.fused_concept_flash_attention_paired.launches
-    with pytest.raises(ValueError):
-        fs.fused_concept_flash_attention_paired(q, q, q, cos, sin, 64, 0, 0)
-    assert fs.fused_concept_flash_attention_paired.launches == before
 
 
 def test_flash_kernel_refuses_bad_inputs(dev):
@@ -428,20 +451,31 @@ def ring_inputs(gen, n, b, h, lc, d, dev, chunk_offsets=False):
         (4, 2, 2, 75, 32, 20, 200, 10, True, False),
         (4, 1, 2, 75, 128, 20, 200, 10, False, False),  # concept rows see nothing
         (4, 1, 3, 1089, 128, 256, 4096, 3, True, True),  # the flux double block's chunks, 3 heads
+        (4, 2, 3, 200, 128, 50, 300, 20, True, True),    # chunks 2 and 3 all pad rows
+        (3, 1, 2, 300, 64, 40, 700, 30, False, True),    # Lc not a multiple of 128, odd ring
+        # rank 3 (concept rows, cross only) reaches no key tile at step 0 (its own
+        # chunk: concepts and pad) nor at step N-1 (chunk 0: txt), only at 1 and 2;
+        # chunks of whole key tiles, so no tile reaches past a chunk's end
+        (4, 1, 2, 128, 128, 128, 256, 100, True, False),
+        (4, 1, 2, 384, 64, 384, 768, 300, True, False),  # the same with 3 key tiles a chunk
     ],
 )
 def test_ring_kernel_matches_plain(dev, n, b, h, lc, d, t, p, c, cross, self_attention):
     """K4 on a virtual ring of N ranks on one card against its plain version,
-    and padded rows exactly zero."""
+    and padded rows exactly zero; head dims 64 and 128 take the Hopper step
+    kernel (its counter moves by one per step), 32 the mma.sync one."""
     gen = torch.Generator(dev).manual_seed(5)
     _, (qs, ks, vs) = ring_inputs(gen, n, b, h, lc, d, dev)
     kw = dict(masked=True, txt_len=t, img_len=p, concept_len=c, cross=cross,
               self_attention=self_attention)
-    before = (rr.ring_attention_rdma.launches, rr.ring_attention_rdma.step_launches)
+    hopper = n if rr.ring_instance(d) == "hopper" else 0
+    before = (rr.ring_attention_rdma.launches, rr.ring_attention_rdma.step_launches,
+              rr.ring_attention_rdma.hopper_step_launches)
     got = rr.ring_attention_rdma(qs, ks, vs, **kw)
     torch.cuda.synchronize()
-    assert (rr.ring_attention_rdma.launches, rr.ring_attention_rdma.step_launches) == (
-        before[0] + 1, before[1] + n)
+    assert (rr.ring_attention_rdma.launches, rr.ring_attention_rdma.step_launches,
+            rr.ring_attention_rdma.hopper_step_launches) == (
+        before[0] + 1, before[1] + n, before[2] + hopper)
     want = torch.cat(rr.ring_attention_rdma_plain(qs, ks, vs, **kw), dim=2)
     got = torch.cat(got, dim=2)
     assert got.dtype == torch.bfloat16 and got.shape == want.shape
@@ -515,3 +549,82 @@ def test_ring_kernel_refuses_bad_inputs(dev, d, dtype):
     with pytest.raises((ValueError, TypeError)):
         rr.ring_attention_rdma(qs, qs, qs)
     assert (rr.ring_attention_rdma.launches, rr.ring_attention_rdma.step_launches) == before
+
+
+def state_close(acc, ml, want, v):
+    """The kernel's state (acc [B, H, Lc, D], ml [B, H, Lc, 2]) against the
+    plain step's: the same rows empty (max -inf, sum 0, acc 0); elsewhere the
+    max within 1e-4 of 1 + |max| (f32 sums in another order), the sum within
+    1e-3 of itself (an approximate exp2), and acc within 2^-7 of sum x
+    max|v| (each term's bf16 P may round one step apart: at most 2^-8 of
+    p |v|)."""
+    want_acc, want_ml = want
+    m, l, wm, wl = ml[..., 0], ml[..., 1], want_ml[..., 0], want_ml[..., 1]
+    empty = torch.isinf(wm)
+    assert torch.equal(torch.isinf(m), empty) and bool((m[empty] < 0).all())
+    assert torch.count_nonzero(l[empty]).item() == 0
+    assert torch.count_nonzero(acc[empty]).item() == 0
+    seen = ~empty
+    assert bool(((m - wm).abs()[seen] <= 1e-4 * (1 + wm.abs()[seen])).all())
+    assert bool(((l - wl).abs()[seen] <= 1e-3 * wl[seen]).all())
+    tol = 2.0**-7 * wl[..., None] * v.float().abs().max()
+    assert bool(((acc - want_acc).abs() <= tol).all())
+
+
+@pytest.mark.parametrize(
+    "n,b,h,lc,d,t,p,c,cross,self_attention,masked",
+    [
+        (4, 1, 2, 330, 128, 330, 660, 300, True, False, True),  # ranks that skip steps
+        (4, 1, 2, 330, 64, 330, 660, 300, True, False, True),
+        (3, 2, 2, 300, 64, 40, 700, 30, True, True, True),      # B=2, pad rows
+        (4, 1, 3, 1089, 128, 256, 4096, 3, True, True, True),   # the flux double block's chunks
+        (2, 1, 2, 200, 128, 0, 0, 0, True, True, False),         # unmasked, ragged tiles
+    ],
+)
+def test_ring_step_state_matches_plain(dev, n, b, h, lc, d, t, p, c, cross, self_attention,
+                                       masked):
+    """`ring_step` launched step by step on caller buffers, each rank given
+    the chunk it holds at that step: after each of steps 0..N-2 its f32
+    running state holds to `ring_step_plain`'s (so a fault in the
+    fragment-to-state layout shows before the final division hides it), and
+    the output of step N-1 to the plain output."""
+    gen = torch.Generator(dev).manual_seed(13)
+    _, (qs, ks, vs) = ring_inputs(gen, n, b, h, lc, d, dev)
+    kw = dict(masked=masked, txt_len=t, img_len=p, concept_len=c, cross=cross,
+              self_attention=self_attention)
+    accs = [torch.empty(b, h, lc, d, device=dev) for _ in range(n)]
+    mls = [torch.empty(b, h, lc, 2, device=dev) for _ in range(n)]
+    outs = [torch.empty_like(q) for q in qs]
+    plain = [None] * n
+    hopper = n if rr.ring_instance(d) == "hopper" else 0
+    before = (rr.ring_attention_rdma.step_launches, rr.ring_attention_rdma.hopper_step_launches)
+    for step in range(n):
+        held = [(r - step) % n for r in range(n)]
+        rr.ring_step(qs, [ks[i] for i in held], [vs[i] for i in held], accs, mls, outs,
+                     list(range(n)), n, step, **kw)
+        torch.cuda.synchronize()
+        for my in range(n):
+            plain[my] = rr.ring_step_plain(qs[my], ks[held[my]], vs[held[my]], plain[my], my, step,
+                                           n, **kw)
+            if step < n - 1:
+                state_close(accs[my], mls[my], plain[my], vs[held[my]])
+    assert (rr.ring_attention_rdma.step_launches,
+            rr.ring_attention_rdma.hopper_step_launches) == (before[0] + n, before[1] + hopper)
+    got, want = torch.cat(outs, dim=2), torch.cat(plain, dim=2)
+    assert (got.float() - want.float()).abs().max().item() <= bf16_limit(want)
+
+
+def test_hopper_ring_kernel_raises_without_fallback(dev):
+    """A head-dim-128 ring the Hopper step kernel cannot take (a shard not
+    16-byte aligned for TMA) raises; it is not sent to the mma.sync kernel,
+    and no counter moves."""
+    buf = torch.zeros(64 * 128 * 2 + 1, device=dev, dtype=torch.bfloat16)
+    bad = buf[1:].view(1, 2, 64, 128)  # contiguous, 2 bytes off alignment
+    qs = [bad, torch.zeros(1, 2, 64, 128, device=dev, dtype=torch.bfloat16)]
+    counters = (rr.ring_attention_rdma.launches, rr.ring_attention_rdma.step_launches,
+                rr.ring_attention_rdma.hopper_step_launches)
+    with pytest.raises(ValueError, match="aligned"):
+        rr.ring_attention_rdma(qs, qs, qs)
+    assert (rr.ring_attention_rdma.launches, rr.ring_attention_rdma.step_launches,
+            rr.ring_attention_rdma.hopper_step_launches) == counters
+

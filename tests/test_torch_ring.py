@@ -126,6 +126,71 @@ def test_ring_rdma_matches_jax_interpret(case):
     close(got, np.asarray(want, np.float32), tol=tol)
 
 
+# (case, N, cross, self_attention, S, (txt, img, concept) or None unmasked):
+# S = 24 splits into chunks of 12, 8 and 6 with the concepts split across
+# chunks 2 and 3 at N = 4; the ragged cases have odd chunks (7 rows) that
+# end inside a segment, concepts across a chunk boundary and pad rows.
+STEP_CASES = (
+    [("unmasked", n, True, True, 24, None) for n in (2, 3, 4)]
+    + [("masked", n, cross, self_attention, 24, (5, 11, 3)) for n in (2, 3, 4)
+       for cross, self_attention in ABLATIONS]
+    + [("ragged", 3, True, True, 21, (4, 10, 3)), ("ragged", 4, False, True, 28, (3, 15, 6))]
+)
+
+
+@pytest.mark.parametrize("case,n,cross,self_attention,s,segs", STEP_CASES)
+def test_ring_step_fold_matches_ring_and_jax(case, n, cross, self_attention, s, segs):
+    """K4's step function `ring_step_plain`, folded over the N steps (rank my
+    takes the chunk of rank (my - step) mod N), equals `ring_attention_rdma_plain`
+    and the JAX kernel in interpret mode; the wrapper `ring_step` on CPU
+    buffers folds to the same and launches nothing."""
+    lc, d = s // n, 16
+    arrays = qkv(80, 1, 2, s, d)
+    q, k, v = (torch.from_numpy(a) for a in arrays)
+    qs, ks, vs = ([x[:, :, r * lc:(r + 1) * lc].contiguous() for r in range(n)] for x in (q, k, v))
+    kw = dict(masked=segs is not None, cross=cross, self_attention=self_attention)
+    if segs is not None:
+        kw.update(txt_len=segs[0], img_len=segs[1], concept_len=segs[2])
+    state = [None] * n
+    for step in range(n):
+        for my in range(n):
+            src = (my - step) % n
+            state[my] = t_rdma.ring_step_plain(qs[my], ks[src], vs[src], state[my], my, step, n, **kw)
+    got = torch.cat(state, dim=2)
+    close(got, torch.cat(t_rdma.ring_attention_rdma_plain(qs, ks, vs, **kw), dim=2))
+    if segs is None:
+        want = j_rdma.make_ring_attention_rdma(j_make_mesh(seq=n), "seq", interpret=True)(
+            *map(jnp.asarray, arrays))
+    else:
+        want = j_rdma.make_ring_concept_attention_rdma(
+            j_make_mesh(seq=n), "seq", *segs, cross, self_attention, interpret=True)(
+            *map(jnp.asarray, arrays))
+        seen_by_nothing = sum(segs[:2]) + (segs[2] if (cross or self_attention) else 0)
+        assert not got[:, :, seen_by_nothing:].any()
+    close(got, want)
+
+    counters = (t_rdma.ring_attention_rdma.launches, t_rdma.ring_attention_rdma.step_launches,
+                t_rdma.ring_attention_rdma.hopper_step_launches)
+    b, h = q.shape[:2]
+    accs = [torch.full((b, h, lc, d), float("nan")) for _ in range(n)]
+    mls = [torch.full((b, h, lc, 2), float("nan")) for _ in range(n)]
+    outs = [torch.full((b, h, lc, d), float("nan")) for _ in range(n)]
+    for step in range(n):
+        held = [(r - step) % n for r in range(n)]
+        t_rdma.ring_step(qs, [ks[i] for i in held], [vs[i] for i in held], accs, mls, outs,
+                         list(range(n)), n, step, **kw)
+    close(torch.cat(outs, dim=2), got)
+    assert (t_rdma.ring_attention_rdma.launches, t_rdma.ring_attention_rdma.step_launches,
+            t_rdma.ring_attention_rdma.hopper_step_launches) == counters
+
+
+@pytest.mark.parametrize("d,instance", [(32, "mma_sync"), (64, "hopper"), (128, "hopper")])
+def test_ring_instance(d, instance):
+    """The flux (128) and CogVideoX (64) head dims take the Hopper step
+    kernel; head dim 32 stays on mma.sync."""
+    assert t_rdma.ring_instance(d) == instance
+
+
 def attention_inputs(seed, b=1, h=2, t=6, p=16, c=3, d=8):
     """Per-segment (q, k, v) and real RoPE tables over an image row of p
     positions, as numpy."""
