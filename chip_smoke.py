@@ -16,8 +16,9 @@ Run from the root of a checkout: `python3 chip_smoke.py`. In order it
    limit sees such a fault, and times kernel, plain version and one library
    call that computes the same function (the port never calls it); where a
    redesigned Hopper instance took over a shape (K1 at head dims 64, 128 and
-   512, K2 in bf16, K3, K4 at head dims 64 and 128), the earlier kernel's
-   time on the same input is read beside it; K4 also reads its N step
+   512, K1b at head dim 128, K2 in bf16, K3, K4 at head dims 64 and 128),
+   the earlier kernel's time on the same input is read beside it; K1b also
+   reads its pre-pass alone; K4 also reads its N step
    launches alone (no hops) and checks its f32 running state against the
    plain step after every step but the last;
 4. checks the full-width models against their plain reference paths on a
@@ -36,11 +37,14 @@ Run from the root of a checkout: `python3 chip_smoke.py`. In order it
    STEPS_VIDEO steps, 3 concepts) cold and warm, once with the head-paired
    kernel, once with DPM-Solver++, decodes a short clip, and runs once with
    its blocks quantized to w8a8; every kernel's launch count (and the Hopper
-   instances', which take K1 at head dims 64, 128 and 512, K3, and K4's
-   steps at head dims 64 and 128) is set to 0 just before and read just
-   after each run;
+   instances', which take K1 at head dims 64, 128 and 512, K1b at head dim
+   128, K3, and K4's steps at head dims 64 and 128) is set to 0 just before
+   and read just after each run;
 6. prints the Hopper instances' launches on the bf16 `generate_image` and
    `encode_image`, one `kernels` JSON line, then the result line.
+The ptxas register and spill lines of every kernel and a summary of the
+Hopper libraries' SASS (instructions, I2F conversions and a digest per
+kernel, from `cuobjdump -sass`) are printed after the build.
 Any failed check raises, so the script exits non-zero and prints no result.
 """
 
@@ -74,6 +78,11 @@ VIDEO_PROMPT = "a dragon flying over a rocky coast under the sky"
 VIDEO_FRAMES, VIDEO_H, VIDEO_W = 13, 60, 90
 STEPS_VIDEO = 2
 DECODE_FRAMES = 2  # latent frames of the decoded clip, full spatial size
+# The counters read on the flux paths that may take K1b, in this order.
+INT8_COUNTERS = "[K1, K1b, K2, K1 hopper, K2 hopper, K1b hopper]"
+# The sources of the redesigned (Hopper) kernels, summarised from their SASS.
+HOPPER_SOURCES = ("flash_saliency_sm90", "flash_saliency_int8_sm90", "conv3x3_sm90",
+                  "ring_attention_sm90")
 
 
 def gpu_line() -> str:
@@ -355,7 +364,10 @@ def int8_flash_phases(cfg, launches):
     "single" and "single b2" to the main paths' launches. Each phase also
     reads K1 (exact scores) at the same shape: its time, K1b's max |d|
     against its output (a reading with no limit), and the count of int8
-    values where the pre-pass and the plain quantizer differ (must be 0).
+    values where the pre-pass and the plain quantizer differ (must be 0);
+    the mma.sync K1b (`csrc/flash_saliency_int8.cu`, which took head dim 128
+    before the Hopper instance) on the same input, launched directly,
+    uncounted; and the pre-pass alone.
     No PyTorch call computes int8 scores, so there is no library time."""
     from conceptattention_torch.kernels import flash_saliency as fs
     from conceptattention_torch.ops.packing import make_img_ids
@@ -390,6 +402,10 @@ def int8_flash_phases(cfg, launches):
             plain = fs.quantize_qk_rows_plain(args[0], args[1], *args[-2:])
             diffs = sum(int((a != b).sum()) for a, b in ((ours[0], plain[0]), (ours[2], plain[2])))
             return {"k1_ms": time_ms(lambda: fs.fused_concept_flash_attention(*args)),
+                    "mma_sync_ms": time_ms(lambda: fs._launch_int8("ca_flash_saliency_int8",
+                                                                   *args)),
+                    "prepass_ms": time_ms(lambda: fs.quantize_qk_rows_cuda(
+                        args[0], args[1], *args[-2:])),
                     "k1b_vs_k1_max_abs": (got.float() - exact.float()).abs().max().item(),
                     "prepass_int8_diffs": diffs, "ok": diffs == 0}
         return extra
@@ -1250,7 +1266,8 @@ def quantized_flux_path(pipe, bf16_out, counters, conv_per_decode):
     quantized by `quantize_flux_params`, the VAE shared): `generate_image`
     against the bf16 run's heatmaps, `generate_images` of two prompts
     (seeds 0 and 1) cold and warm, and `encode_image`. Counters are
-    [K1, K1b, K2, K1 hopper, K2 hopper]. Returns {path: (launches, seconds)}."""
+    [K1, K1b, K2, K1 hopper, K2 hopper, K1b hopper]. Returns {path:
+    (launches, seconds)}."""
     from conceptattention_torch import ConceptAttentionFluxPipeline
     from conceptattention_torch.ops.quant import quantize_flux_params
 
@@ -1270,16 +1287,16 @@ def quantized_flux_path(pipe, bf16_out, counters, conv_per_decode):
     def run(label, fn, want):
         out, seconds, launches = counted(fn, counters)
         if launches != want:
-            raise AssertionError(f"{label}: launches [K1, K1b, K2, K1 hopper, K2 hopper] {launches} != {want}")
+            raise AssertionError(f"{label}: launches {INT8_COUNTERS} {launches} != {want}")
         for o in out if isinstance(out, list) else [out]:
             check_image_output(o, label)
-        print(f"{label}: launches [K1, K1b, K2, K1 hopper, K2 hopper] {launches}, seconds {seconds:.4f}", flush=True)
+        print(f"{label}: launches {INT8_COUNTERS} {launches}, seconds {seconds:.4f}", flush=True)
         paths[label] = (launches, seconds)
         return out
 
     one = run("generate_image (w8a8, int8_qk, same weights)",
               lambda: qpipe.generate_image(PROMPT, CONCEPTS, **gen_kw),
-              [1, per_image, conv_per_decode, 1, conv_per_decode])
+              [1, per_image, conv_per_decode, 1, conv_per_decode, per_image])
     agreement = {tap: heatmap_agreement(getattr(one, tap), getattr(bf16_out, tap))
                  for tap in ("concept_heatmaps", "cross_attention_maps")}  # a reading, no limit
     print(f"w8a8 + int8_qk against bf16, same weights, prompt and seed: {json.dumps(agreement)}",
@@ -1287,20 +1304,21 @@ def quantized_flux_path(pipe, bf16_out, counters, conv_per_decode):
     for label in ("cold", "warm"):
         outs = run(f"generate_images (w8a8, int8_qk, batch 2) {label}",
                    lambda: qpipe.generate_images([PROMPT] * 2, CONCEPTS, seeds=[0, 1], **gen_kw),
-                   [2, per_image, 2 * conv_per_decode, 2, 2 * conv_per_decode])
+                   [2, per_image, 2 * conv_per_decode, 2, 2 * conv_per_decode, per_image])
     seed0 = {"concept_heatmaps max abs diff": float(np.abs(
         outs[0].concept_heatmaps - one.concept_heatmaps).max())}
     print(f"generate_images seed 0 against generate_image seed 0: {json.dumps(seed0)}", flush=True)
     image = np.random.default_rng(0).integers(0, 256, (SIZE, SIZE, 3), dtype=np.uint8)
     enc = run("encode_image (int8_qk)", lambda: qpipe.encode_image(
-        image, CONCEPTS, width=SIZE, height=SIZE, return_pil_heatmaps=False), [0, cfg.depth, 0, 0, 0])
+        image, CONCEPTS, width=SIZE, height=SIZE, return_pil_heatmaps=False),
+        [0, cfg.depth, 0, 0, 0, cfg.depth])
     del enc
     return paths
 
 
 def random_quantized_paths(counters, conv_per_decode):
     """flux-schnell with random already-quantized weights (`quantize="w8"`
-    and `"w4"`): init, then one `generate_image`. Counters are [K1, K1b, K2, K1 hopper, K2 hopper]."""
+    and `"w4"`): init, then one `generate_image`. Counters are INT8_COUNTERS."""
     from conceptattention_torch import ConceptAttentionFluxPipeline
 
     paths = {}
@@ -1312,7 +1330,7 @@ def random_quantized_paths(counters, conv_per_decode):
         init_seconds = time.perf_counter() - t0
         cfg = pipe.cfg
         per_image = STEPS * (cfg.depth + cfg.depth_single_blocks)
-        want = [per_image + 1, 0, conv_per_decode, per_image + 1, conv_per_decode]
+        want = [per_image + 1, 0, conv_per_decode, per_image + 1, conv_per_decode, 0]
         out, seconds, launches = counted(lambda: pipe.generate_image(
             PROMPT, CONCEPTS, width=SIZE, height=SIZE, num_inference_steps=STEPS,
             return_pil_heatmaps=False, return_image_array=True), counters)
@@ -1321,7 +1339,7 @@ def random_quantized_paths(counters, conv_per_decode):
         check_image_output(out, f"generate_image ({mode})")
         peak = torch.cuda.max_memory_allocated() / 2**30
         print(f"generate_image ({mode}, random quantized init) {SIZE}x{SIZE} {STEPS} steps: "
-              f"launches [K1, K1b, K2, K1 hopper, K2 hopper] {launches}, init seconds {init_seconds:.3f}, "
+              f"launches {INT8_COUNTERS} {launches}, init seconds {init_seconds:.3f}, "
               f"seconds {seconds:.4f}, peak device memory GiB {peak:.3f}", flush=True)
         paths[f"generate_image ({mode})"] = (launches, seconds)
         del pipe, out
@@ -1444,6 +1462,33 @@ def ring_path(counters, bf16_out, conv_per_decode, n=4):
     return paths
 
 
+def sass_summary(lib_path) -> dict:
+    """Per kernel function of a built library, from `cuobjdump -sass`: its
+    instruction count, its I2F (integer to float conversion) count, and a
+    digest of its instructions without addresses and encodings (equal
+    digests: the same machine code)."""
+    import hashlib
+    import re
+    import shutil
+    from pathlib import Path
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return {"cuobjdump": "not found"}
+    text = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+    out = {}
+    for chunk in text.split("Function : ")[1:]:
+        # without the per-build hash of the anonymous namespace
+        name = re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N__", chunk.split("\n", 1)[0].strip())
+        instrs = [re.sub(r"/\*[0-9a-f]{4,}\*/|/\* 0x[0-9a-f]+ \*/", "", line).strip()
+                  for line in chunk.splitlines()[1:] if re.search(r"/\*[0-9a-f]{4,}\*/", line)]
+        out[name] = {"instructions": len(instrs),
+                     "I2F": sum(bool(re.search(r"\bI2F\b", i)) for i in instrs),
+                     "digest": hashlib.sha256("\n".join(instrs).encode()).hexdigest()[:16]}
+    return out
+
+
 def counted(run, counters):
     for fn in counters:
         fn.launches = 0
@@ -1471,19 +1516,23 @@ def main() -> int:
         fused_concept_flash_attention,
         fused_concept_flash_attention_hopper,
         fused_concept_flash_attention_int8,
+        fused_concept_flash_attention_int8_hopper,
         fused_concept_flash_attention_paired,
     )
     from conceptattention_torch.kernels.ring_rdma import ring_attention_rdma
     from conceptattention_torch.models.video.dit import cogvideox_5b_config
 
     t0 = time.perf_counter()
-    logs = _build.build(["flash_saliency", "flash_saliency_sm90", "flash_saliency_int8", "conv3x3",
-                         "conv3x3_sm90", "ring_attention", "ring_attention_sm90"])
+    logs = _build.build(["flash_saliency", "flash_saliency_sm90", "flash_saliency_int8",
+                         "flash_saliency_int8_sm90", "conv3x3", "conv3x3_sm90", "ring_attention",
+                         "ring_attention_sm90"])
     print(f"build seconds {time.perf_counter() - t0:.3f}", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
             if any(w in line for w in ("Compiling entry", "registers", "spill", "Performance Loss")):
                 print(f"ptxas {name}: {line.strip()}", flush=True)
+    for name in HOPPER_SOURCES:
+        print(f"sass {name}: {json.dumps(sass_summary(_build.library_path(name)))}", flush=True)
 
     spec = configs["flux-schnell"]
     cfg = spec.params
@@ -1568,7 +1617,7 @@ def main() -> int:
         "generate_image": dict(zip(names, want_gen)),
         "encode_image": dict(zip(names, [cfg.depth, 0, cfg.depth, 0]))}), flush=True)
     int8_counters = [fused_concept_flash_attention, fused_concept_flash_attention_int8,
-                     conv3x3_same] + hopper
+                     conv3x3_same] + hopper + [fused_concept_flash_attention_int8_hopper]
     quant_paths = quantized_flux_path(pipe, bf16_out, int8_counters, want_gen[1])
     del pipe, out
     gc.collect()
@@ -1626,6 +1675,9 @@ def main() -> int:
         "generate_video (PAIR_HEADS off)": video_k1_bf16, "generate_video (w8a8)": video_k1_w8a8,
         "generate_image (ring_rdma)": ring_gen[1]})
     k1b_paths, k1b_total = per_path(1, {})
+    k1b_hopper_paths, _ = per_path(5, {})
+    if k1b_hopper_paths != k1b_paths:  # every flux K1b launch is at head dim 128
+        raise AssertionError(f"K1b launches {k1b_paths} != its Hopper instance's {k1b_hopper_paths}")
     k2_paths, k2_total = per_path(2, {"generate_image": want_gen[1],
                                       "generate_image (ring_rdma)": ring_gen[2]})
     k4_paths = {label: launches[0] for label, (launches, _, _) in ring_paths.items()}
@@ -1660,9 +1712,15 @@ def main() -> int:
               hopper_launches_per_path={"generate_image": want_gen[3],
                                         "generate_image (ring_rdma)": ring_gen[4],
                                         **{k: v[4] for k, v in quant_paths.items() if v[4]}}),
-        entry("flash_saliency_int8", "conceptattention_torch/csrc/flash_saliency_int8.cu",
+        entry("flash_saliency_int8", "conceptattention_torch/csrc/flash_saliency_int8_sm90.cu",
               "conceptattention_tpu/kernels/flash_saliency.py:305 (int8_qk)", k1b_total, int8,
-              k1b_paths),
+              k1b_paths, also=("mma_sync_ms", "prepass_ms", "k1_ms"), instances={
+                  "conceptattention_torch/csrc/flash_saliency_int8_sm90.cu":
+                      "head dim 128 (Hopper), after the pre-pass of flash_saliency_int8.cu",
+                  "conceptattention_torch/csrc/flash_saliency_int8.cu":
+                      "the pre-pass; head dims 32, 64 (mma.sync; its 128 instance timed as "
+                      "mma_sync_ms)"},
+              hopper_launches_per_path=k1b_hopper_paths),
         entry("ring_attention", "conceptattention_torch/csrc/ring_attention_sm90.cu",
               "conceptattention_tpu/kernels/ring_rdma.py:215", sum(k4_paths.values()), ring,
               k4_paths, also=("steps_ms", "mma_sync_ms", "mma_sync_steps_ms"), instances={

@@ -17,7 +17,10 @@
 // intrinsic, so nvcc contracts nothing into an FMA and the int8 rows equal
 // the plain PyTorch quantizer's bit for bit.
 //
-// Two launches per call:
+// Two launches per call: the pre-pass, then the main kernel of this file at
+// head dims 32 and 64, or of csrc/flash_saliency_int8_sm90.cu (TMA, an
+// mbarrier ring and s8 wgmma) at head dim 128, where this file's instance
+// is kept only as the smoke's yardstick:
 //   1. ca_flash_saliency_int8_prepass: one pass over q and k that ropes,
 //      scales and quantizes each row once (K1 rotates every key row once per
 //      query tile) and writes int8 [B, H, S, D] rows and f32 [B, H, S]
@@ -35,8 +38,8 @@
 // What bounds it on an H100: at the flux shapes the int8 Q.K^T work
 // (2 S^2 D ops at 1979 TOP/s) plus the bf16 P.V (2 S^2 D at 989 TFLOP/s) is
 // far above the bytes moved; tensor-core throughput bounds it. The simple
-// design here (single stage per key tile, mma.sync, no wgmma/TMA) is a first
-// version; speed is later work.
+// design here (single stage per key tile, mma.sync, no wgmma/TMA) serves the
+// small head dims; the flux blocks' head dim 128 takes the Hopper kernel.
 
 #include "flash_common.cuh"
 

@@ -1,6 +1,7 @@
 // The Hopper (sm_90a) attention mainloop shared by the flash-saliency kernels
-// (csrc/flash_saliency_sm90.cu: K1, and K3 with two heads per block) and the
-// ring step kernel (csrc/ring_attention_sm90.cu: K4).
+// (csrc/flash_saliency_sm90.cu: K1, and K3 with two heads per block;
+// csrc/flash_saliency_int8_sm90.cu: K1b, int8 scores) and the ring step
+// kernel (csrc/ring_attention_sm90.cu: K4).
 //
 // A block takes HQ = 128 query rows. One thread of a producer warpgroup
 // issues every TMA copy: the Q tile, then HK-key K tiles and their DC-column
@@ -10,6 +11,11 @@
 // 64 rows each run the Mainloop:
 //   - S = Q K^T is wgmma m64nHKk16 with both operands in shared memory
 //     (128-byte swizzled, K-major);
+//   - a QK parameter of KvRing and Mainloop says what Q K^T reads and how
+//     its sums become scores: Bf16QK below (K1, K3, K4: the f32
+//     accumulators are the scores), or K1b's int8 rows, whose s32 sums take
+//     the key scales that land in the ring beside each K tile and whose row
+//     scales ride in the softmax's multiplier of each row;
 //   - the online softmax runs on the accumulator registers (each thread
 //     holds two rows; a quad of lanes shares a row), masking per element
 //     only in tiles TileMask::full rejects, exp2 of score * score_mul
@@ -30,7 +36,12 @@
 // Consumer schedules, fixed per head dim:
 //   IN_ORDER: scores, softmax, P.V of one tile, then the next tile;
 //   OVERLAP: tile j+1's Q K^T and softmax beside tile j's P.V (needs
-//     STAGES >= 2; one warpgroup holds o[DC/2], s[HK/2] and P[HK/4]).
+//     STAGES >= 2; one warpgroup holds o[DC/2], s[HK/2] and P[HK/4]);
+//   PINGPONG: IN_ORDER's steps, the two consumer warpgroups taking turns
+//     at the tensor cores (named barriers 1 and 2): in its turn a
+//     warpgroup issues tile j-1's P.V, waits for it and issues tile j's
+//     Q K^T, then hands the turn over, so one warpgroup's softmax runs
+//     while the other's products do.
 //
 // Registers: a block of three warpgroups compiles to at most 168 registers
 // a thread (each SM sub-partition holds 16384 and one warp of every
@@ -48,20 +59,27 @@ using namespace hopper;
 
 constexpr int HQ = 128;                        // query rows per block
 constexpr int CONSUMERS = 256, THREADS = 384;  // two consumer warpgroups + the producer's
-constexpr int IN_ORDER = 0, OVERLAP = 1;       // consumer schedules
+constexpr int IN_ORDER = 0, OVERLAP = 1, PINGPONG = 2;  // consumer schedules
 
-// The K / V ring in shared memory: [STAGES][D/64 atoms][HK rows][128 B] of K,
-// [STAGES][DC/64 atoms][HK rows][128 B] of V, then its barriers.
-template <int D, int DC, int HK, int STAGES>
+template <int D, int HK>
+struct Bf16QK;
+
+// The K / V ring in shared memory: [STAGES][QK::ATOMS][HK rows][128 B] of K,
+// [STAGES][DC/64 atoms][HK rows][128 B] of V, [STAGES][QK::EXTRA_STRIDE] of
+// what lands beside each K tile (nothing for bf16), then its barriers.
+template <int D, int DC, int HK, int STAGES, class QK = Bf16QK<D, HK>>
 struct KvRing {
   static_assert(D % 64 == 0 && (DC == 64 || DC == 128) && D % DC == 0,
                 "whole 128-byte swizzle atoms; a 64- or 128-column output chunk");
-  static constexpr int ATOMS = D / 64, V_ATOMS = DC / 64;
+  static constexpr int ATOMS = QK::ATOMS, V_ATOMS = DC / 64;
   static constexpr uint32_t KV_ATOM = HK * 128;  // bytes
   static constexpr uint32_t K_BYTES = ATOMS * KV_ATOM, V_BYTES = V_ATOMS * KV_ATOM;
-  static constexpr size_t bytes = (size_t)STAGES * (K_BYTES + V_BYTES) + sizeof(uint64_t) * 4 * STAGES;
+  static constexpr uint32_t X_BYTES = QK::EXTRA_STRIDE;
+  static constexpr size_t bytes =
+      (size_t)STAGES * (K_BYTES + V_BYTES + X_BYTES) + sizeof(uint64_t) * 4 * STAGES;
 
-  static constexpr uint32_t V_OFF = STAGES * K_BYTES, BAR_OFF = STAGES * (K_BYTES + V_BYTES);
+  static constexpr uint32_t V_OFF = STAGES * K_BYTES, X_OFF = STAGES * (K_BYTES + V_BYTES);
+  static constexpr uint32_t BAR_OFF = STAGES * (K_BYTES + V_BYTES + X_BYTES);
 
   // Everything at constant offsets from one base (1024-byte aligned), so
   // the mainloop keeps one address live, not one per array.
@@ -70,6 +88,9 @@ struct KvRing {
   __device__ __forceinline__ unsigned char* k_tile(int st) const { return base + st * K_BYTES; }
   __device__ __forceinline__ unsigned char* v_tile(int st) const {
     return base + V_OFF + st * V_BYTES;
+  }
+  __device__ __forceinline__ unsigned char* k_extra(int st) const {
+    return base + X_OFF + st * X_BYTES;
   }
   __device__ __forceinline__ uint64_t* bar(int i) const {
     return reinterpret_cast<uint64_t*>(base + BAR_OFF) + i;
@@ -95,18 +116,21 @@ struct KvRing {
   }
 
   // The producer thread: the K tiles [t0, t1) of head `bh` (3D maps over
-  // [heads, rows, D], box 64 x HK x 1) and their V chunk from column c0,
-  // the run's first tile at ring position it0.
+  // [heads, rows, D], box QK::ATOM_COLS x HK x 1) with what lands beside
+  // them, and their V chunk from column c0, the run's first tile at ring
+  // position it0.
   __device__ __forceinline__ void produce(const CUtensorMap* map_k, const CUtensorMap* map_v,
-                                          int it0, int t0, int t1, int bh, int c0) const {
+                                          int it0, int t0, int t1, int bh, int c0,
+                                          const QK& qk = QK()) const {
     for (int t = t0; t < t1; ++t) {
       const int it = it0 + t - t0, st = it % STAGES;
       const uint32_t free_ph = ((it / STAGES) & 1) ^ 1;
       mbar_wait(k_empty(st), free_ph);
-      mbar_expect_tx(k_full(st), K_BYTES);
+      mbar_expect_tx(k_full(st), K_BYTES + QK::EXTRA_BYTES);
       for (int a = 0; a < ATOMS; ++a) {
-        tma_load_3d(k_tile(st) + a * KV_ATOM, map_k, k_full(st), a * 64, t * HK, bh);
+        tma_load_3d(k_tile(st) + a * KV_ATOM, map_k, k_full(st), a * QK::ATOM_COLS, t * HK, bh);
       }
+      qk.produce_extra(k_extra(st), k_full(st), t, bh);
       mbar_wait(v_empty(st), free_ph);
       mbar_expect_tx(v_full(st), V_BYTES);
       for (int a = 0; a < V_ATOMS; ++a) {
@@ -116,13 +140,15 @@ struct KvRing {
   }
 };
 
-// The producer thread: a Q tile (HQ rows from q0 of head bh, D / 64 atoms)
-// into sQ, announced on `bar`.
-template <int D>
+// The producer thread: a Q tile (HQ rows from q0 of head bh, ATOMS atoms of
+// ATOM_COLS elements) into sQ, announced on `bar`.
+template <int D, int ATOMS = D / 64, int ATOM_COLS = 64>
 __device__ __forceinline__ void produce_q(unsigned char* sQ, const CUtensorMap* map_q,
                                           uint64_t* bar, int q0, int bh) {
-  mbar_expect_tx(bar, (D / 64) * HQ * 128);
-  for (int a = 0; a < D / 64; ++a) tma_load_3d(sQ + a * HQ * 128, map_q, bar, a * 64, q0, bh);
+  mbar_expect_tx(bar, ATOMS * HQ * 128);
+  for (int a = 0; a < ATOMS; ++a) {
+    tma_load_3d(sQ + a * HQ * 128, map_q, bar, a * ATOM_COLS, q0, bh);
+  }
 }
 
 __device__ __forceinline__ float fast_exp2(float x) {
@@ -162,6 +188,37 @@ __device__ __forceinline__ void issue_qk(float (&s)[HK / 2], const unsigned char
   }
   wgmma_commit();
 }
+
+// The Q K^T of K1, K3 and K4: bf16 rows of D / 64 atoms, nothing beside a
+// K tile, and the f32 accumulators are the scores.
+template <int D, int HK>
+struct Bf16QK {
+  using Acc = float;                          // the Q K^T accumulators' type
+  static constexpr int ATOMS = D / 64;        // 128-byte atoms in a row of Q or K
+  static constexpr int ATOM_COLS = 64;        // elements in an atom
+  static constexpr uint32_t EXTRA_BYTES = 0;  // bytes that land beside each K tile
+  static constexpr uint32_t EXTRA_STRIDE = 0; // their room in a ring stage (128-byte multiple)
+
+  // The producer thread: what lands beside K tile t of head bh, announced
+  // on its barrier (nothing).
+  __device__ __forceinline__ void produce_extra(unsigned char*, uint64_t*, int, int) const {}
+
+  static __device__ __forceinline__ void issue(float (&acc)[HK / 2], const unsigned char* sQw,
+                                               const unsigned char* sKs) {
+    issue_qk<D, HK>(acc, sQw, sKs);
+  }
+
+  // The tile's scores from its accumulators (waited for) and what landed
+  // beside its K tile, read before the slot is released; `f` is room for
+  // them where they are not the accumulators themselves, as here.
+  __device__ __forceinline__ auto& scores(float (&acc)[HK / 2], float (&)[HK / 2],
+                                          const unsigned char*, int) const {
+    return acc;
+  }
+
+  // What the softmax multiplies the scores by: the caller's score_mul.
+  __device__ __forceinline__ float row_mul(float score_mul) const { return score_mul; }
+};
 
 // O += P V over one HK-key tile: P from registers, V N-major from shared
 // memory (each 64-column atom of the DC-column chunk an HK-key x 128-byte
@@ -251,14 +308,22 @@ struct RowState {
   float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
 };
 
+// A score multiplier for the thread's lo and hi rows: one for both (float)
+// or one a row (float2).
+__device__ __forceinline__ float lo_mul(float m) { return m; }
+__device__ __forceinline__ float hi_mul(float m) { return m; }
+__device__ __forceinline__ float lo_mul(float2 m) { return m.x; }
+__device__ __forceinline__ float hi_mul(float2 m) { return m.y; }
+
 // The online softmax of one score tile in place: mask (only where the tile
 // is not wholly visible to the block), exp2 of score * score_mul against the
 // running max (one FMA: the maximum of the raw scores, scaled, is the
-// maximum of the scaled ones). Returns the factors that rescale the running
-// output. key0 is the key of the thread's score element 0.
-template <int HK>
+// maximum of the scaled ones; score_mul > 0, one for both rows or one a
+// row). Returns the factors that rescale the running output. key0 is the key
+// of the thread's score element 0.
+template <int HK, class Mul>
 __device__ __forceinline__ float2 softmax_tile(float (&s)[HK / 2], RowState& st, bool full,
-                                               float score_mul, int2 vis_lo, int2 vis_hi,
+                                               Mul score_mul, int2 vis_lo, int2 vis_hi,
                                                int key0) {
   if (!full) {
 #pragma unroll
@@ -282,8 +347,8 @@ __device__ __forceinline__ float2 softmax_tile(float (&s)[HK / 2], RowState& st,
     mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
     mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
   }
-  const float mn_lo = fmaxf(st.m_lo, mx_lo * score_mul);
-  const float mn_hi = fmaxf(st.m_hi, mx_hi * score_mul);
+  const float mn_lo = fmaxf(st.m_lo, mx_lo * lo_mul(score_mul));
+  const float mn_hi = fmaxf(st.m_hi, mx_hi * hi_mul(score_mul));
   // A row that has seen no key yet keeps max -inf: exp2 against 0 then
   // gives exact zeros, and the (zero) running output needs no rescale.
   const float ref_lo = mn_lo == -INFINITY ? 0.f : mn_lo;
@@ -294,7 +359,8 @@ __device__ __forceinline__ float2 softmax_tile(float (&s)[HK / 2], RowState& st,
   float sum_lo = 0.f, sum_hi = 0.f;
 #pragma unroll
   for (int i = 0; i < HK / 2; ++i) {
-    const float x = fmaf(s[i], score_mul, (i & 2) ? -ref_hi : -ref_lo);
+    const float x = (i & 2) ? fmaf(s[i], hi_mul(score_mul), -ref_hi)
+                            : fmaf(s[i], lo_mul(score_mul), -ref_lo);
     s[i] = fast_exp2(x);
     if (i & 2) {
       sum_hi += s[i];
@@ -351,40 +417,97 @@ __device__ __forceinline__ void store_out_bf16(const float (&o)[NO], const RowSt
   }
 }
 
+// PINGPONG's turns: consumer warpgroup wg takes its turn on named barrier
+// 1 + wg, which the other's arrival opens, and hands it over by arriving
+// on the other's.
+__device__ __forceinline__ int consumer_wg() {
+  return __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);  // warp-uniform
+}
+__device__ __forceinline__ void take_turn(int wg) { named_barrier_sync(1 + wg, CONSUMERS); }
+__device__ __forceinline__ void give_turn(int wg, bool pred) {
+  named_barrier_arrive_if(2 - wg, CONSUMERS, pred);
+}
+
 // The consumer side: one warpgroup's 64 rows over a run of key tiles.
-template <int D, int DC, int HK, int STAGES, int SCHED>
+template <int D, int DC, int HK, int STAGES, int SCHED, class QK = Bf16QK<D, HK>>
 struct Mainloop {
-  using Ring = KvRing<D, DC, HK, STAGES>;
+  using Ring = KvRing<D, DC, HK, STAGES, QK>;
+  using Acc = typename QK::Acc;
   static constexpr int NO = DC / 2;  // f32 output registers per thread (m64nDC)
   static_assert(SCHED == IN_ORDER || STAGES >= 2, "the overlap keeps two tiles in flight");
 
   // Waits for Q (q_bar) and the run's first K tile (ring position it0), and
-  // issues its Q K^T into s. The caller runs `rest` next.
-  static __device__ __forceinline__ void begin(float (&s)[HK / 2], const Ring& r,
+  // issues its Q K^T into acc. The caller runs `rest` next.
+  static __device__ __forceinline__ void begin(Acc (&acc)[HK / 2], const Ring& r,
                                                const unsigned char* sQw, uint64_t* q_bar,
                                                int it0) {
+    if constexpr (SCHED == PINGPONG) {
+      give_turn(consumer_wg(), consumer_wg() == 1);  // warpgroup 0 takes the first turn
+      take_turn(consumer_wg());
+    }
     mbar_wait(q_bar, 0);
     mbar_wait(r.k_full(it0 % STAGES), (it0 / STAGES) & 1);
     wgmma_fence();
-    issue_qk<D, HK>(s, sQw, r.k_tile(it0 % STAGES));
+    QK::issue(acc, sQw, r.k_tile(it0 % STAGES));
+    if constexpr (SCHED == PINGPONG) give_turn(consumer_wg(), true);
   }
 
-  // The run [t0, t1) (t1 > t0) from the first tile's scores in flight
-  // (begin): folds every tile into (o, rs).
-  static __device__ __forceinline__ void rest(float (&o)[NO], RowState& rs, float (&s)[HK / 2],
+  // The run [t0, t1) (t1 > t0) from the first tile's Q K^T in flight
+  // (begin): folds every tile into (o, rs). Each tile's scores are taken
+  // (qk.scores) before its K slot is released.
+  static __device__ __forceinline__ void rest(float (&o)[NO], RowState& rs, Acc (&acc)[HK / 2],
                                               uint32_t (&pa)[HK / 4], const Ring& r,
                                               const unsigned char* sQw, int it0, int t0, int t1,
                                               const TileMask<HK>& mask, float score_mul,
-                                              int2 vis_lo, int2 vis_hi, int qc, int lane) {
+                                              int2 vis_lo, int2 vis_hi, int qc, int lane,
+                                              const QK& qk = QK()) {
     const int n = t1 - t0;  // uniform over the block
     const int st0 = it0 % STAGES;
     wgmma_wait<0>();
-    fence_regs(s);
+    fence_regs(acc);
+    float f0[HK / 2];
+    auto& s0 = qk.scores(acc, f0, r.k_extra(st0), qc);
     warp_arrive(r.k_empty(st0), lane);  // the K slot refills while this tile's V is read
     const float2 alpha0 =
-        softmax_tile<HK>(s, rs, mask.full(t0), score_mul, vis_lo, vis_hi, t0 * HK + qc);
-    rescale_and_pack<NO, HK>(o, alpha0, s, pa);
-    if constexpr (SCHED == IN_ORDER) {
+        softmax_tile<HK>(s0, rs, mask.full(t0), qk.row_mul(score_mul), vis_lo, vis_hi,
+                         t0 * HK + qc);
+    rescale_and_pack<NO, HK>(o, alpha0, s0, pa);
+    if constexpr (SCHED == PINGPONG) {
+      const int wg = consumer_wg();
+      for (int j = 1; j < n; ++j) {
+        const int pit = it0 + j - 1, pst = pit % STAGES, it = pit + 1, st = it % STAGES;
+        const int t = t0 + j;
+        take_turn(wg);
+        mbar_wait(r.v_full(pst), (pit / STAGES) & 1);
+        wgmma_fence();
+        issue_pv<DC, HK>(o, pa, r.v_tile(pst));
+        wgmma_wait<0>();
+        fence_regs(o);
+        warp_arrive(r.v_empty(pst), lane);
+        mbar_wait(r.k_full(st), (it / STAGES) & 1);
+        wgmma_fence();
+        QK::issue(acc, sQw, r.k_tile(st));
+        give_turn(wg, true);
+        wgmma_wait<0>();
+        fence_regs(acc);
+        float f[HK / 2];
+        auto& s = qk.scores(acc, f, r.k_extra(st), qc);
+        warp_arrive(r.k_empty(st), lane);
+        const float2 alpha =
+            softmax_tile<HK>(s, rs, mask.full(t), qk.row_mul(score_mul), vis_lo, vis_hi,
+                             t * HK + qc);
+        rescale_and_pack<NO, HK>(o, alpha, s, pa);
+      }
+      const int lit = it0 + n - 1, lst = lit % STAGES;
+      take_turn(wg);
+      mbar_wait(r.v_full(lst), (lit / STAGES) & 1);
+      wgmma_fence();
+      issue_pv<DC, HK>(o, pa, r.v_tile(lst));
+      give_turn(wg, wg == 0);  // warpgroup 1's would open a turn no one takes
+      wgmma_wait<0>();
+      fence_regs(o);
+      warp_arrive(r.v_empty(lst), lane);
+    } else if constexpr (SCHED == IN_ORDER) {
       mbar_wait(r.v_full(st0), (it0 / STAGES) & 1);
       wgmma_fence();
       issue_pv<DC, HK>(o, pa, r.v_tile(st0));
@@ -396,12 +519,15 @@ struct Mainloop {
         const uint32_t ph = (it / STAGES) & 1;
         mbar_wait(r.k_full(st), ph);
         wgmma_fence();
-        issue_qk<D, HK>(s, sQw, r.k_tile(st));
+        QK::issue(acc, sQw, r.k_tile(st));
         wgmma_wait<0>();
-        fence_regs(s);
+        fence_regs(acc);
+        float f[HK / 2];
+        auto& s = qk.scores(acc, f, r.k_extra(st), qc);
         warp_arrive(r.k_empty(st), lane);
         const float2 alpha =
-            softmax_tile<HK>(s, rs, mask.full(t), score_mul, vis_lo, vis_hi, t * HK + qc);
+            softmax_tile<HK>(s, rs, mask.full(t), qk.row_mul(score_mul), vis_lo, vis_hi,
+                             t * HK + qc);
         rescale_and_pack<NO, HK>(o, alpha, s, pa);
         mbar_wait(r.v_full(st), ph);
         wgmma_fence();
@@ -421,14 +547,17 @@ struct Mainloop {
         mbar_wait(r.k_full(st), (it / STAGES) & 1);
         mbar_wait(r.v_full(pst), ((it - 1) / STAGES) & 1);
         wgmma_fence();
-        issue_qk<D, HK>(s, sQw, r.k_tile(st));
+        QK::issue(acc, sQw, r.k_tile(st));
         issue_pv<DC, HK>(o, pa, r.v_tile(pst));
         wgmma_wait<1>();
-        fence_regs(s);
+        fence_regs(acc);
+        float f[HK / 2];
+        auto& s = qk.scores(acc, f, r.k_extra(st), qc);
         warp_arrive(r.k_empty(st), lane);
         const int t = t0 + j;
         const float2 alpha =
-            softmax_tile<HK>(s, rs, mask.full(t), score_mul, vis_lo, vis_hi, t * HK + qc);
+            softmax_tile<HK>(s, rs, mask.full(t), qk.row_mul(score_mul), vis_lo, vis_hi,
+                             t * HK + qc);
         wgmma_wait<0>();
         fence_regs(o);
         warp_arrive(r.v_empty(pst), lane);

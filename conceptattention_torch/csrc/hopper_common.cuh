@@ -1,12 +1,13 @@
 // Hopper (sm_90a) building blocks shared by the redesigned kernels
 // (csrc/flash_saliency_sm90.cu, csrc/ring_attention_sm90.cu through
-// csrc/flash_sm90.cuh, and csrc/conv3x3_sm90.cu): mbarrier waits and
-// arrivals, named barriers, predicated global loads and stores, TMA tensor
-// loads and stores, the wgmma
-// shared-memory descriptor for 128-byte swizzled tiles, wgmma fences and
-// bf16 products with f32 accumulators (m64 by n64, n128 or n256 with A from
-// shared memory; by n64 or n128 with A from registers), and the host-side
-// tensor-map encoder, looked up in libcuda
+// csrc/flash_sm90.cuh, csrc/flash_saliency_int8_sm90.cu, and
+// csrc/conv3x3_sm90.cu): mbarrier waits and arrivals, named barriers,
+// predicated global loads and stores, TMA tensor loads and stores, the wgmma
+// shared-memory descriptor for 128-byte swizzled tiles, wgmma fences, bf16
+// products with f32 accumulators (m64 by n64, n128 or n256 with A from
+// shared memory; by n64 or n128 with A from registers) and the s8 product
+// with s32 accumulators (m64n128k32, both operands K-major in shared
+// memory), and the host-side tensor-map encoder, looked up in libcuda
 // at run time through the CUDA runtime's entry-point query, so no library
 // links against libcuda.
 //
@@ -20,6 +21,8 @@
 //   N-major operand (rows = K, 64 N values a row; wgmma's transpose bit):
 //     SBO = 1024 (next 8 K rows), LBO = the byte distance between two
 //     64-wide N boxes; the k-th 16-deep slice starts 2048 * k bytes in.
+// An int8 tile is the same bytes: a box 128 values wide fills a 128-byte row,
+// and the k-th 32-deep slice of a K-major operand starts 32 * k bytes in.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only)
@@ -91,6 +94,15 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
                                             int c0, int c1) {
   asm volatile(
@@ -136,6 +148,14 @@ __device__ __forceinline__ void named_barrier_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
+// bar.arrive on a named barrier for `count` threads, predicated rather than
+// branched (no divergent path between wgmma issues).
+__device__ __forceinline__ void named_barrier_arrive_if(int id, int count, bool pred) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %2, 0;\n@p bar.arrive %0, %1;\n}\n" ::"r"(id),
+               "r"(count), "r"((int)pred)
+               : "memory");
+}
+
 // ---- predicated global loads and stores -------------------------------------
 // A per-thread row guard as a predicate on the instruction, not a branch, so
 // it adds no divergent path between wgmma issues (the address is not touched
@@ -164,6 +184,13 @@ __device__ __forceinline__ float2 ld_global_f2_if(const void* p, bool pred) {
       : "l"(p), "r"((int)pred)
       : "memory");
   return make_float2(x, y);
+}
+
+// A float of shared memory at p, ordered after every earlier barrier wait.
+__device__ __forceinline__ float ld_shared_f32(const void* p) {
+  float x;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(x) : "r"(smem_u32(p)) : "memory");
+  return x;
 }
 
 // ---- wgmma ----------------------------------------------------------------
@@ -197,6 +224,12 @@ template <int R>
 __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int R>
+__device__ __forceinline__ void fence_regs(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // d (64 x 128 f32) += A (64 x 16, shared memory) * B (16 x 128, shared memory); scale_d = 0
@@ -269,6 +302,19 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(TB));
 }
 
+// d (64 x 128 s32) += A (64 x 32 s8, shared memory) * B (32 x 128 s8, shared memory), both
+// K-major (the only layout wgmma takes for 8-bit types); scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n128k32_s8_ss(int (&d)[64], uint64_t desc_a,
+                                                       uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 }  // namespace hopper
 
 namespace {
@@ -299,19 +345,26 @@ EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A bf16 tensor map of `rank` dims (innermost first; `strides` in bytes for
-// dims 1..rank-1), box `box`, 128-byte swizzle, zero fill outside. Returns
-// false if the encoder refuses it (a stride not a multiple of 16 bytes, an
-// address not 16-byte aligned, a box past the limits).
-bool encode_bf16_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-                     const cuuint64_t* strides, const cuuint32_t* box) {
+// A tensor map of `type` and `rank` dims (innermost first; `strides` in
+// bytes for dims 1..rank-1), box `box`, zero fill outside. Returns false if
+// the encoder refuses it (a stride not a multiple of 16 bytes, an address not
+// 16-byte aligned, a box past the limits).
+bool encode_map(CUtensorMap* map, CUtensorMapDataType type, const void* base, int rank,
+                const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+                CUtensorMapSwizzle swizzle) {
   const EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return false;
   const cuuint32_t elem_strides[5] = {1, 1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides,
-            box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  return fn(map, type, rank, const_cast<void*>(base), dims, strides, box, elem_strides,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A bf16 tensor map with 128-byte swizzle (see encode_map).
+bool encode_bf16_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+                     const cuuint64_t* strides, const cuuint32_t* box) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims, strides, box,
+                    CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // The dynamic shared memory of a kernel whose tiles need 1024-byte alignment.

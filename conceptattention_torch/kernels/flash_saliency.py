@@ -28,9 +28,14 @@ here. `joint_concept_attention_fused` takes K3 for such inputs when
 `PAIR_HEADS` is set (off by default, as the JAX package's `_PAIR_HEADS`).
 `fused_concept_flash_attention_int8` (K1b, what
 `int8_qk=True` selects) is the same function with per-row int8 q and k and
-int8 x int8 -> int32 scores, launched as `csrc/flash_saliency_int8.cu`'s
-pre-pass and main kernel; it never takes K3. Each wrapper's `launches`
-attribute counts its calls that launch its kernels.
+int8 x int8 -> int32 scores: `csrc/flash_saliency_int8.cu`'s pre-pass
+quantizes every row once, then the instance that `int8_instance` names for
+the head dim runs the attention: `fused_concept_flash_attention_int8_hopper`
+(head dim 128: `csrc/flash_saliency_int8_sm90.cu`, TMA, an mbarrier ring and
+s8 wgmma on K1's mainloop) or `csrc/flash_saliency_int8.cu`'s mma.sync
+kernel (head dims 32 and 64); it never falls back from one to another and
+never takes K3. Each wrapper's `launches` attribute counts its calls that
+launch its kernels.
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ KERNEL_HEAD_DIMS = (32, 64, 128, 512)
 # mid-attention (512); head dim 32 stays on mma.sync.
 HOPPER_HEAD_DIMS = (64, 128, 512)
 INT8_HEAD_DIMS = (32, 64, 128)  # K1b's instances; the VAE's D=512 never takes int8
+INT8_HOPPER_HEAD_DIMS = (128,)  # the flux DiT blocks; 32 and 64 stay on mma.sync
 PAIRED_HEAD_DIM = 64
 # Route d=64 attention with an even head count through K3 (the head-paired
 # instance) instead of K1; read at call time.
@@ -374,6 +380,16 @@ def _int8_library() -> ctypes.CDLL:
     return lib
 
 
+def _int8_sm90_library() -> ctypes.CDLL:
+    lib = _build.load("flash_saliency_int8_sm90")
+    if lib.ca_flash_saliency_int8_sm90.argtypes is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.ca_flash_saliency_int8_sm90.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, f,
+                                                    p]
+        lib.ca_flash_saliency_int8_sm90.restype = i
+    return lib
+
+
 def quantize_qk_rows_cuda(q, k, rope_cos=None, rope_sin=None):
     """K1b's pre-pass kernel on the card: `quantize_qk_rows_plain`'s
     (q8, qs, k8, ks) for inputs that passed `_check_inputs`."""
@@ -395,6 +411,24 @@ def quantize_qk_rows_cuda(q, k, rope_cos=None, rope_sin=None):
     return q8, qs, k8, ks
 
 
+def int8_instance(head_dim: int) -> str:
+    """The K1b kernel that takes a card call at this head dim: "hopper"
+    (`csrc/flash_saliency_int8_sm90.cu`: 128) or "mma_sync"
+    (`csrc/flash_saliency_int8.cu`: 32, 64)."""
+    return "hopper" if head_dim in INT8_HOPPER_HEAD_DIMS else "mma_sync"
+
+
+def _check_int8_inputs(q, k, v, txt_len, img_len, concept_len, rope_cos, rope_sin):
+    """`_check_inputs`, K1b's head dims, and the 16-byte alignment that the
+    pre-pass's loads, the mma.sync kernel's copies and TMA all need."""
+    _check_inputs(q, k, v, txt_len, img_len, concept_len, rope_cos, rope_sin)
+    if q.shape[-1] not in INT8_HEAD_DIMS:
+        raise ValueError(f"the int8 kernel supports head dims {INT8_HEAD_DIMS}, got {q.shape[-1]}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+
+
 def fused_concept_flash_attention_int8(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -409,33 +443,79 @@ def fused_concept_flash_attention_int8(
 ) -> torch.Tensor:
     """K1b: `fused_concept_flash_attention` with per-row int8 q and k and
     int8 x int8 -> int32 scores (the JAX kernel's `int8_qk=True`). On the
-    card, the pre-pass kernel quantizes every row once, then the main kernel
-    runs the masked online softmax; head dims 32, 64 and 128."""
+    card, the pre-pass kernel quantizes every row once, then the instance
+    that `int8_instance` names runs the masked online softmax: the Hopper
+    kernel at head dim 128, the mma.sync kernel at 32 and 64."""
     if q.device.type == "cpu":
         return fused_concept_flash_attention_plain(
             q, k, v, txt_len, img_len, concept_len, cross, self_attention,
             rope_cos, rope_sin, int8_qk=True,
         )
-    _check_inputs(q, k, v, txt_len, img_len, concept_len, rope_cos, rope_sin)
-    b, h, s, d = q.shape
-    if d not in INT8_HEAD_DIMS:
-        raise ValueError(f"the int8 kernel supports head dims {INT8_HEAD_DIMS}, got {d}")
-    q8, qs, k8, ks = quantize_qk_rows_cuda(q, k, rope_cos, rope_sin)
-    out = torch.empty_like(v)
-    lib = _int8_library()
-    with torch.cuda.device(q.device):
-        err = lib.ca_flash_saliency_int8(
-            q8.data_ptr(), k8.data_ptr(), qs.data_ptr(), ks.data_ptr(), v.data_ptr(),
-            out.data_ptr(), b, h, s, d, txt_len, img_len, concept_len, int(cross),
-            int(self_attention), 1.0 if rope_cos is not None else LOG2E / math.sqrt(d),
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    _build.check(lib, err, "ca_flash_saliency_int8 launch")
+    _check_int8_inputs(q, k, v, txt_len, img_len, concept_len, rope_cos, rope_sin)
+    if int8_instance(q.shape[-1]) == "hopper":
+        out = fused_concept_flash_attention_int8_hopper(
+            q, k, v, txt_len, img_len, concept_len, cross, self_attention, rope_cos, rope_sin)
+    else:
+        out = _launch_int8("ca_flash_saliency_int8", q, k, v, txt_len, img_len, concept_len,
+                           cross, self_attention, rope_cos, rope_sin)
     fused_concept_flash_attention_int8.launches += 1
     return out
 
 
 fused_concept_flash_attention_int8.launches = 0
+
+
+def fused_concept_flash_attention_int8_hopper(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    txt_len: int,
+    img_len: int,
+    concept_len: int,
+    cross: bool = True,
+    self_attention: bool = True,
+    rope_cos: Optional[torch.Tensor] = None,
+    rope_sin: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """K1b through `csrc/flash_saliency_int8_sm90.cu`, head dim 128: the
+    pre-pass (`quantize_qk_rows_cuda`), then the Hopper kernel on the int8
+    rows and their scales."""
+    if q.device.type == "cpu":
+        return fused_concept_flash_attention_plain(
+            q, k, v, txt_len, img_len, concept_len, cross, self_attention,
+            rope_cos, rope_sin, int8_qk=True,
+        )
+    _check_int8_inputs(q, k, v, txt_len, img_len, concept_len, rope_cos, rope_sin)
+    if int8_instance(q.shape[-1]) != "hopper":
+        raise ValueError(f"the Hopper int8 kernel takes head dims {INT8_HOPPER_HEAD_DIMS}, "
+                         f"got {q.shape[-1]}")
+    out = _launch_int8("ca_flash_saliency_int8_sm90", q, k, v, txt_len, img_len, concept_len,
+                       cross, self_attention, rope_cos, rope_sin)
+    fused_concept_flash_attention_int8_hopper.launches += 1
+    return out
+
+
+fused_concept_flash_attention_int8_hopper.launches = 0
+
+
+def _launch_int8(entry, q, k, v, txt_len, img_len, concept_len, cross, self_attention,
+                 rope_cos, rope_sin):
+    """The pre-pass and one launch of K1b's main kernel `entry` (the
+    mma.sync "ca_flash_saliency_int8" or the Hopper
+    "ca_flash_saliency_int8_sm90") on checked inputs, uncounted."""
+    b, h, s, d = q.shape
+    q8, qs, k8, ks = quantize_qk_rows_cuda(q, k, rope_cos, rope_sin)
+    out = torch.empty_like(v)
+    lib = _int8_sm90_library() if entry == "ca_flash_saliency_int8_sm90" else _int8_library()
+    with torch.cuda.device(q.device):
+        err = getattr(lib, entry)(
+            q8.data_ptr(), k8.data_ptr(), qs.data_ptr(), ks.data_ptr(), v.data_ptr(),
+            out.data_ptr(), b, h, s, d, txt_len, img_len, concept_len, int(cross),
+            int(self_attention), 1.0 if rope_cos is not None else LOG2E / math.sqrt(d),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _build.check(lib, err, f"{entry} launch")
+    return out
 
 
 def _check_paired_contract(q, rope_cos, rope_sin):

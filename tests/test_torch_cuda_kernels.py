@@ -325,6 +325,104 @@ def test_int8_kernel_refuses_bad_inputs(dev):
     assert fs.fused_concept_flash_attention_int8.launches == before
 
 
+HOPPER_INT8_CASES = [
+    # b, h, s, t, p, c, cross, self_attention, rope, zero_rows
+    (1, 2, 300, 40, 250, 5, True, True, True, False),      # S not a multiple of 128, pad rows
+    (1, 2, 150, 40, 80, 20, True, True, True, False),      # concepts 120..140 straddle key tile 128
+    (1, 2, 150, 40, 80, 20, True, False, True, False),
+    (1, 2, 150, 40, 80, 20, False, True, True, False),
+    (1, 2, 150, 40, 80, 20, False, False, True, False),    # concept rows see nothing
+    (2, 3, 391, 60, 300, 17, True, True, True, False),     # B=2 with per-row tables
+    (1, 2, 300, 300, 0, 0, True, True, False, False),      # no tables, ragged tail
+    (1, 2, 270, 40, 200, 9, True, True, False, False),     # no tables, concepts
+    (1, 2, 1300, 30, 1200, 50, True, True, True, False),   # 11 key tiles: the 4-stage ring wraps
+    (2, 3, 391, 60, 300, 17, True, True, True, True),      # an all-zero q row and k row
+    (1, 2, 270, 40, 200, 9, True, True, False, True),      # the same without tables
+]
+
+
+def int8_inputs(seed, b, h, s, d, t, rope, zero_rows, dev):
+    gen = torch.Generator(dev).manual_seed(seed)
+    q, k, v = (torch.randn(b, h, s, d, generator=gen, device=dev) for _ in range(3))
+    q, k, v = (3 * q).bfloat16(), k.bfloat16(), v.bfloat16()
+    if zero_rows:  # one img query row scores 0 against every key; one img key row scores 0
+        q[:, :, t + 7] = 0
+        k[:, :, t + 11] = 0
+    return q, k, v, *(rope_tables(gen, b, s, d, dev) if rope else (None, None))
+
+
+@pytest.mark.parametrize("b,h,s,t,p,c,cross,self_attention,rope,zero_rows", HOPPER_INT8_CASES)
+def test_hopper_int8_kernel_matches_plain(dev, b, h, s, t, p, c, cross, self_attention, rope,
+                                          zero_rows):
+    """K1b at head dim 128 goes through the Hopper instance: its counter and
+    K1b's move by one and K1's not, the output is finite and holds to the
+    plain version, and pad rows are exact zeros."""
+    d = 128
+    q, k, v, cos, sin = int8_inputs(13, b, h, s, d, t, rope, zero_rows, dev)
+    args = (q, k, v, t, p, c, cross, self_attention, cos, sin)
+    assert fs.int8_instance(d) == "hopper"
+    counters = (fs.fused_concept_flash_attention_int8, fs.fused_concept_flash_attention_int8_hopper,
+                fs.fused_concept_flash_attention, fs.fused_concept_flash_attention_hopper)
+    before = [fn.launches for fn in counters]
+    got = fs.fused_concept_flash_attention(*args, int8_qk=True)
+    torch.cuda.synchronize()
+    assert [fn.launches - n for fn, n in zip(counters, before)] == [1, 1, 0, 0]
+    want = fs.fused_concept_flash_attention_plain(*args, int8_qk=True)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= bf16_limit(want)
+    seen_by_nothing = t + p + (c if (cross or self_attention) else 0)
+    assert torch.count_nonzero(got[:, :, seen_by_nothing:]).item() == 0
+
+
+@pytest.mark.parametrize("rope", [True, False])
+def test_int8_prepass_matches_plain_quantizer_d128(dev, rope):
+    """The pre-pass that feeds the Hopper K1b: its int8 rows and f32 scales
+    equal the plain quantizer's bit for bit, zero rows (scale 0) included."""
+    q, k, _, cos, sin = int8_inputs(14, 2, 3, 391, 128, 60, rope, True, dev)
+    got = fs.quantize_qk_rows_cuda(q, k, cos, sin)
+    torch.cuda.synchronize()
+    for got_part, want_part in zip(got, fs.quantize_qk_rows_plain(q, k, cos, sin)):
+        assert torch.equal(got_part, want_part)
+    assert got[1][:, :, 60 + 7].eq(0).all() and got[3][:, :, 60 + 11].eq(0).all()
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_int8_head_dims_route_to_their_instance(dev, d):
+    """Head dim 128 (the flux blocks) launches the Hopper K1b; 32 and 64 keep
+    the mma.sync kernel."""
+    q = torch.randn(1, 1, 70, d, device=dev).bfloat16()
+    counters = (fs.fused_concept_flash_attention_int8, fs.fused_concept_flash_attention_int8_hopper)
+    before = [fn.launches for fn in counters]
+    fs.fused_concept_flash_attention(q, q, q, 70, 0, 0, int8_qk=True)
+    torch.cuda.synchronize()
+    hopper = d == 128
+    assert fs.int8_instance(d) == ("hopper" if hopper else "mma_sync")
+    assert [fn.launches - n for fn, n in zip(counters, before)] == [1, int(hopper)]
+
+
+def test_hopper_int8_kernel_raises_without_fallback(dev):
+    """A head-dim-128 int8 call the Hopper kernel cannot take (q not 16-byte
+    aligned for the pre-pass and TMA) raises; it is not sent to the mma.sync
+    kernel or the plain version, and no counter moves. The Hopper wrapper
+    refuses head dim 64."""
+    d = 128
+    buf = torch.zeros(70 * d + 1, device=dev, dtype=torch.bfloat16)
+    q = buf[1:].view(1, 1, 70, d)  # contiguous, 2 bytes off alignment
+    k = torch.zeros_like(q)
+    counters = (fs.fused_concept_flash_attention_int8, fs.fused_concept_flash_attention_int8_hopper,
+                fs.fused_concept_flash_attention)
+    before = [fn.launches for fn in counters]
+    with pytest.raises(ValueError, match="aligned"):
+        fs.fused_concept_flash_attention(q, k, k, 70, 0, 0, int8_qk=True)
+    with pytest.raises(ValueError, match="aligned"):
+        fs.fused_concept_flash_attention_int8_hopper(q, k, k, 70, 0, 0)
+    q64 = torch.zeros(1, 1, 70, 64, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dims"):
+        fs.fused_concept_flash_attention_int8_hopper(q64, q64, q64, 70, 0, 0)
+    assert [fn.launches for fn in counters] == before
+
+
 @pytest.mark.parametrize("m", [1, 3, 17])
 def test_int8_gemm_pads_short_inputs(dev, m):
     """cuBLASLt's int8 GEMM takes more than 16 rows: fewer are padded with

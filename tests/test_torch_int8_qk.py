@@ -112,6 +112,47 @@ def test_int8_close_to_exact(rope):
     np.testing.assert_array_equal(got[:, :, txt + img + con:].numpy(), 0.0)
 
 
+@pytest.mark.parametrize("rope", [True, False])
+def test_plain_int8_zero_rows_matches_pallas_int8_d128(rope):
+    """Head dim 128, the one that takes the Hopper instance on the card, with
+    one all-zero q row (scale 0: it scores 0 against every visible key and
+    weighs them alike) and one all-zero k row (it scores 0 for every query):
+    the plain K1b against the JAX kernel in interpret mode, outputs finite,
+    pad rows exact zeros."""
+    d, s = 128, 64
+    q, k, v = rand(90, 1, H, s, d, scale=3.0), rand(91, 1, H, s, d), rand(92, 1, H, s, d)
+    q[:, :, T + 5] = 0.0  # an img query row
+    k[:, :, T + 9] = 0.0  # an img key row
+    t_tab, j_tab = (None, None), (None, None)
+    if rope:
+        axes = (16, 56, 56)
+        img_ids = np.asarray(j_pack.make_img_ids(6, 8, 1))
+        ids = [np.concatenate([np.zeros((1, n, 3), np.float32), img_ids], 1) for n in (T, C)]
+        (t_pe, j_pe), (t_cpe, j_cpe) = ((t_rope.embed_nd(torch.from_numpy(x), axes, 10_000),
+                                         j_rope.embed_nd(jnp.asarray(x), axes, 10_000))
+                                        for x in ids)
+        t_tab = t_fs.expand_rope_tables([t_pe, (t_cpe[0][:, :, :C], t_cpe[1][:, :, :C])], s)
+        j_tab = j_fs.expand_rope_tables([j_pe, (j_cpe[0][:, :, :C], j_cpe[1][:, :, :C])], s)
+    got = t_fs.fused_concept_flash_attention(
+        *to_t((q, k, v)), T, P, C, True, True, *t_tab, int8_qk=True)
+    want = j_fs.fused_concept_flash_attention(
+        *to_j((q, k, v)), txt_len=T, img_len=P, concept_len=C, block_q=BLOCK, block_k=BLOCK,
+        interpret=True, rope_cos=j_tab[0], rope_sin=j_tab[1], int8_qk=True)
+    close(got, want)
+    assert torch.isfinite(got).all()
+    np.testing.assert_array_equal(got[:, :, T + P + C:].numpy(), 0.0)
+    # the zero q row weighs its T + P visible keys alike: the mean of their v rows
+    close(got[:, :, T + 5], torch.from_numpy(v[:, :, :T + P].mean(axis=2)))
+
+
+@pytest.mark.parametrize("d,instance", [(32, "mma_sync"), (64, "mma_sync"), (128, "hopper")])
+def test_int8_instance_routing(d, instance):
+    """K1b's card instance per head dim: the Hopper kernel takes the flux
+    blocks' 128, the mma.sync kernel keeps 32 (flux-tiny) and 64."""
+    assert t_fs.int8_instance(d) == instance
+    assert d in t_fs.INT8_HEAD_DIMS
+
+
 def test_row_quantizer_rounding_points():
     """max|x| * f32(1/127) as the scale, round half to even, and a zero row
     with scale 0 (so it scores 0)."""
@@ -174,6 +215,19 @@ def test_cpu_tensors_launch_no_int8_kernel(data):
     t_fs.fused_concept_flash_attention(*to_t(qkv), T, P, C, True, True, *t_tab, int8_qk=True)
     assert (t_fs.fused_concept_flash_attention_int8.launches,
             t_fs.fused_concept_flash_attention.launches) == before
+
+
+def test_cpu_tensors_launch_no_hopper_int8_kernel():
+    """The Hopper K1b wrapper on CPU tensors runs the plain version and
+    counts no launch."""
+    q, k, v = (torch.from_numpy(rand(95 + i, 1, H, 64, 128)) for i in range(3))
+    counters = (t_fs.fused_concept_flash_attention_int8_hopper,
+                t_fs.fused_concept_flash_attention_int8)
+    before = [f.launches for f in counters]
+    got = t_fs.fused_concept_flash_attention_int8_hopper(q, k, v, T, P, C)
+    want = t_fs.fused_concept_flash_attention_plain(q, k, v, T, P, C, int8_qk=True)
+    assert torch.equal(got, want)
+    assert [f.launches for f in counters] == before
 
 
 def test_int8_qk_rejects_non_fused_backends():
