@@ -6,7 +6,9 @@ Run from the root of a checkout: `python3 chip_smoke.py`. In order it
 2. builds every kernel from `conceptattention_torch/csrc` (one nvcc per
    source, started together);
 3. holds each kernel against its plain PyTorch version in bf16 at the main
-   paths' shapes (attention per row segment, each against its own scale;
+   paths' shapes, the flux-dev blocks (S=4611, 4608) and the batched
+   encode's (B=2, 4) and the NHWC encoder's convs included (attention per
+   row segment, each against its own scale;
    K1b, the int8-score attention, also against K1 and its pre-pass against
    the plain quantizer;
    at the CogVideoX shape the plain version runs on a subset of heads of
@@ -36,10 +38,21 @@ Run from the root of a checkout: `python3 chip_smoke.py`. In order it
    CogVideoX-5b `generate_video` (13 latent frames of 60x90,
    STEPS_VIDEO steps, 3 concepts) cold and warm, once with the head-paired
    kernel, once with DPM-Solver++, decodes a short clip, and runs once with
-   its blocks quantized to w8a8; every kernel's launch count (and the Hopper
-   instances', which take K1 at head dims 64, 128 and 512, K1b at head dim
-   128, K3, and K4's steps at head dims 64 and 128) is set to 0 just before
-   and read just after each run;
+   its blocks quantized to w8a8; `encode_images` at batch 2 and 4 on the
+   flux-schnell weights against the same images' `encode_image` calls;
+   then, with every earlier pipeline released, the T5-XXL and CLIP-L text
+   towers from random HF state dicts through the port's converters (bf16
+   against f32 at 2 layers, timed), flux-dev `generate_image` (1024x1024,
+   4 steps, guidance 3.5) through `TorchTextEncoders` cold and warm, its
+   image-to-image at strength 0.5, the watermark read back from its image,
+   the NHWC encoder against the NCHW one (and the NCHW decoder against the
+   NHWC one), and the checkpoint path: a flux-dev-shaped `.safetensors`
+   checkpoint cut to 2 double and 4 single blocks and the full VAE, written
+   under build/ and loaded by the pipeline in bf16 (bit for bit) and w8a8
+   (device peak below the bf16 tree); every kernel's launch count (and the
+   Hopper instances', which take K1 at head dims 64, 128 and 512, K1b at
+   head dim 128, K3, and K4's steps at head dims 64 and 128) is set to 0
+   just before and read just after each run;
 6. prints the Hopper instances' launches on the bf16 `generate_image` and
    `encode_image`, one `kernels` JSON line, then the result line.
 The ptxas register and spill lines of every kernel and a summary of the
@@ -249,17 +262,10 @@ def paired_readings(args):
 
 def flash_phases(cfg, main_double, main_single, main_vae):
     from conceptattention_torch.kernels import flash_saliency as fs
-    from conceptattention_torch.ops.packing import make_img_ids
-    from conceptattention_torch.ops.rope import apply_rope, embed_nd
 
     dev = "cuda"
     gen = torch.Generator(dev).manual_seed(1)
     h, d = cfg.num_heads, cfg.head_dim
-    t, grid = 256, SIZE // 16
-    p, c = grid * grid, len(CONCEPTS)
-    img_ids = make_img_ids(grid, grid, 1, device=dev)
-    pe = embed_nd(torch.cat([torch.zeros(1, t, 3, device=dev), img_ids], 1), cfg.axes_dim, cfg.theta)
-    cpe = embed_nd(torch.cat([torch.zeros(1, c, 3, device=dev), img_ids], 1), cfg.axes_dim, cfg.theta)
 
     def qkv(b, heads, s, dim):
         q, k, v = (torch.randn(b, heads, s, dim, generator=gen, device=dev) for _ in range(3))
@@ -269,18 +275,8 @@ def flash_phases(cfg, main_double, main_single, main_vae):
         return fs.segment_mask(s, *seg, cross, self_attention, dev).sum().item()
 
     results = []
+    (q, k, v, t, p, c, _, _, cos, sin), qr, kr = joint_rows_inputs(cfg, gen, 1, 256)
     s = t + p + c
-    q, k, v = qkv(1, h, s, d)
-    # Each concept key points along its own query, 4 units long. Its score
-    # (about 4 sigma, concept positions rotate by the identity) competes with
-    # the strongest img key's, so the concept rows' cross and self terms both
-    # carry weight.
-    qc = q[:, :, t + p:].float()
-    k[:, :, t + p:] = (4.0 * qc / qc.norm(dim=-1, keepdim=True)).bfloat16()
-    cos, sin = fs.expand_rope_tables([pe, (cpe[0][:, :, :c], cpe[1][:, :, :c])], s)
-    qj, kj = apply_rope(q[:, :, :t + p], k[:, :, :t + p], pe)
-    qc, kc = apply_rope(q[:, :, t + p:], k[:, :, t + p:], (cpe[0][:, :, :c], cpe[1][:, :, :c]))
-    qr, kr = torch.cat([qj, qc], 2), torch.cat([kj, kc], 2)
     segments = {"joint rows": slice(0, t + p), "concept rows": slice(t + p, s)}
     for cross, self_attention in [(True, True), (True, False), (False, True), (False, False)]:
         mask = fs.segment_mask(s, t, p, c, cross, self_attention, dev)
@@ -305,18 +301,15 @@ def flash_phases(cfg, main_double, main_single, main_vae):
             extra=mma_sync_reading(args),
         ))
 
-    s = t + p
-    q, k, v = qkv(1, h, s, d)
-    cos, sin = fs.expand_rope_tables([pe], s)
-    qs, ks = apply_rope(q, k, pe)
-    args = (q, k, v, s, 0, 0, True, True, cos, sin)
+    args, qs, ks = single_rows_inputs(cfg, gen, 256)
+    s = args[3]
     results.append(phase_result(
         f"flash_saliency single_block S={s}",
         lambda: fs.fused_concept_flash_attention(*args),
         lambda: fs.fused_concept_flash_attention_plain(*args),
-        lambda: F.scaled_dot_product_attention(qs, ks, v),
+        lambda: F.scaled_dot_product_attention(qs, ks, args[2]),
         4 * d * s * s * h, 4 * h * s * d * 2 + 2 * s * d * 4, main_single,
-        controls=[("one key tile dropped", "all", lambda want: drop_key_tile(want, args, t + 64 * 32))],
+        controls=[("one key tile dropped", "all", lambda want: drop_key_tile(want, args, 256 + 64 * 32))],
         extra=mma_sync_reading(args),
     ))
 
@@ -941,9 +934,10 @@ def decoder_conv_shapes(ae_cfg, latent: int) -> Counter:
     return Counter(s for s in shapes if s[1] % 128 == 0 and s[2] % 128 == 0 and s[0] % 8 == 0)
 
 
-def conv_phases(conv_counts: Counter, decodes: int):
-    """K2 at every decoder shape the gate admits (and one with swish): the
-    Hopper instance against the plain version, with the generic kernel
+def conv_phases(launch_counts: Counter):
+    """K2 at every decoder and encoder shape the gate admits (and one with
+    swish), `launch_counts` {(H, Cin, Cout): main-path launches}: the Hopper
+    instance against the plain version, with the generic kernel
     (`csrc/conv3x3.cu`, which took these shapes before it) timed beside it."""
     from conceptattention_torch.kernels.conv3x3 import (
         conv3x3_instance,
@@ -954,7 +948,7 @@ def conv_phases(conv_counts: Counter, decodes: int):
 
     gen = torch.Generator("cuda").manual_seed(2)
     results = []
-    cases = [(shape, False) for shape in sorted(conv_counts)] + [(min(conv_counts), True)]
+    cases = [(shape, False) for shape in sorted(launch_counts)] + [(min(launch_counts), True)]
     for (res, cin, cout), swish in cases:
         x = torch.randn(1, res, res, cin, generator=gen, device="cuda").bfloat16()
         w = (torch.randn(3, 3, cin, cout, generator=gen, device="cuda") / (9 * cin) ** 0.5).bfloat16()
@@ -965,13 +959,13 @@ def conv_phases(conv_counts: Counter, decodes: int):
         w_drop[0, 0, :32] = 0  # a kernel that skips one 32-deep K tile
         library = None if swish else (lambda: F.conv2d(x_nchw, w_oihw, b, padding=1))
         if conv3x3_instance(x.dtype, cin, cout) != "hopper":
-            raise AssertionError(f"decoder conv {res}x{res} {cin}->{cout} would not take the Hopper K2")
+            raise AssertionError(f"conv {res}x{res} {cin}->{cout} would not take the Hopper K2")
         results.append(phase_result(
             f"conv3x3 H=W={res} Cin={cin} Cout={cout} swish={swish}",
             lambda: conv3x3_same(x, w, b, swish), lambda: conv3x3_same_plain(x, w, b, swish),
             library, 2 * res * res * cout * 9 * cin,
             2 * (res * res * (cin + cout) + 9 * cin * cout + cout),
-            0 if swish else decodes * conv_counts[(res, cin, cout)],
+            0 if swish else launch_counts[(res, cin, cout)],
             controls=[("one K tile dropped", "all",
                        lambda _, wd=w_drop: conv3x3_same_plain(x, wd, b, swish))],
             extra=lambda _: {"generic_ms": time_ms(lambda: conv3x3_same_generic(x, w, b, swish))},
@@ -1462,6 +1456,741 @@ def ring_path(counters, bf16_out, conv_per_decode, n=4):
     return paths
 
 
+# ----------------------------------------------------------------------------
+# The flux pipeline's remaining surface: K1 at the new shapes, the batched
+# encode, the text towers, flux-dev, image-to-image, the NHWC encoder, the
+# checkpoint path and the watermark.
+# ----------------------------------------------------------------------------
+
+# bf16 towers (2 layers, full width) against the same towers in f32, relative
+# RMS of the T5 hidden states and of the CLIP pooled vector: bf16 rounds each
+# matmul input and output to 8 bits of mantissa (2^-9 relative) through two
+# blocks of a few matmuls each, a few tenths of a percent; the controls (T5
+# v1.0's ReLU in the gated FFN, CLIP pooled at the last token) move the
+# output by tens of percent.
+TEXT_TOWER_LIMIT = 2.0**-5
+# encode_images against the same images' encode_image calls, relative RMS of
+# each image's concept and cross-attention heatmaps. At batch 1 the two are
+# the same launches on the same inputs and must agree bit for bit. At batch 2
+# and 4 the encoder still takes one image at a time (the same latents), but
+# the DiT's bf16 GEMMs round in another order than at batch 1, and the
+# random-weight DiT's peaked softmax over the concepts turns that into
+# 3.0-3.5% RMS of the heatmaps (0.030-0.035 on an H100 80GB HBM3 at 700 W);
+# the limit is about twice that. The control, one image encoded with another
+# image's seed, reads about 0.70. The witness that the gap is rounding: the
+# same comparison on the plain attention ("sdpa", no kernel) in bf16 at full
+# depth (0.031-0.036), and at ENCODE_WITNESS_DEPTH double blocks in bf16
+# (0.011) and in f32 (7.5e-6 to 8.2e-6), where rounding is 2^-15 of bf16's
+# (same card). The f32 reading is held to ENCODE_IMAGES_F32_LIMIT: a
+# per-image fault of the batched path at a hundredth of a percent would
+# cross it.
+ENCODE_IMAGES_LIMIT = 2.0**-4
+ENCODE_IMAGES_F32_LIMIT = 2.0**-14
+ENCODE_WITNESS_DEPTH = 4
+# bf16 NHWC encoder / decoder (kernels) against the f32 NCHW one (F.conv2d),
+# relative RMS: bf16 rounding through about 30 conv layers, as the reference
+# VAE decode check; the control skips the mid-attention block.
+VAE_LAYOUT_LIMIT = 5e-2
+
+
+def np_rel_rms(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.sqrt(((got - want) ** 2).mean() / (want**2).mean()))
+
+
+def joint_rows_inputs(cfg, gen, b, t, dev="cuda"):
+    """A double block's attention inputs at SIZE with `t` txt rows and the
+    concept rows, batch `b`: K1's args, and the roped q and k for the
+    library call."""
+    from conceptattention_torch.kernels import flash_saliency as fs
+    from conceptattention_torch.ops.packing import make_img_ids
+    from conceptattention_torch.ops.rope import apply_rope, embed_nd
+
+    h, d = cfg.num_heads, cfg.head_dim
+    grid = SIZE // 16
+    p, c = grid * grid, len(CONCEPTS)
+    s = t + p + c
+    img_ids = make_img_ids(grid, grid, b, device=dev)
+    pe = embed_nd(torch.cat([torch.zeros(b, t, 3, device=dev), img_ids], 1), cfg.axes_dim, cfg.theta)
+    cpe = embed_nd(torch.cat([torch.zeros(b, c, 3, device=dev), img_ids], 1), cfg.axes_dim, cfg.theta)
+    cpe = (cpe[0][:, :, :c], cpe[1][:, :, :c])
+    q, k, v = (torch.randn(b, h, s, d, generator=gen, device=dev) for _ in range(3))
+    q, k, v = (Q_SCALE * q).bfloat16(), k.bfloat16(), v.bfloat16()
+    # Each concept key points along its own query, 4 units long. Its score
+    # (about 4 sigma, concept positions rotate by the identity) competes with
+    # the strongest img key's, so the concept rows' cross and self terms both
+    # carry weight.
+    qc = q[:, :, t + p:].float()
+    k[:, :, t + p:] = (4.0 * qc / qc.norm(dim=-1, keepdim=True)).bfloat16()
+    cos, sin = fs.expand_rope_tables([pe, cpe], s)
+    qj, kj = apply_rope(q[:, :, :t + p], k[:, :, :t + p], pe)
+    qc, kc = apply_rope(q[:, :, t + p:], k[:, :, t + p:], cpe)
+    return (q, k, v, t, p, c, True, True, cos, sin), torch.cat([qj, qc], 2), torch.cat([kj, kc], 2)
+
+
+def single_rows_inputs(cfg, gen, t, dev="cuda"):
+    """A single block's attention inputs at SIZE with `t` txt rows (one
+    segment, as the single blocks call K1): K1's args, and the roped q and k
+    for the library call."""
+    from conceptattention_torch.kernels import flash_saliency as fs
+    from conceptattention_torch.ops.packing import make_img_ids
+    from conceptattention_torch.ops.rope import apply_rope, embed_nd
+
+    grid = SIZE // 16
+    s = t + grid * grid
+    img_ids = make_img_ids(grid, grid, 1, device=dev)
+    pe = embed_nd(torch.cat([torch.zeros(1, t, 3, device=dev), img_ids], 1), cfg.axes_dim, cfg.theta)
+    q, k, v = (torch.randn(1, cfg.num_heads, s, cfg.head_dim, generator=gen, device=dev)
+               for _ in range(3))
+    q, k, v = (Q_SCALE * q).bfloat16(), k.bfloat16(), v.bfloat16()
+    cos, sin = fs.expand_rope_tables([pe], s)
+    qs, ks = apply_rope(q, k, pe)
+    return (q, k, v, s, 0, 0, True, True, cos, sin), qs, ks
+
+
+def new_shape_flash_phases(cfg, launches):
+    """K1 at the shapes the flux-dev paths and `encode_images` give it: the
+    flux-dev double block (512 txt rows, S=4611) and single block (S=4608)
+    at batch 1, and the flux-schnell double block (S=4355) at batch 2 and 4.
+    `launches` is {phase key: main-path launches}."""
+    from conceptattention_torch.kernels import flash_saliency as fs
+
+    gen = torch.Generator("cuda").manual_seed(4)
+    h, d = cfg.num_heads, cfg.head_dim
+    results = []
+    for key, b, t in (("dev double", 1, 512), ("double b2", 2, 256), ("double b4", 4, 256)):
+        args, qr, kr = joint_rows_inputs(cfg, gen, b, t)
+        _, _, v, t, p, c, *_ = args
+        s = t + p + c
+        mask = fs.segment_mask(s, t, p, c, True, True, "cuda")
+        controls = [
+            ("cross flipped", "concept rows",
+             lambda _, a=args: fs.fused_concept_flash_attention_plain(*a[:6], False, *a[7:])),
+            ("one img key tile dropped", "joint rows",
+             lambda want, a=args: drop_key_tile(want, a, a[3] + 64 * 32)),
+        ]
+        label = "flux-dev double_block" if key == "dev double" else f"double_block B={b}"
+        results.append(phase_result(
+            f"flash_saliency {label} S={s}",
+            lambda a=args: fs.fused_concept_flash_attention(*a),
+            lambda a=args: fs.fused_concept_flash_attention_plain(*a),
+            lambda m=mask, qr=qr, kr=kr, v=v: F.scaled_dot_product_attention(qr, kr, v, attn_mask=m),
+            b * 4 * d * mask.sum().item() * h, b * (4 * h * s * d * 2 + 2 * s * d * 4),
+            launches[key], {"joint rows": slice(0, t + p), "concept rows": slice(t + p, s)},
+            controls,
+        ))
+        del args, qr, kr, mask
+        torch.cuda.empty_cache()
+
+    args, qs, ks = single_rows_inputs(cfg, gen, 512)
+    s = args[3]
+    results.append(phase_result(
+        f"flash_saliency flux-dev single_block S={s}",
+        lambda: fs.fused_concept_flash_attention(*args),
+        lambda: fs.fused_concept_flash_attention_plain(*args),
+        lambda: F.scaled_dot_product_attention(qs, ks, args[2]),
+        4 * d * s * s * h, 4 * h * s * d * 2 + 2 * s * d * 4, launches["dev single"],
+        controls=[("one key tile dropped", "all", lambda want: drop_key_tile(want, args, 512 + 64 * 32))],
+    ))
+    return results
+
+
+def encoder_conv_shapes(ae_cfg, res: int) -> Counter:
+    """(H, Cin, Cout) of every 3x3 conv of the NHWC encoder at `res` that the
+    conv3x3 gate routes to the kernel, with its count per encode (the
+    3-channel input conv, the stride-2 downsamples and the output conv stay
+    on F.conv2d)."""
+    shapes = []
+    block_in = ae_cfg.ch
+    for i_level, mult in enumerate(ae_cfg.ch_mult):
+        block_out = ae_cfg.ch * mult
+        for _ in range(ae_cfg.num_res_blocks):
+            shapes += [(res, block_in, block_out), (res, block_out, block_out)]
+            block_in = block_out
+        if i_level != len(ae_cfg.ch_mult) - 1:
+            res //= 2
+    shapes += [(res, block_in, block_in)] * 4  # mid_block_1, mid_block_2
+    return Counter(s for s in shapes if s[1] % 128 == 0 and s[2] % 128 == 0 and s[0] % 8 == 0)
+
+
+def heatmaps_rms(got, want) -> float:
+    return max(np_rel_rms(getattr(got, tap), getattr(want, tap))
+               for tap in ("concept_heatmaps", "cross_attention_maps"))
+
+
+def batch_against_sequential(pipe, images, batches, counters):
+    """`encode_images` at each batch size in `batches` (1024^2, seeds
+    0..B-1, shared concepts), warm, against the same images' `encode_image`
+    calls, and the control: image 1 encoded with image 0's seed. Returns
+    (the direct outputs, seconds per direct call, {b: readings})."""
+    kw = dict(width=SIZE, height=SIZE, return_pil_heatmaps=False)
+    n = max(batches)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    direct = [pipe.encode_image(images[i], CONCEPTS, seed=i, **kw) for i in range(n)]
+    torch.cuda.synchronize()
+    per_image = (time.perf_counter() - t0) / n
+    control = pipe.encode_image(images[1], CONCEPTS, seed=0, **kw)
+    readings = {}
+    for b in batches:
+        for _ in range(2):
+            outs, seconds, launches = counted(
+                lambda: pipe.encode_images(images[:b], CONCEPTS, seeds=list(range(b)), **kw),
+                counters)
+        for o in outs:
+            check_image_output(o, f"encode_images batch {b}")
+        readings[b] = dict(errs=[heatmaps_rms(o, direct[i]) for i, o in enumerate(outs)],
+                           control=heatmaps_rms(outs[1], control), launches=launches,
+                           seconds=seconds)
+    return direct, per_image, readings
+
+
+def encode_images_path(pipe, counters):
+    """`encode_images` at batch 2 and 4 against sequential `encode_image`
+    calls on the flux-schnell pipeline, then the witness: the same on the
+    plain attention in bf16 at full depth and at ENCODE_WITNESS_DEPTH double
+    blocks in bf16 and f32 (random init, one seed). Counters are [K1, K2, K1
+    hopper, K2 hopper]. Returns {path: (launches, seconds)}."""
+    from conceptattention_torch import ConceptAttentionFluxPipeline
+    from conceptattention_torch.config import configs
+    from conceptattention_torch.models.flux.params import tree_map
+
+    depth = pipe.cfg.depth
+    rng = np.random.default_rng(1)
+    images = [rng.integers(0, 256, (SIZE, SIZE, 3), dtype=np.uint8) for _ in range(4)]
+    direct, per_image_direct, fused = batch_against_sequential(pipe, images, (2, 4), counters)
+    one = pipe.encode_images(images[:1], CONCEPTS, seeds=[0], width=SIZE, height=SIZE,
+                             return_pil_heatmaps=False)[0]
+    ok = all(np.array_equal(getattr(one, tap), getattr(direct[0], tap))
+             for tap in ("concept_heatmaps", "cross_attention_maps"))
+    print(f"encode_images batch 1 against encode_image: bit for bit {ok}", flush=True)
+    paths = {}
+    for b, r in fused.items():
+        if r["launches"] != [depth, 0, depth, 0]:
+            raise AssertionError(f"encode_images batch {b}: launches {r['launches']}")
+        ok = ok and max(r["errs"]) <= ENCODE_IMAGES_LIMIT < r["control"]
+        print(f"encode_images batch {b} {SIZE}x{SIZE}: launches [K1, K2, K1 hopper, K2 hopper] "
+              f"{r['launches']}, warm seconds {r['seconds']:.4f}, seconds per image "
+              f"{r['seconds'] / b:.4f} (encode_image {per_image_direct:.4f}); heatmaps vs "
+              f"encode_image relative RMS {r['errs']}, control (image 1 with image 0's seed) "
+              f"{r['control']}, limit {ENCODE_IMAGES_LIMIT}", flush=True)
+        paths[f"encode_images (batch {b})"] = (r["launches"], r["seconds"])
+
+    name = f"{pipe.model_name}-encode-witness"
+    spec = configs[pipe.model_name]
+    configs[name] = dataclasses.replace(spec, name=name, params=dataclasses.replace(
+        spec.params, depth=ENCODE_WITNESS_DEPTH, depth_single_blocks=1))
+    same = dict(text_encoders=pipe.text_encoders, attention_backend="sdpa", device=pipe.device)
+    try:
+        witness = {"sdpa bf16, full depth": ConceptAttentionFluxPipeline(
+            pipe.model_name, params=pipe.params, ae_params=pipe.ae_params, **same)}
+        f32 = ConceptAttentionFluxPipeline(name, dtype=torch.float32, **same)
+        witness[f"sdpa bf16, {ENCODE_WITNESS_DEPTH} double blocks"] = ConceptAttentionFluxPipeline(
+            name, params=tree_map(lambda x: x.to(torch.bfloat16), f32.params),
+            ae_params=f32.ae_params, **same)
+        witness[f"sdpa f32, {ENCODE_WITNESS_DEPTH} double blocks"] = f32
+        del f32
+        for label, p in witness.items():
+            _, _, readings = batch_against_sequential(p, images, (2, 4), counters)
+            for b, r in readings.items():
+                if r["launches"] != [0, 0, 0, 0]:
+                    raise AssertionError(f"witness {label} batch {b}: launches {r['launches']}")
+                gate = ""
+                if p.dtype == torch.float32:
+                    ok = ok and max(r["errs"]) <= ENCODE_IMAGES_F32_LIMIT < r["control"]
+                    gate = f", limit {ENCODE_IMAGES_F32_LIMIT}"
+                print(f"encode_images witness ({label}) batch {b}: heatmaps vs encode_image "
+                      f"relative RMS {r['errs']}, control {r['control']}{gate}", flush=True)
+    finally:
+        witness = p = None
+        configs.pop(name, None)
+        gc.collect()
+        torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("encode_images against encode_image: a reading or its control is "
+                             "on the wrong side of the limit")
+    return paths
+
+
+class TimedEncoders:
+    """Text encoders that add the seconds of each call to `seconds`: the
+    card is synchronised before the clock starts (so no earlier work is
+    counted), and the encoders return CPU tensors (so the card has finished
+    the call's work when it returns)."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.t5_dim, self.clip_dim = inner.t5_dim, inner.clip_dim
+        self.t5_max_length = inner.t5_max_length
+        self.seconds = {"t5": 0.0, "clip": 0.0}
+
+    def _timed(self, name, fn, prompts):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(prompts)
+        self.seconds[name] += time.perf_counter() - t0
+        return out
+
+    def encode_t5(self, prompts):
+        return self._timed("t5", self.inner.encode_t5, prompts)
+
+    def encode_clip(self, prompts):
+        return self._timed("clip", self.inner.encode_clip, prompts)
+
+
+def t5_state_dict(cfg, gen, dtype=torch.bfloat16):
+    """Random HF `T5EncoderModel` weights in its key names, on the card:
+    N(0, 1/fan_in) matrices (q: 1/(d_model*d_kv)), N(0, 1) embeddings,
+    N(0, 0.01) bias buckets, norm scales near 1."""
+    d, inner = cfg.d_model, cfg.num_heads * cfg.d_kv
+
+    def r(shape, std, mean=0.0):
+        return (mean + std * torch.randn(shape, generator=gen, device="cuda")).to(dtype)
+
+    sd = {"shared.weight": r((cfg.vocab_size, d), 1.0),
+          "encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight":
+              r((cfg.relative_attention_num_buckets, cfg.num_heads), 0.1),
+          "encoder.final_layer_norm.weight": r((d,), 0.1, 1.0)}
+    for i in range(cfg.num_layers):
+        p = f"encoder.block.{i}.layer"
+        sd.update({
+            f"{p}.0.layer_norm.weight": r((d,), 0.1, 1.0),
+            f"{p}.0.SelfAttention.q.weight": r((inner, d), (d * cfg.d_kv) ** -0.5),
+            f"{p}.0.SelfAttention.k.weight": r((inner, d), d**-0.5),
+            f"{p}.0.SelfAttention.v.weight": r((inner, d), d**-0.5),
+            f"{p}.0.SelfAttention.o.weight": r((d, inner), inner**-0.5),
+            f"{p}.1.layer_norm.weight": r((d,), 0.1, 1.0),
+            f"{p}.1.DenseReluDense.wi_0.weight": r((cfg.d_ff, d), d**-0.5),
+            f"{p}.1.DenseReluDense.wi_1.weight": r((cfg.d_ff, d), d**-0.5),
+            f"{p}.1.DenseReluDense.wo.weight": r((d, cfg.d_ff), cfg.d_ff**-0.5),
+        })
+    return sd
+
+
+def clip_state_dict(cfg, gen, dtype=torch.bfloat16):
+    """Random HF `CLIPTextModel` weights in its key names (`text_model.*`),
+    on the card: N(0, 1/fan_in) matrices, N(0, 1) token and N(0, 0.01)
+    position embeddings, small biases, norm scales near 1."""
+    d = cfg.hidden_size
+
+    def r(shape, std, mean=0.0):
+        return (mean + std * torch.randn(shape, generator=gen, device="cuda")).to(dtype)
+
+    def lin(key, din, dout):
+        return {f"{key}.weight": r((dout, din), din**-0.5), f"{key}.bias": r((dout,), 0.02)}
+
+    def ln(key):
+        return {f"{key}.weight": r((d,), 0.1, 1.0), f"{key}.bias": r((d,), 0.1)}
+
+    pre = "text_model"
+    sd = {f"{pre}.embeddings.token_embedding.weight": r((cfg.vocab_size, d), 1.0),
+          f"{pre}.embeddings.position_embedding.weight": r((cfg.max_position_embeddings, d), 0.1),
+          **ln(f"{pre}.final_layer_norm")}
+    for i in range(cfg.num_layers):
+        p = f"{pre}.encoder.layers.{i}"
+        sd.update({**ln(f"{p}.layer_norm1"), **ln(f"{p}.layer_norm2"),
+                   **lin(f"{p}.self_attn.q_proj", d, d), **lin(f"{p}.self_attn.k_proj", d, d),
+                   **lin(f"{p}.self_attn.v_proj", d, d), **lin(f"{p}.self_attn.out_proj", d, d),
+                   **lin(f"{p}.mlp.fc1", d, 4 * d), **lin(f"{p}.mlp.fc2", 4 * d, d)})
+    return sd
+
+
+def text_towers():
+    """T5-XXL and the CLIP-L text tower at full width, from random state
+    dicts in the HF key names through the port's converters, bf16 on the
+    card; both cut to 2 layers and held against the same towers in f32 (with
+    a control each); then `TorchTextEncoders` on the full towers, timed on
+    one prompt and on the concepts at flux-dev's 512 tokens."""
+    from conceptattention_torch.models.flux.params import param_count, tree_map
+    from conceptattention_torch.models.text import t5 as t5_mod
+    from conceptattention_torch.models.text.clip import (
+        CLIPTextConfig,
+        clip_text_encode,
+        convert_clip_text_state_dict,
+    )
+    from conceptattention_torch.models.text.encoders import (
+        TorchTextEncoders,
+        WordTokenizer,
+        embed_concepts,
+    )
+    from conceptattention_torch.pipeline.concept_pipeline import _full_f32
+
+    gen = torch.Generator("cuda").manual_seed(8)
+    t0 = time.perf_counter()
+    t5_cfg, clip_cfg = t5_mod.T5Config(), CLIPTextConfig()
+    sd = t5_state_dict(t5_cfg, gen)
+    t5 = t5_mod.convert_t5_state_dict(sd, t5_cfg, torch.bfloat16)
+    del sd
+    sd = clip_state_dict(clip_cfg, gen)
+    clip = convert_clip_text_state_dict(sd, clip_cfg, torch.bfloat16)
+    del sd
+    torch.cuda.synchronize()
+    print(f"text towers: T5-XXL {param_count(t5)} and CLIP-L {param_count(clip)} parameters, "
+          f"random HF state dicts converted on the card in {time.perf_counter() - t0:.3f} s",
+          flush=True)
+    t5_tok = WordTokenizer(t5_cfg.vocab_size, eos_id=1, pad_id=0)
+    clip_tok = WordTokenizer(clip_cfg.vocab_size, clip_cfg.eos_token_id, clip_cfg.eos_token_id)
+
+    def cut(params, key):
+        return {**params, key: tree_map(lambda x: x[:2], params[key])}
+
+    t5_2, clip_2 = cut(t5, "blocks"), cut(clip, "blocks")
+    t5_cfg2 = dataclasses.replace(t5_cfg, num_layers=2)
+    clip_cfg2 = dataclasses.replace(clip_cfg, num_layers=2)
+    t5_ids = torch.as_tensor(t5_tok([PROMPT], max_length=512)["input_ids"], device="cuda")
+    clip_ids = torch.as_tensor(clip_tok([PROMPT], max_length=77)["input_ids"], device="cuda")
+    with torch.inference_mode(), _full_f32():
+        f32 = tree_map(lambda x: x.float(), t5_2)
+        got = t5_mod.t5_encode(t5_2, t5_cfg2, t5_ids)
+        want = t5_mod.t5_encode(f32, t5_cfg2, t5_ids)
+        gelu, t5_mod._gelu = t5_mod._gelu, F.relu
+        try:
+            ctrl = t5_mod.t5_encode(f32, t5_cfg2, t5_ids)
+        finally:
+            t5_mod._gelu = gelu
+        t5_err, t5_ctrl = rel_rms(got, want), rel_rms(ctrl, want)
+        del f32, got, want, ctrl
+        f32 = tree_map(lambda x: x.float(), clip_2)
+        got = clip_text_encode(clip_2, clip_cfg2, clip_ids)["pooler_output"]
+        want_all = clip_text_encode(f32, clip_cfg2, clip_ids)
+        want = want_all["pooler_output"]
+        clip_err = rel_rms(got, want)
+        clip_ctrl = rel_rms(want_all["last_hidden_state"][:, -1], want)
+        finite = bool(torch.isfinite(got).all())
+    ok = (finite and t5_err <= TEXT_TOWER_LIMIT < t5_ctrl
+          and clip_err <= TEXT_TOWER_LIMIT < clip_ctrl)
+    print(f"text towers 2 layers, full width, bf16 vs f32 relative RMS: T5 {t5_err} (control, "
+          f"ReLU in the gated FFN: {t5_ctrl}), CLIP pooled {clip_err} (control, pooled at the "
+          f"last token: {clip_ctrl}), limit {TEXT_TOWER_LIMIT} ok={ok}", flush=True)
+    if not ok:
+        raise AssertionError("bf16 text towers against f32: a reading or a control is on the "
+                             "wrong side of its limit")
+    del t5_2, clip_2
+    enc = TorchTextEncoders(t5, t5_cfg, t5_tok, clip, clip_cfg, clip_tok, t5_max_length=512)
+    seconds = {}
+    for label, fn in (("T5 one prompt", lambda: enc.encode_t5([PROMPT])),
+                      ("CLIP one prompt", lambda: enc.encode_clip([PROMPT])),
+                      ("T5 three concepts", lambda: embed_concepts(enc, CONCEPTS))):
+        out = fn()
+        t0 = time.perf_counter()
+        out = fn()
+        seconds[label] = time.perf_counter() - t0
+        if not all(bool(torch.isfinite(x).all()) for x in (out if isinstance(out, tuple) else [out])):
+            raise AssertionError(f"text towers: {label} not finite")
+    print(f"text encode seconds (warm, t5_max_length 512): {json.dumps(seconds)}", flush=True)
+    return enc
+
+
+def flux_dev_paths(enc, counters):
+    """flux-dev through `TorchTextEncoders`: `generate_image` 1024^2, STEPS
+    steps, guidance 3.5, cold and warm; image-to-image at strength 0.5 on
+    its image, cold and warm; the watermark read back from its image; then
+    the NHWC encoder and the NCHW decoder on its VAE. Counters are [K1, K2,
+    K1 hopper, K2 hopper]. Returns {path: (launches, seconds)}."""
+    from conceptattention_torch import ConceptAttentionFluxPipeline
+    from conceptattention_torch.utils.watermark import WATERMARK_BITS, extract_watermark
+
+    timed = TimedEncoders(enc)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pipe = ConceptAttentionFluxPipeline("flux-dev", text_encoders=timed, init_seed=0)
+    torch.cuda.synchronize()
+    cfg = pipe.cfg
+    print(f"flux-dev pipeline init seconds {time.perf_counter() - t0:.3f}", flush=True)
+    per_step = cfg.depth + cfg.depth_single_blocks
+    gen_kw = dict(width=SIZE, height=SIZE, num_inference_steps=STEPS, guidance=3.5,
+                  return_pil_heatmaps=False, return_image_array=True)
+    paths = {}
+
+    def run(label, fn, want):
+        for attempt in ("cold", "warm"):
+            timed.seconds = {"t5": 0.0, "clip": 0.0}
+            out, seconds, launches = counted(fn, counters)
+            if launches != want:
+                raise AssertionError(f"{label}: launches {launches} != {want}")
+            check_image_output(out, label)
+            print(f"{label} {attempt}: launches [K1, K2, K1 hopper, K2 hopper] {launches}, "
+                  f"seconds {seconds:.4f}, of which T5 {timed.seconds['t5']:.4f} and CLIP "
+                  f"{timed.seconds['clip']:.4f}", flush=True)
+        paths[label] = (launches, seconds)
+        return out
+
+    conv = sum(decoder_conv_shapes(pipe.spec.ae_params, SIZE // 8).values())
+    out = run("generate_image (flux-dev)", lambda: pipe.generate_image(PROMPT, CONCEPTS, **gen_kw),
+              [STEPS * per_step + 1, conv, STEPS * per_step + 1, conv])
+    print(f"flux-dev peak device memory GiB {torch.cuda.max_memory_allocated() / 2**30:.3f}",
+          flush=True)
+    steps_i2i = STEPS - int(0.5 * STEPS)
+    run("generate_image (flux-dev, img2img 0.5)", lambda: pipe.generate_image(
+        PROMPT, CONCEPTS, init_image=out.image, image2image_strength=0.5, **gen_kw),
+        [steps_i2i * per_step + 1, conv, steps_i2i * per_step + 1, conv])
+    bits = extract_watermark(out.image)
+    print(f"watermark read back from the flux-dev image: {sum(map(int.__eq__, bits, WATERMARK_BITS))} "
+          f"of {len(WATERMARK_BITS)} bits", flush=True)
+    if bits != WATERMARK_BITS:
+        raise AssertionError("extract_watermark did not recover the embedded bits")
+    paths["encode_nhwc"] = vae_layout_checks(pipe, out.image, counters)
+    return paths
+
+
+def vae_layout_checks(pipe, image, counters):
+    """The NHWC encoder at SIZE in bf16 (K2 and K1's head-dim-512 instance)
+    against the f32 NCHW encode, and the NCHW decode in f32 against the
+    NHWC decode in bf16, each with the mid-attention skipped as the control.
+    Returns (launches, seconds) of the counted `encode_nhwc`."""
+    from conceptattention_torch.kernels.conv3x3 import conv3x3_instance
+    from conceptattention_torch.models.flux import autoencoder as vae
+    from conceptattention_torch.models.flux.params import tree_map
+    from conceptattention_torch.pipeline.concept_pipeline import _full_f32
+
+    cfg = pipe.spec.ae_params
+    shapes = encoder_conv_shapes(cfg, SIZE)
+    if any(conv3x3_instance(torch.bfloat16, cin, cout) != "hopper" for _, cin, cout in shapes):
+        raise AssertionError("an encoder conv would not take the Hopper K2")
+    ae16 = tree_map(lambda x: x.bfloat16(), pipe.ae_params)
+    with torch.inference_mode(), _full_f32():
+        x = pipe._resize_pixels(image, SIZE, SIZE)
+        for _ in range(2):
+            got, seconds, launches = counted(lambda: vae.encode_nhwc(ae16, cfg, x.bfloat16()),
+                                             counters)
+        want = [1, sum(shapes.values()), 1, sum(shapes.values())]
+        if launches != want:
+            raise AssertionError(f"encode_nhwc launches {launches} != {want}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = vae.encode(pipe.ae_params, cfg, x)
+        torch.cuda.synchronize()
+        nchw_seconds = time.perf_counter() - t0
+        dec = vae.decode_nhwc(ae16, cfg, ref.bfloat16())
+        dec_ref = vae.decode(pipe.ae_params, cfg, ref)
+        attn_block, vae.attn_block = vae.attn_block, lambda h, p: h
+        try:
+            enc_ctrl = vae.encode(pipe.ae_params, cfg, x)
+            dec_ctrl = vae.decode(pipe.ae_params, cfg, ref)
+        finally:
+            vae.attn_block = attn_block
+    readings = {"encode_nhwc bf16 vs encode f32": rel_rms(got, ref),
+                "control: encode without mid-attention": rel_rms(enc_ctrl, ref),
+                "decode_nhwc bf16 vs decode f32": rel_rms(dec, dec_ref),
+                "control: decode without mid-attention": rel_rms(dec_ctrl, dec_ref)}
+    vals = list(readings.values())
+    ok = (vals[0] <= VAE_LAYOUT_LIMIT < vals[1] and vals[2] <= VAE_LAYOUT_LIMIT < vals[3]
+          and bool(torch.isfinite(got).all()) and tuple(got.shape) == (1, cfg.z_channels, SIZE // 8,
+                                                                      SIZE // 8))
+    print(f"encode_nhwc {SIZE}x{SIZE} bf16: launches [K1, K2, K1 hopper, K2 hopper] {launches}, "
+          f"warm seconds {seconds:.4f} (the pipeline's f32 NCHW encode: {nchw_seconds:.4f}), "
+          f"K2 per Hopper-instance shape (H, Cin, Cout): "
+          f"{json.dumps({str(k): v for k, v in sorted(shapes.items())})}; relative RMS "
+          f"{json.dumps(readings)}, limit {VAE_LAYOUT_LIMIT} ok={ok}", flush=True)
+    if not ok:
+        raise AssertionError("NHWC / NCHW VAE layouts disagree, or a control is blind")
+    return launches, seconds
+
+
+_AE_KEY_NAMES = {"mid_block_1": "mid.block_1", "mid_block_2": "mid.block_2",
+                 "mid_attn_1": "mid.attn_1", "w": "weight", "b": "bias", "scale": "weight"}
+
+
+def official_ae_state_dict(tree, prefix=""):
+    """The Flux VAE tree as a state dict in the official key names."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    out = {}
+    for k, sub in items:
+        name = _AE_KEY_NAMES.get(k, str(k)) if isinstance(k, str) else str(k)
+        out.update(official_ae_state_dict(sub, f"{prefix}.{name}" if prefix else name))
+    return out
+
+
+def flux_state_dict(cfg, gen, dtype=torch.bfloat16):
+    """Random Flux DiT weights in the official key names, on the card:
+    N(0, 1/fan_in) matrices, small biases, norm scales near 1."""
+    d, m, hd = cfg.hidden_size, cfg.mlp_hidden_dim, cfg.head_dim
+    sd = {}
+
+    def r(shape, std, mean=0.0):
+        return (mean + std * torch.randn(shape, generator=gen, device="cuda")).to(dtype)
+
+    def lin(key, din, dout):
+        sd[f"{key}.weight"], sd[f"{key}.bias"] = r((dout, din), din**-0.5), r((dout,), 0.02)
+
+    lin("img_in", cfg.in_channels, d)
+    lin("txt_in", cfg.context_in_dim, d)
+    for key, din in (("time_in", 256), ("vector_in", cfg.vec_in_dim), ("guidance_in", 256)):
+        lin(f"{key}.in_layer", din, d)
+        lin(f"{key}.out_layer", d, d)
+    lin("final_layer.adaLN_modulation.1", d, 2 * d)
+    lin("final_layer.linear", d, cfg.in_channels)
+    for i in range(cfg.depth):
+        b = f"double_blocks.{i}"
+        for stream, attn in (("img", "img_attn"), ("txt", "txt_attn")):
+            lin(f"{b}.{stream}_mod.lin", d, 6 * d)
+            lin(f"{b}.{attn}.qkv", d, 3 * d)
+            sd[f"{b}.{attn}.norm.query_norm.scale"] = r((hd,), 0.1, 1.0)
+            sd[f"{b}.{attn}.norm.key_norm.scale"] = r((hd,), 0.1, 1.0)
+            lin(f"{b}.{attn}.proj", d, d)
+            lin(f"{b}.{stream}_mlp.0", d, m)
+            lin(f"{b}.{stream}_mlp.2", m, d)
+    for i in range(cfg.depth_single_blocks):
+        b = f"single_blocks.{i}"
+        lin(f"{b}.modulation.lin", d, 3 * d)
+        lin(f"{b}.linear1", d, 3 * d + m)
+        lin(f"{b}.linear2", d + m, d)
+        sd[f"{b}.norm.query_norm.scale"] = r((hd,), 0.1, 1.0)
+        sd[f"{b}.norm.key_norm.scale"] = r((hd,), 0.1, 1.0)
+    return sd
+
+
+def write_safetensors(path, tensors):
+    """The `.safetensors` format: an 8-byte little-endian header length, a
+    JSON header of dtype, shape and byte offsets, then the raw tensors."""
+    import struct
+
+    names = {torch.bfloat16: "BF16", torch.float32: "F32"}
+    header, offset = {}, 0
+    for key, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[key] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                       "data_offsets": [offset, offset + n]}
+        offset += n
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for t in tensors.values():
+            f.write(t.detach().contiguous().reshape(-1).view(torch.uint8).cpu().numpy())
+
+
+CKPT_DEPTH, CKPT_SINGLE = 2, 4
+
+
+def checkpoint_path(counters):
+    """A flux-dev-shaped checkpoint at full width with CKPT_DEPTH double and
+    CKPT_SINGLE single blocks in the official key names, bf16, and the full
+    VAE in f32, written as `.safetensors` under build/; a spec registered
+    here only (its own variables) names them. The pipeline is built from
+    them in bf16 (each mapped tensor copied to the card and converted there;
+    its leaves must equal the written tensors bit for bit) and with
+    quantize="w8a8" (converted and quantized on the host: the peak of
+    device memory while it is built must stay below the bf16 tree's bytes),
+    and each runs a 1-step `generate_image`. Counters are [K1, K2, K1
+    hopper, K2 hopper]. Returns {path: (launches, seconds)}."""
+    import os
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from conceptattention_torch import ConceptAttentionFluxPipeline
+    from conceptattention_torch.config import configs
+    from conceptattention_torch.models.flux import autoencoder as vae
+    from conceptattention_torch.models.flux.params import tree_leaves
+    from conceptattention_torch.ops.quant import int8_gemm_layout, quantize_flux_params
+    from conceptattention_torch.weights.convert import (
+        convert_autoencoder_state_dict,
+        convert_flux_state_dict,
+        load_safetensors,
+    )
+
+    name = "flux-dev-checkpoint-smoke"
+    full = configs["flux-dev"]
+    cut = dataclasses.replace(full.params, depth=CKPT_DEPTH, depth_single_blocks=CKPT_SINGLE)
+    configs[name] = dataclasses.replace(full, name=name, params=cut,
+                                        ckpt_env_var="SMOKE_FLUX_CKPT", ae_env_var="SMOKE_AE_CKPT")
+    print(f"checkpoint path: reduced {json.dumps({'model': 'flux-dev', 'depth': [full.params.depth, CKPT_DEPTH], 'depth_single_blocks': [full.params.depth_single_blocks, CKPT_SINGLE]})}",
+          flush=True)
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="smoke_ckpt_", dir=build))
+    paths = {}
+    try:
+        gen = torch.Generator("cuda").manual_seed(6)
+        sd = flux_state_dict(cut, gen)
+        ae_sd = official_ae_state_dict(vae.init_autoencoder_params(
+            torch.Generator("cuda").manual_seed(7), full.ae_params))
+        tree_bytes = sum(t.numel() * t.element_size() for t in sd.values())
+        flux_path, ae_path = root / "flux-dev-cut.safetensors", root / "ae.safetensors"
+        t0 = time.perf_counter()
+        write_safetensors(flux_path, sd)
+        write_safetensors(ae_path, ae_sd)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = load_safetensors(str(flux_path))
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        host = convert_flux_state_dict(loaded, cut, torch.bfloat16)
+        convert_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        int8_gemm_layout(quantize_flux_params(host, mode="w8a8"))
+        quantize_s = time.perf_counter() - t0
+        del loaded, host
+        print(f"checkpoint {sum(t.numel() for t in sd.values())} parameters, "
+              f"{tree_bytes / 2**30:.3f} GiB bf16 + VAE f32: write seconds {write_s:.3f}, "
+              f"load (map) {load_s:.4f}, convert on the host {convert_s:.3f}, quantize w8a8 on "
+              f"the host {quantize_s:.3f}", flush=True)
+        os.environ["SMOKE_FLUX_CKPT"], os.environ["SMOKE_AE_CKPT"] = str(flux_path), str(ae_path)
+        kw = dict(width=SIZE, height=SIZE, num_inference_steps=1, guidance=3.5,
+                  return_pil_heatmaps=False, return_image_array=True)
+        conv = sum(decoder_conv_shapes(full.ae_params, SIZE // 8).values())
+        want = [CKPT_DEPTH + CKPT_SINGLE + 1, conv, CKPT_DEPTH + CKPT_SINGLE + 1, conv]
+        for mode in (False, "w8a8"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            pipe = ConceptAttentionFluxPipeline(name, quantize=mode)
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() - base
+            label = f"generate_image (checkpoint {mode or 'bf16'}, 1 step)"
+            if mode:
+                ok = peak < tree_bytes and "qa" in pipe.params["double"]["img_mlp_in"]["w"]
+                check = f"peak device memory while built {peak / 2**30:.3f} GiB < bf16 tree {tree_bytes / 2**30:.3f} GiB"
+            else:
+                want_tree = convert_flux_state_dict(sd, cut, torch.bfloat16)  # on the card
+                leaves, want_leaves = tree_leaves(pipe.params), tree_leaves(want_tree)
+                d = cut.hidden_size
+                ok = (len(leaves) == len(want_leaves)
+                      and all(torch.equal(a, b) for a, b in zip(leaves, want_leaves))
+                      and torch.equal(pipe.params["img_in"]["w"], sd["img_in.weight"].t())
+                      and torch.equal(pipe.params["double"]["img_qkv"]["w"][1].reshape(d, -1),
+                                      sd["double_blocks.1.img_attn.qkv.weight"].t())
+                      and torch.equal(pipe.params["single"]["mlp_out"]["w"][3],
+                                      sd["single_blocks.3.linear2.weight"][:, d:].t())
+                      and all(torch.equal(a, b) for a, b in zip(
+                          tree_leaves(pipe.ae_params),
+                          tree_leaves(convert_autoencoder_state_dict(ae_sd, full.ae_params)))))
+                check = (f"peak device memory while built {peak / 2**30:.3f} GiB, "
+                         f"{len(leaves)} DiT leaves and the VAE's equal the written tensors "
+                         f"bit for bit")
+                del want_tree, leaves, want_leaves
+                sd.clear()
+            out, seconds, launches = counted(lambda: pipe.generate_image(PROMPT, CONCEPTS, **kw),
+                                             counters)
+            check_image_output(out, label)
+            ok = ok and launches == want
+            print(f"checkpoint pipeline {mode or 'bf16'}: init seconds {init_s:.3f}, {check}: "
+                  f"ok={ok}; {label}: launches [K1, K2, K1 hopper, K2 hopper] {launches}, "
+                  f"seconds {seconds:.4f}", flush=True)
+            if not ok:
+                raise AssertionError(f"checkpoint path {mode or 'bf16'} failed its checks")
+            paths[label] = (launches, seconds)
+            del pipe, out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        os.environ.pop("SMOKE_FLUX_CKPT", None)
+        os.environ.pop("SMOKE_AE_CKPT", None)
+        configs.pop(name, None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths
+
+
 def sass_summary(lib_path) -> dict:
     """Per kernel function of a built library, from `cuobjdump -sass`: its
     instruction count, its I2F (integer to float conversion) count, and a
@@ -1544,14 +2273,25 @@ def main() -> int:
     n_double = 3 * STEPS * cfg.depth + cfg.depth
     n_single = 3 * STEPS * cfg.depth_single_blocks
     decodes = 7
-    flash = flash_phases(cfg, n_double, n_single, decodes)
+    # The flux-dev paths decode four more images (generate_image, its
+    # img2img, and the two checkpoint pipelines' 1-step generate_image), and
+    # encode_nhwc runs the encoder's mid-attention once.
+    dev_decodes = 4
+    flash = flash_phases(cfg, n_double, n_single, decodes + dev_decodes + 1)
+    dev_cfg = configs["flux-dev"].params
+    i2i_steps = STEPS - int(0.5 * STEPS)
+    flash += new_shape_flash_phases(cfg, {
+        "dev double": (STEPS + i2i_steps) * dev_cfg.depth + 2 * CKPT_DEPTH,
+        "dev single": (STEPS + i2i_steps) * dev_cfg.depth_single_blocks + 2 * CKPT_SINGLE,
+        "double b2": cfg.depth, "double b4": cfg.depth})
     # K1b: generate_image (batch 1) and generate_images (batch 2) with w8a8
     # + int8_qk, and encode_image with int8_qk.
     int8 = int8_flash_phases(cfg, {
         "double": STEPS * cfg.depth + cfg.depth, "double b2": STEPS * cfg.depth,
         "single": STEPS * cfg.depth_single_blocks, "single b2": STEPS * cfg.depth_single_blocks})
     conv_counts = decoder_conv_shapes(spec.ae_params, SIZE // 8)
-    conv = conv_phases(conv_counts, decodes)
+    conv = conv_phases(Counter({shape: (decodes + dev_decodes) * n for shape, n in conv_counts.items()})
+                       + encoder_conv_shapes(spec.ae_params, SIZE))
     video_per_run = cogvideox_5b_config().num_layers * STEPS_VIDEO  # one generate_video
     # K1 in generate_video (bf16, PAIR_HEADS off) and in the w8a8 run
     video_k1, video_k3 = video_flash_phases(cogvideox_5b_config(), 2 * video_per_run,
@@ -1612,6 +2352,7 @@ def main() -> int:
     print(f"encode_image {SIZE}x{SIZE}: launches {{'flash_saliency': {cfg.depth}}}, "
           f"cold seconds {enc_seconds[0]:.4f}, warm seconds {enc_seconds[1]:.4f}", flush=True)
     print(f"peak device memory GiB {torch.cuda.max_memory_allocated() / 2**30:.3f}", flush=True)
+    new_paths = encode_images_path(pipe, counters)
     names = ["flash_saliency", "conv3x3", "flash_saliency (Hopper instance)", "conv3x3 (Hopper instance)"]
     print("launches per kernel instance: " + json.dumps({
         "generate_image": dict(zip(names, want_gen)),
@@ -1636,6 +2377,18 @@ def main() -> int:
     video_k1_w8a8 = quantized_video_path(video_counters)
     video_k1_bf16 = video_summary["ddim warm"]["launches [K1, K3, K1 hopper]"][0]
     video_k3_paired = video_summary["ddim heads paired"]["launches [K1, K3, K1 hopper]"][1]
+
+    # flux-dev (23.8 GB in bf16) and T5-XXL (9.5 GB) after every earlier pipeline is released
+    gc.collect()
+    torch.cuda.empty_cache()
+    enc = text_towers()
+    new_paths.update(flux_dev_paths(enc, counters))
+    del enc
+    gc.collect()
+    torch.cuda.empty_cache()
+    new_paths.update(checkpoint_path(counters))
+    print(f"flux surface paths (launches [K1, K2, K1 hopper, K2 hopper], seconds): "
+          f"{json.dumps(new_paths)}", flush=True)
 
     def entry(name, source, replaces, launches, phases, per_path, also=(), **more):
         on_path = [r for r in phases if r["main_path_launches"]]
@@ -1670,16 +2423,20 @@ def main() -> int:
         return out, sum(out.values())
 
     ring_gen = ring_paths["generate_image (ring_rdma)"][0]  # [K4, K1, K2, K1 hopper, K2 hopper]
+    def new_path_launches(i):
+        return {k: launches[i] for k, (launches, _) in new_paths.items() if launches[i]}
+
     k1_paths, k1_total = per_path(0, {
         "generate_image": want_gen[0], "encode_image": cfg.depth,
         "generate_video (PAIR_HEADS off)": video_k1_bf16, "generate_video (w8a8)": video_k1_w8a8,
-        "generate_image (ring_rdma)": ring_gen[1]})
+        "generate_image (ring_rdma)": ring_gen[1], **new_path_launches(0)})
     k1b_paths, k1b_total = per_path(1, {})
     k1b_hopper_paths, _ = per_path(5, {})
     if k1b_hopper_paths != k1b_paths:  # every flux K1b launch is at head dim 128
         raise AssertionError(f"K1b launches {k1b_paths} != its Hopper instance's {k1b_hopper_paths}")
     k2_paths, k2_total = per_path(2, {"generate_image": want_gen[1],
-                                      "generate_image (ring_rdma)": ring_gen[2]})
+                                      "generate_image (ring_rdma)": ring_gen[2],
+                                      **new_path_launches(1)})
     k4_paths = {label: launches[0] for label, (launches, _, _) in ring_paths.items()}
     kernels = [
         entry("flash_saliency", "conceptattention_torch/csrc/flash_saliency_sm90.cu",
@@ -1695,7 +2452,7 @@ def main() -> int:
                       video_summary["ddim warm"]["launches [K1, K3, K1 hopper]"][2],
                   "generate_video (w8a8)": video_k1_w8a8,
                   "generate_image (ring_rdma)": ring_gen[3],
-                  **{k: v[3] for k, v in quant_paths.items() if v[3]}}),
+                  **{k: v[3] for k, v in quant_paths.items() if v[3]}, **new_path_launches(2)}),
         entry("flash_saliency_paired", "conceptattention_torch/csrc/flash_saliency_sm90.cu",
               "conceptattention_tpu/kernels/flash_saliency.py:670", video_k3_paired, video_k3,
               {"generate_video (PAIR_HEADS on)": video_k3_paired}, also=("mma_sync_ms", "k1_ms"),
@@ -1711,7 +2468,8 @@ def main() -> int:
                   "conceptattention_torch/csrc/conv3x3.cu": "f32, other bf16 channel counts"},
               hopper_launches_per_path={"generate_image": want_gen[3],
                                         "generate_image (ring_rdma)": ring_gen[4],
-                                        **{k: v[4] for k, v in quant_paths.items() if v[4]}}),
+                                        **{k: v[4] for k, v in quant_paths.items() if v[4]},
+                                        **new_path_launches(3)}),
         entry("flash_saliency_int8", "conceptattention_torch/csrc/flash_saliency_int8_sm90.cu",
               "conceptattention_tpu/kernels/flash_saliency.py:305 (int8_qk)", k1b_total, int8,
               k1b_paths, also=("mma_sync_ms", "prepass_ms", "k1_ms"), instances={

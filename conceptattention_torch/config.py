@@ -1,13 +1,17 @@
 """Model configuration registry.
 
 Counterpart of the JAX package's `config.py`: the Flux DiT and VAE
-hyper-parameters and the `configs` registry entries this port runs.
+hyper-parameters and the `configs` registry. A spec's checkpoint paths come
+from environment variables (`FLUX_SCHNELL`, `FLUX_DEV` and `AE`; `FLUX_TINY`
+and `AE_TINY` for the tiny spec); the hub names beside them are metadata
+only, nothing downloads.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+import os
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,15 +68,46 @@ class ModelSpec:
     name: str
     params: FluxConfig
     ae_params: AutoEncoderConfig
+    repo_id: Optional[str] = None
+    repo_flow: Optional[str] = None
+    repo_ae: Optional[str] = None
+    ckpt_env_var: Optional[str] = None
+    ae_env_var: str = "AE"
     t5_max_length: int = 256
 
+    @property
+    def ckpt_path(self) -> Optional[str]:
+        """The DiT checkpoint (`.safetensors`) named by `ckpt_env_var`, if set."""
+        return os.getenv(self.ckpt_env_var) if self.ckpt_env_var else None
+
+    @property
+    def ae_path(self) -> Optional[str]:
+        """The VAE checkpoint named by `ae_env_var`, if set."""
+        return os.getenv(self.ae_env_var) if self.ae_env_var else None
+
+
+_AE = AutoEncoderConfig()
 
 configs = {
     "flux-schnell": ModelSpec(
         name="flux-schnell",
         params=FluxConfig(guidance_embed=False),
-        ae_params=AutoEncoderConfig(),
+        ae_params=_AE,
+        repo_id="black-forest-labs/FLUX.1-schnell",
+        repo_flow="flux1-schnell.safetensors",
+        repo_ae="ae.safetensors",
+        ckpt_env_var="FLUX_SCHNELL",
         t5_max_length=256,
+    ),
+    "flux-dev": ModelSpec(
+        name="flux-dev",
+        params=FluxConfig(guidance_embed=True),
+        ae_params=_AE,
+        repo_id="black-forest-labs/FLUX.1-dev",
+        repo_flow="flux1-dev.safetensors",
+        repo_ae="ae.safetensors",
+        ckpt_env_var="FLUX_DEV",
+        t5_max_length=512,
     ),
     # Tiny config for tests: same topology, small dims, head_dim 32.
     "flux-tiny": ModelSpec(
@@ -93,5 +128,8 @@ configs = {
         ),
         ae_params=AutoEncoderConfig(ch=16, ch_mult=(1, 2), num_res_blocks=1, z_channels=4),
         t5_max_length=16,
+        # its own variables: a full-size checkpoint cannot load into the tiny config
+        ckpt_env_var="FLUX_TINY",
+        ae_env_var="AE_TINY",
     ),
 }

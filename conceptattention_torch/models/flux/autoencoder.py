@@ -6,10 +6,12 @@ swish, asymmetric-padded stride-2 downsampling, nearest upsampling, scale
 0.3611 / shift 0.1159. Conv weights stay OIHW so trees from the JAX package
 convert leaf by leaf.
 
-The encoder runs NCHW through `F.conv2d`. The decoder (`decode_nhwc`) keeps
-NHWC activations inside and, on a card, routes each gated 3x3 conv through
-the conv3x3 kernel and, in bf16, the mid-attention through the
-flash-saliency kernel; other convs stay on `F.conv2d`.
+Each half has an NCHW form on `F.conv2d` (`encode`, `decode`) and an NHWC
+form (`encode_nhwc`, `decode_nhwc`) that keeps NHWC activations inside and,
+on a card, routes each gated 3x3 conv through the conv3x3 kernel and, in
+bf16, the mid-attention through the flash-saliency kernel; other convs
+(the 3-channel input conv, the stride-2 downsamples, the 1x1 convs) stay on
+`F.conv2d`. The pipeline encodes NCHW and decodes NHWC.
 """
 
 from __future__ import annotations
@@ -93,8 +95,39 @@ def encoder_apply(p: Params, cfg: AutoEncoderConfig, x: torch.Tensor) -> torch.T
     return conv2d(h, p["conv_out"])
 
 
+def upsample(x, p):
+    return conv2d(x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3), p["conv"])
+
+
+def decoder_apply(p: Params, cfg: AutoEncoderConfig, z: torch.Tensor) -> torch.Tensor:
+    """[B, z, h, w] latents -> [B, 3, H, W] pixels (NCHW)."""
+    h = conv2d(z, p["conv_in"])
+    h = resnet_block(h, p["mid_block_1"])
+    h = attn_block(h, p["mid_attn_1"])
+    h = resnet_block(h, p["mid_block_2"])
+    for i_level in reversed(range(len(cfg.ch_mult))):
+        for i_block in range(cfg.num_res_blocks + 1):
+            h = resnet_block(h, p["up"][i_level]["block"][i_block])
+        if i_level != 0:
+            h = upsample(h, p["up"][i_level]["upsample"])
+    h = swish(group_norm(h, p["norm_out"]))
+    return conv2d(h, p["conv_out"])
+
+
+def encode(p: Params, cfg: AutoEncoderConfig, x: torch.Tensor,
+           generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Pixels -> scaled latents through the NCHW encoder: the posterior mean,
+    or a reparameterized draw from `generator`."""
+    return vae_latents(encoder_apply(p["encoder"], cfg, x), cfg, generator)
+
+
+def decode(p: Params, cfg: AutoEncoderConfig, z: torch.Tensor) -> torch.Tensor:
+    """Scaled latents [B, z, h, w] -> pixels [B, 3, H, W] through the NCHW decoder."""
+    return decoder_apply(p["decoder"], cfg, z / cfg.scale_factor + cfg.shift_factor)
+
+
 # ----------------------------------------------------------------------------
-# NHWC decoder: activations [B, H, W, C], weights still OIHW.
+# NHWC encoder and decoder: activations [B, H, W, C], weights still OIHW.
 # ----------------------------------------------------------------------------
 
 
@@ -148,6 +181,32 @@ def _resnet_block_nhwc(x, p):
 def _upsample_nhwc(x, p):
     x = x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
     return _conv2d_nhwc(x, p["conv"])
+
+
+def _downsample_nhwc(x, p):
+    return _conv2d_nhwc(F.pad(x, (0, 0, 0, 1, 0, 1)), p["conv"], stride=2, padding=0)
+
+
+def encoder_apply_nhwc(p: Params, cfg: AutoEncoderConfig, x: torch.Tensor) -> torch.Tensor:
+    """NCHW pixels -> NCHW moments, NHWC inside."""
+    h = _conv2d_nhwc(x.permute(0, 2, 3, 1), p["conv_in"])
+    for i_level in range(len(cfg.ch_mult)):
+        for i_block in range(cfg.num_res_blocks):
+            h = _resnet_block_nhwc(h, p["down"][i_level]["block"][i_block])
+        if i_level != len(cfg.ch_mult) - 1:
+            h = _downsample_nhwc(h, p["down"][i_level]["downsample"])
+    h = _resnet_block_nhwc(h, p["mid_block_1"])
+    h = _attn_block_nhwc(h, p["mid_attn_1"])
+    h = _resnet_block_nhwc(h, p["mid_block_2"])
+    h = swish(_group_norm_nhwc(h, p["norm_out"]))
+    h = _conv2d_nhwc(h, p["conv_out"])
+    return h.permute(0, 3, 1, 2)
+
+
+def encode_nhwc(p: Params, cfg: AutoEncoderConfig, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """`encode` through the NHWC encoder (same math, same NCHW interface)."""
+    return vae_latents(encoder_apply_nhwc(p["encoder"], cfg, x), cfg, generator)
 
 
 def decoder_apply_nhwc(p: Params, cfg: AutoEncoderConfig, z: torch.Tensor) -> torch.Tensor:

@@ -35,6 +35,21 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def stack_layers(make_layer: Callable[[int], Params], depth: int) -> Params:
+    """Layers 0..depth-1 of `make_layer(i)` stacked along a new leading axis
+    on their own device, each copied into its slot as it is made, so only one
+    layer exists beside the stack."""
+    first = make_layer(0)
+    stack = tree_map(
+        lambda x: torch.empty((depth, *x.shape), dtype=x.dtype, device=x.device), first
+    )
+    for i in range(depth):
+        src = first if i == 0 else make_layer(i)
+        for dst_leaf, src_leaf in zip(tree_leaves(stack), tree_leaves(src)):
+            dst_leaf[i].copy_(src_leaf)
+    return stack
+
+
 def layer(stacked: Params, i: int) -> Params:
     """Layer i of a depth-stacked parameter tree (views, no copies)."""
     return tree_map(lambda x: x[i], stacked)
@@ -97,17 +112,8 @@ class _Init:
         }
 
     def stacked(self, make_layer: Callable[[], Params], depth: int) -> Params:
-        """Depth-stacked layers, filled one layer at a time so the f32 draw
-        of only one layer is resident beside the stack."""
-        first = make_layer()
-        stack = tree_map(
-            lambda x: torch.empty((depth, *x.shape), dtype=x.dtype, device=x.device), first
-        )
-        for i in range(depth):
-            src = first if i == 0 else make_layer()
-            for dst_leaf, src_leaf in zip(tree_leaves(stack), tree_leaves(src)):
-                dst_leaf[i].copy_(src_leaf)
-        return stack
+        """Depth-stacked layers, drawn one layer at a time."""
+        return stack_layers(lambda _: make_layer(), depth)
 
 
 def init_flux_params(

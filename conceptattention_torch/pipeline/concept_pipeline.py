@@ -1,14 +1,21 @@
 """Public pipeline: generate or encode an image and extract concept heatmaps.
 
 Counterpart of the JAX package's `pipeline/concept_pipeline.py`:
-`generate_image(prompt, concepts, ...)`, the batched `generate_images(prompts,
-concepts, ...)` and `encode_image(image, concepts, ...)`, each returning
-`ConceptAttentionPipelineOutput(image, concept_heatmaps, cross_attention_maps)`
-(one per prompt for `generate_images`). Weights are randomly initialized
-from `init_seed` unless parameter trees are passed in (`weights/from_jax.py`);
-`quantize="w8" | "w8a8" | "w4"` draws the layer stacks already quantized
-(`ops/quant.py`), and `int8_qk=True` computes the attention scores of every
-DiT block from int8 q and k (K1b).
+`generate_image(prompt, concepts, ...)` (image-to-image with `init_image`),
+the batched `generate_images(prompts, concepts, ...)`, `encode_image(image,
+concepts, ...)` and the batched `encode_images(images, concepts, ...)`, each
+returning `ConceptAttentionPipelineOutput(image, concept_heatmaps,
+cross_attention_maps)` (one per prompt or image for the batched calls).
+
+Weights come from the spec's checkpoints when its environment variables name
+them (`FLUX_SCHNELL` / `FLUX_DEV` and `AE`, `.safetensors` in the official
+key names, `weights/convert.py`), else they are randomly initialized from
+`init_seed`, unless parameter trees are passed in (`weights/from_jax.py`).
+`quantize="w8" | "w8a8" | "w4"` quantizes the layer stacks: a checkpoint is
+converted and quantized on the host and only the quantized tree moves to the
+device; without one the stacks are drawn already quantized (`ops/quant.py`).
+`int8_qk=True` computes the attention scores of every DiT block from int8 q
+and k (K1b).
 
 The pipeline runs on one device, "cuda" unless the caller names another; it
 never falls back to the CPU. With `mesh=` (`parallel.make_mesh(seq=N)`) and a
@@ -45,6 +52,7 @@ from conceptattention_torch.ops.packing import make_img_ids, pack_latents, unpac
 from conceptattention_torch.ops.quant import (
     init_flux_params_quantized,
     int8_gemm_layout,
+    quantize_flux_params,
     resolve_quant_mode,
 )
 from conceptattention_torch.ops.schedule import get_schedule
@@ -123,6 +131,67 @@ def batched_noise_saliency(
     return {k: a.transpose(0, 1)[:, :, None] for k, a in saliency.items()}
 
 
+def _seeds_list(seed, batch: int) -> List[int]:
+    """One int, or one per image, as a list of `batch` ints."""
+    if np.isscalar(seed):
+        return [int(seed)] * batch
+    seeds = [int(s) for s in seed]
+    if len(seeds) != batch:
+        raise ValueError(f"{len(seeds)} seeds for {batch} images")
+    return seeds
+
+
+def batched_images_saliency(
+    pipe, zs, t, num_samples, height, width, seed,
+    txts, txt_ids, vec, c_embs, c_ids, c_vecs, spec, stop_after=True,
+):
+    """`batched_noise_saliency` for B images at once: B x N rows in ONE
+    stopped forward. Inputs lead with the image axis (`zs` [B, Cz, H', W'],
+    `txts` [B, T, d], `c_embs` [B, C, d], `vec` / `c_vecs` [B, d]). `seed`
+    is one int or one per image; sample i of image b draws from a generator
+    seeded seed_b + i, what that image's own `encode_image` draws. Rows are
+    sample-major. Returns the saliency dict as [B, N, L, C, P]."""
+    b, _, lh, lw = zs.shape
+    n = num_samples
+    seeds = _seeds_list(seed, b)
+    eps = torch.cat([
+        get_noise(
+            torch.Generator(pipe.device).manual_seed(seeds[j] + i), 1, height, width, pipe.dtype,
+            channels=pipe.spec.ae_params.z_channels, vae_factor=pipe.vae_factor,
+        )
+        for i in range(n) for j in range(b)
+    ])
+
+    def tile(a):
+        return a.repeat(n, *([1] * (a.dim() - 1)))
+
+    saliency = _encode_forward(
+        pipe.params, pipe.cfg, pack_latents(forward_noise(tile(zs), eps, t)),
+        make_img_ids(lh // 2, lw // 2, n * b, device=pipe.device),
+        tile(txts), tile(txt_ids), tile(vec), tile(c_embs), tile(c_ids), tile(c_vecs),
+        torch.full((n * b,), t, dtype=torch.float32, device=pipe.device),
+        spec, stop_after=stop_after,
+    )
+    return {k: a.reshape(a.shape[0], n, b, *a.shape[2:]).permute(2, 1, 0, 3, 4)
+            for k, a in saliency.items()}
+
+
+def _load_flux_params(path: str, cfg, dtype: torch.dtype, mode: Optional[str],
+                      device: torch.device):
+    """A Flux checkpoint's parameter tree on `device`. Without a quantize
+    `mode` each mapped tensor is copied to the device as stored and converted
+    there. With one the tree is converted, quantized (one layer in f32 at a
+    time) and laid out for the int8 GEMM on the host, then moved, so the
+    unquantized tree never reaches the device."""
+    from conceptattention_torch.weights.convert import convert_flux_state_dict, load_safetensors
+
+    if not mode:
+        return convert_flux_state_dict(load_safetensors(path), cfg, dtype, device)
+    params = convert_flux_state_dict(load_safetensors(path), cfg, dtype)
+    params = int8_gemm_layout(quantize_flux_params(params, mode=mode))
+    return tree_map(lambda x: x.to(device), params)
+
+
 def _vae_decode(ae_params, cfg, latents_packed, h_tokens, w_tokens, dtype=torch.float32):
     """Packed latents -> [B, 3, H, W] pixels through the NHWC decoder at `dtype`."""
     z = unpack_latents(latents_packed.to(dtype), h_tokens, w_tokens)
@@ -153,9 +222,13 @@ class ConceptAttentionFluxPipeline:
         lora: Optional[Any] = None,
         mesh: Optional[Mesh] = None,
     ):
-        """`quantize` (False, True / "w8", "w8a8" or "w4") applies when no
-        `params` are passed: the layer stacks are drawn already quantized.
-        Passed `params` are used as given, quantized or not. `attention_backend`
+        """Without `params`, the DiT comes from the checkpoint that
+        `spec.ckpt_path` names (its environment variable), else from a
+        random init; without `ae_params`, the VAE comes from `spec.ae_path`
+        in f32, else from a random init. `quantize` (False, True / "w8",
+        "w8a8" or "w4") applies when no `params` are passed: a checkpoint's
+        stacks are quantized on the host, a random init's drawn already
+        quantized. Passed `params` are used as given, quantized or not. `attention_backend`
         is "fused" (the flash-saliency kernels), "sdpa" (the plain path), or a
         ring backend over the `seq` axis of `mesh` (`parallel.make_mesh`):
         "ring_rdma" (the CUDA ring kernel) or "ring" (the plain ring); the
@@ -199,13 +272,24 @@ class ConceptAttentionFluxPipeline:
         on_card = self.device.type == "cuda"
         self.decode_dtype = torch.bfloat16 if on_card else torch.float32
         mode = resolve_quant_mode(quantize)
-        if params is None:
+        if params is None and self.spec.ckpt_path:
+            params = _load_flux_params(self.spec.ckpt_path, self.cfg, dtype, mode, self.device)
+        elif params is None:
             gen = torch.Generator(self.device).manual_seed(init_seed)
             params = (init_flux_params_quantized(gen, self.cfg, dtype, mode=mode) if mode
                       else init_flux_params(gen, self.cfg, dtype))
         else:
             params = int8_gemm_layout(params)
-        if ae_params is None:
+        if ae_params is None and self.spec.ae_path:
+            from conceptattention_torch.weights.convert import (
+                convert_autoencoder_state_dict,
+                load_safetensors,
+            )
+
+            ae_params = convert_autoencoder_state_dict(
+                load_safetensors(self.spec.ae_path), self.spec.ae_params, torch.float32,
+                self.device)
+        elif ae_params is None:
             ae_params = vae.init_autoencoder_params(
                 torch.Generator(self.device).manual_seed(init_seed + 1), self.spec.ae_params
             )
@@ -281,20 +365,17 @@ class ConceptAttentionFluxPipeline:
     ) -> ConceptAttentionPipelineOutput:
         """Generate an image and per-concept heatmaps (defaults: layers
         depth-4..depth-1, all timesteps, softmax over concepts; softmax=True
-        overrides attention_norm): `generate_images` on the one prompt."""
-        if init_image is not None:
-            raise NotImplementedError("image-to-image (init_image) is not ported yet")
-        return self.generate_images(
-            [prompt], concepts, width=width, height=height, layer_indices=layer_indices,
-            return_pil_heatmaps=return_pil_heatmaps, num_inference_steps=num_inference_steps,
-            guidance=guidance, timesteps=timesteps, softmax=softmax,
-            attention_norm=attention_norm, cmap=cmap, return_image_array=return_image_array,
-            watermark=watermark, seeds=[seed],
+        overrides attention_norm). With `init_image`, image-to-image: the
+        denoise starts from the VAE encoding of `init_image` forward-noised
+        to step int((1 - image2image_strength) * num_inference_steps) of the
+        schedule and runs the rest of it; the default `timesteps` then cover
+        the steps that run."""
+        return self._generate(
+            [prompt], concepts, width, height, layer_indices, return_pil_heatmaps, seed,
+            num_inference_steps, guidance, timesteps, softmax, attention_norm, cmap,
+            return_image_array, watermark, [seed], init_image, image2image_strength,
         )[0]
 
-    # ------------------------------------------------------------------
-    @torch.inference_mode()
-    @_full_f32()
     def generate_images(
         self,
         prompts: List[str],
@@ -319,6 +400,19 @@ class ConceptAttentionFluxPipeline:
         order. With `seeds`, prompt i draws exactly the noise of
         `generate_image(seed=seeds[i])`, so its output does not depend on
         its batch; without, one [B, ...] draw from `seed`."""
+        return self._generate(
+            prompts, concepts, width, height, layer_indices, return_pil_heatmaps, seed,
+            num_inference_steps, guidance, timesteps, softmax, attention_norm, cmap,
+            return_image_array, watermark, seeds,
+        )
+
+    @torch.inference_mode()
+    @_full_f32()
+    def _generate(
+        self, prompts, concepts, width, height, layer_indices, return_pil_heatmaps, seed,
+        num_inference_steps, guidance, timesteps, softmax, attention_norm, cmap,
+        return_image_array, watermark, seeds, init_image=None, image2image_strength=0.8,
+    ) -> List[ConceptAttentionPipelineOutput]:
         b = len(prompts)
         if b == 0:
             return []
@@ -340,6 +434,20 @@ class ConceptAttentionFluxPipeline:
         schedule = get_schedule(
             num_inference_steps, (lh // 2) * (lw // 2), shift=not self.is_schnell
         )
+        if init_image is not None:
+            z0 = self._encode_pixels(init_image, height, width, seed)
+            t_idx = max(int((1.0 - image2image_strength) * num_inference_steps), 0)
+            if t_idx >= num_inference_steps:
+                raise ValueError(
+                    f"image2image_strength={image2image_strength} leaves no denoise steps "
+                    "(and so no concept saliency); use a strength above 0, or encode_image() "
+                    "for the heatmaps of an unmodified image"
+                )
+            t = schedule[t_idx]
+            schedule = schedule[t_idx:]
+            noise = (t * noise.float() + (1.0 - t) * z0.float()).to(noise.dtype)
+            if list(timesteps) == list(range(num_inference_steps)):
+                timesteps = list(range(len(schedule) - 1))
         txt = self.text_encoders.encode_t5(list(prompts)).to(self.device, self.dtype)
         vec = self.text_encoders.encode_clip(list(prompts)).to(self.device, self.dtype)
         txt_ids = torch.zeros((b, txt.shape[1], 3), dtype=torch.float32, device=self.device)
@@ -432,6 +540,80 @@ class ConceptAttentionFluxPipeline:
         )
 
     # ------------------------------------------------------------------
+    @torch.inference_mode()
+    @_full_f32()
+    def encode_images(
+        self,
+        images,
+        concepts,
+        prompts=None,
+        width: int = 1024,
+        height: int = 1024,
+        layer_indices: Optional[Sequence[int]] = None,
+        num_samples: int = 1,
+        num_steps: int = 4,
+        noise_timestep: int = 2,
+        return_pil_heatmaps: bool = True,
+        seeds=None,
+        cmap: str = "plasma",
+        stop_after_multi_modal_attentions: bool = True,
+        attention_norm: str = "sparsemax",
+        softmax: bool = True,
+    ) -> List[ConceptAttentionPipelineOutput]:
+        """`encode_image` for B images with one stopped forward over all B x
+        `num_samples` rows. `concepts` is one list shared by every image or
+        one list per image, all of one length; `prompts` one string or one
+        per image; `seeds` one int or one per image. The outputs are those of
+        B separate `encode_image` calls: each image draws its VAE noise and
+        its forward noise from its own generators."""
+        b = len(images)
+        if b == 0:
+            return []
+        if concepts and isinstance(concepts[0], str):
+            concepts_list = [list(concepts)] * b
+        else:
+            concepts_list = [list(c) for c in concepts]
+            if len(concepts_list) != b:
+                raise ValueError(f"{len(concepts_list)} concept lists for {b} images")
+        if len({len(c) for c in concepts_list}) != 1:
+            raise ValueError("per-image concept lists must share a length in one batch")
+        if prompts is None:
+            prompts = [""] * b
+        elif isinstance(prompts, str):
+            prompts = [prompts] * b
+        if len(prompts) != b:
+            raise ValueError(f"{len(prompts)} prompts for {b} images")
+        seeds = _seeds_list(0 if seeds is None else seeds, b)
+        layer_indices = self._layer_indices(layer_indices)
+        self._check_size(height, width)
+
+        zs = self._encode_pixels_batch(images, height, width, seeds)
+        _, _, lh, lw = zs.shape
+        schedule = get_schedule(num_steps, (lh // 2) * (lw // 2), shift=not self.is_schnell)
+        txts = self.text_encoders.encode_t5(list(prompts)).to(self.device, self.dtype)
+        txt_ids = torch.zeros((b, txts.shape[1], 3), dtype=torch.float32, device=self.device)
+        c_embs, c_ids, c_vecs = (torch.cat(parts) for parts in zip(
+            *(self._prepare_concepts(c, 1) for c in concepts_list)))
+        # y is the zeroed concept vector, as in encode_image
+        saliency = batched_images_saliency(
+            self, zs, schedule[noise_timestep], num_samples, height, width, seeds,
+            txts, txt_ids, c_vecs, c_embs, c_ids, c_vecs, self.attention_spec,
+            stop_after=stop_after_multi_modal_attentions,
+        )
+        grid = (lh // 2, lw // 2)
+        outputs = []
+        for i in range(b):
+            sal = {k: a[i][:, :, None] for k, a in saliency.items()}  # [N, L, 1, C, P]
+            outputs.append(self._package_output(
+                images[i],
+                reduce_maps(sal["output"], layer_indices, None, softmax, attention_norm, grid),
+                reduce_maps(sal["cross_attention"], layer_indices, None, softmax,
+                            attention_norm, grid),
+                return_pil_heatmaps, cmap,
+            ))
+        return outputs
+
+    # ------------------------------------------------------------------
     def _resize_pixels(self, image, height: int, width: int) -> torch.Tensor:
         """PIL / array -> [1, 3, H, W] f32 in [-1, 1], resized bilinearly with
         antialiasing when downsampling (as `jax.image.resize` does)."""
@@ -444,10 +626,22 @@ class ConceptAttentionFluxPipeline:
                        sample: bool = True) -> torch.Tensor:
         """PIL / array -> VAE latents [1, z, H/f, W/f] in the pipeline dtype;
         `sample=False` returns the posterior mean."""
-        generator = (torch.Generator(self.device).manual_seed(_VAE_SEED_SALT + seed)
-                     if sample else None)
-        x = self._resize_pixels(image, height, width)
-        return _vae_encode(self.ae_params, self.spec.ae_params, x, generator).to(self.dtype)
+        return self._encode_pixels_batch([image], height, width, [seed], sample)
+
+    def _encode_pixels_batch(self, images, height: int, width: int, seeds: Sequence[int],
+                             sample: bool = True) -> torch.Tensor:
+        """B images -> [B, z, H/f, W/f] latents, each image through the
+        encoder alone with its reparameterization draw from its own generator
+        (seeds[b] + the VAE salt): row b is image b's own `_encode_pixels`.
+        One image at a time keeps one image's 1024^2 first-stage activations
+        beside the resident DiT."""
+        out = [
+            _vae_encode(self.ae_params, self.spec.ae_params, self._resize_pixels(im, height, width),
+                        torch.Generator(self.device).manual_seed(_VAE_SEED_SALT + int(s))
+                        if sample else None)
+            for im, s in zip(images, seeds)
+        ]
+        return torch.cat(out).to(self.dtype)
 
     @staticmethod
     def _pixels_to_uint8(p: torch.Tensor) -> np.ndarray:

@@ -1,4 +1,4 @@
-"""Invisible DWT-DCT watermark embedding (host-side numpy/scipy).
+"""Invisible DWT-DCT watermark: embedding and extraction (host-side numpy/scipy).
 
 The same quantization-index-modulation scheme as
 the JAX package's `utils/watermark.py`: Haar DWT level 1, 8x8 DCT blocks
@@ -75,3 +75,24 @@ def embed_watermark(image: np.ndarray, bits=None, delta: float = 8.0) -> np.ndar
     if np.issubdtype(in_dtype, np.integer):
         return out.round().astype(in_dtype)
     return (out / 255.0).astype(in_dtype)
+
+
+def extract_watermark(image: np.ndarray, num_bits: int = 48, delta: float = 8.0):
+    """The embedded bits, each by a majority vote over the blocks that carry it."""
+    from scipy.fft import dctn
+
+    arr = np.asarray(image)
+    rgb = arr.astype(np.float64)
+    if not np.issubdtype(arr.dtype, np.integer):
+        rgb = rgb * 255.0
+    u = (rgb @ _RGB2YUV.T)[..., 1]
+    h2, w2 = (u.shape[0] // 2) * 2, (u.shape[1] // 2) * 2
+    a = _haar_dwt(u[:h2, :w2])[0]
+    votes = np.zeros((num_bits, 2), np.int64)
+    idx = 0
+    for i in range(a.shape[0] // 8):
+        for j in range(a.shape[1] // 8):
+            coef = dctn(a[i * 8 : (i + 1) * 8, j * 8 : (j + 1) * 8], norm="ortho")[_COEF]
+            votes[idx % num_bits, int(np.floor(coef / delta)) & 1] += 1
+            idx += 1
+    return [int(b) for b in np.argmax(votes, axis=1)]

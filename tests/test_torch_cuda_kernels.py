@@ -726,3 +726,66 @@ def test_hopper_ring_kernel_raises_without_fallback(dev):
     assert (rr.ring_attention_rdma.launches, rr.ring_attention_rdma.step_launches,
             rr.ring_attention_rdma.hopper_step_launches) == counters
 
+
+
+def without_key_tile(args, start):
+    """The plain attention with the 64 keys [start, start + 64) taken out of
+    the txt|img segment (a kernel that skips one key tile), on the rows kept."""
+    q, k, v, t, p, c, cross, self_attention, cos, sin = args
+    keep = torch.cat([torch.arange(start), torch.arange(start + 64, q.shape[2])]).to(q.device)
+    t, p = (t - 64, p) if start < t else (t, p - 64)
+    return keep, fs.fused_concept_flash_attention_plain(
+        q[:, :, keep], k[:, :, keep], v[:, :, keep], t, p, c, cross, self_attention,
+        cos[:, keep].contiguous(), sin[:, keep].contiguous())
+
+
+@pytest.mark.parametrize(
+    "b,s,t,p,c",
+    [
+        (1, 4611, 512, 4096, 3),   # flux-dev double block: 512 txt + 4096 img + 3 concepts
+        (1, 4608, 4608, 0, 0),     # flux-dev single block
+        (4, 4355, 256, 4096, 3),   # flux-schnell double block in encode_images at batch 4
+    ],
+    ids=["dev-double", "dev-single", "schnell-double-b4"],
+)
+def test_hopper_flash_kernel_at_new_pipeline_shapes(dev, b, s, t, p, c):
+    """K1 at the sequence lengths and batch the new entry points give it
+    (four of the 24 heads), with RoPE tables and concept rows, held to the
+    plain version; the plain version without one img key tile breaks the
+    limit."""
+    gen = torch.Generator(dev).manual_seed(11)
+    q, k, v = (torch.randn(b, 4, s, 128, generator=gen, device=dev) for _ in range(3))
+    args = ((3 * q).bfloat16(), k.bfloat16(), v.bfloat16(), t, p, c, True, True,
+            *rope_tables(gen, b, s, 128, dev))
+    got = fs.fused_concept_flash_attention(*args)
+    torch.cuda.synchronize()
+    want = fs.fused_concept_flash_attention_plain(*args)
+    limit = bf16_limit(want)
+    assert (got.float() - want.float()).abs().max().item() <= limit
+    keep, control = without_key_tile(args, min(t, s - 64) if p else 64 * 40)
+    assert (control.float() - want[:, :, keep].float()).abs().max().item() > limit
+
+
+@pytest.mark.parametrize(
+    "res,cin,cout",
+    [(1024, 128, 128), (512, 128, 256), (512, 256, 256), (256, 256, 512), (256, 512, 512),
+     (128, 512, 512)],
+)
+def test_conv_kernel_at_encoder_shapes(dev, res, cin, cout):
+    """K2 (its Hopper instance) at every 3x3 conv shape of the 1024^2 NHWC
+    encoder that the gate admits, held to the plain version; a weight with
+    one 32-deep K slice zeroed breaks the limit."""
+    gen = torch.Generator(dev).manual_seed(5)
+    x = torch.randn(1, res, res, cin, generator=gen, device=dev).bfloat16()
+    w = (torch.randn(3, 3, cin, cout, generator=gen, device=dev) / (9 * cin) ** 0.5).bfloat16()
+    bias = (0.1 * torch.randn(cout, generator=gen, device=dev)).bfloat16()
+    assert conv.conv3x3_instance(x.dtype, cin, cout) == "hopper"
+    assert conv.use_conv3x3_kernel(x, cin, cout)
+    got = conv.conv3x3_same(x, w, bias)
+    torch.cuda.synchronize()
+    want = conv.conv3x3_same_plain(x, w, bias)
+    limit = bf16_limit(want)
+    assert (got.float() - want.float()).abs().max().item() <= limit
+    dropped = w.clone()
+    dropped[0, 0, :32] = 0
+    assert (conv.conv3x3_same_plain(x, dropped, bias).float() - want.float()).abs().max().item() > limit

@@ -209,9 +209,14 @@ def test_generate_and_encode_end_to_end(pipes):
     enc = t.encode_image(image, CONCEPTS, width=SIZE, height=SIZE)
     assert len(enc.concept_heatmaps) == len(CONCEPTS)  # PIL heatmaps by default
     assert enc.concept_heatmaps[0].size == (grid, grid)
+    i2i = t.generate_image(PROMPT, CONCEPTS, width=SIZE, height=SIZE, num_inference_steps=STEPS,
+                           init_image=image, image2image_strength=0.5,
+                           return_pil_heatmaps=False, return_image_array=True)
+    assert i2i.image.shape == (SIZE, SIZE, 3) and np.isfinite(i2i.concept_heatmaps).all()
     assert (fused_concept_flash_attention.launches, conv3x3_same.launches) == before
-    with pytest.raises(NotImplementedError):
-        t.generate_image(PROMPT, CONCEPTS, width=SIZE, height=SIZE, init_image=image)
+    with pytest.raises(ValueError, match="no denoise steps"):
+        t.generate_image(PROMPT, CONCEPTS, width=SIZE, height=SIZE, init_image=image,
+                         image2image_strength=0.0)
 
 
 def test_entry_points_scope_tf32_off(pipes, monkeypatch):
@@ -252,9 +257,18 @@ def test_image_helpers_bit_identical():
 
 
 def test_import_leaves_out_jax():
-    code = ("import sys, conceptattention_torch, conceptattention_torch.pipeline.concept_pipeline; "
+    """The port's modules (and the smoke script) import no JAX, nothing of
+    the JAX package, and neither `safetensors` nor `transformers`."""
+    modules = ("conceptattention_torch, conceptattention_torch.pipeline.concept_pipeline, "
+               "conceptattention_torch.weights.convert, conceptattention_torch.models.text.t5, "
+               "conceptattention_torch.models.text.clip, conceptattention_torch.models.text.encoders, "
+               "conceptattention_torch.models.flux.autoencoder, "
+               "conceptattention_torch.sampling.rectified_flow, conceptattention_torch.utils.watermark, "
+               "chip_smoke")
+    code = (f"import sys, {modules}; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
-            "'conceptattention_tpu')]; print(bad); sys.exit(1 if bad else 0)")
+            "'conceptattention_tpu', 'safetensors', 'transformers')]; "
+            "print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           timeout=120, cwd=ROOT)
     assert proc.returncode == 0, proc.stdout + proc.stderr
