@@ -6,8 +6,10 @@ Run from the root of a checkout: `python3 chip_smoke.py`. In order it
 2. builds every kernel from `conceptattention_torch/csrc` (one nvcc per
    source, started together);
 3. holds each kernel against its plain PyTorch version in bf16 at the main
-   paths' shapes, the flux-dev blocks (S=4611, 4608) and the batched
-   encode's (B=2, 4) and the NHWC encoder's convs included (attention per
+   paths' shapes, the flux-dev blocks (S=4611, 4608), the batched
+   encode's (B=2, 4), the NHWC encoder's convs and the eval path's double
+   block (512x512: S=1286 at B=1 and 4 in the four cross / self modes, and
+   7 and 8 concepts) included (attention per
    row segment, each against its own scale;
    K1b, the int8-score attention, also against K1 and its pre-pass against
    the plain quantizer;
@@ -39,7 +41,14 @@ Run from the root of a checkout: `python3 chip_smoke.py`. In order it
    STEPS_VIDEO steps, 3 concepts) cold and warm, once with the head-paired
    kernel, once with DPM-Solver++, decodes a short clip, and runs once with
    its blocks quantized to w8a8; `encode_images` at batch 2 and 4 on the
-   flux-schnell weights against the same images' `encode_image` calls;
+   flux-schnell weights against the same images' `encode_image` calls, and
+   on the same pipeline the segmentation eval path at the ImageNet-Seg
+   harness's protocol (512x512, layers 14-17): the Flux tap models on the
+   fused backend against the sdpa backend, `segment_batch` against
+   per-image calls, `per_layer_coefficients` against one-layer calls, the
+   concept basis against the output map, the ImageNet harness functions at
+   batch 1 and 4 over images held in memory (timed, with a breakdown), and
+   the VOC multi-class runner;
    then, with every earlier pipeline released, the T5-XXL and CLIP-L text
    towers from random HF state dicts through the port's converters (bf16
    against f32 at 2 layers, timed), flux-dev `generate_image` (1024x1024,
@@ -1498,8 +1507,8 @@ def np_rel_rms(got, want) -> float:
     return float(np.sqrt(((got - want) ** 2).mean() / (want**2).mean()))
 
 
-def joint_rows_inputs(cfg, gen, b, t, dev="cuda"):
-    """A double block's attention inputs at SIZE with `t` txt rows and the
+def joint_rows_inputs(cfg, gen, b, t, dev="cuda", size=SIZE, c=len(CONCEPTS)):
+    """A double block's attention inputs at `size` with `t` txt rows and `c`
     concept rows, batch `b`: K1's args, and the roped q and k for the
     library call."""
     from conceptattention_torch.kernels import flash_saliency as fs
@@ -1507,8 +1516,8 @@ def joint_rows_inputs(cfg, gen, b, t, dev="cuda"):
     from conceptattention_torch.ops.rope import apply_rope, embed_nd
 
     h, d = cfg.num_heads, cfg.head_dim
-    grid = SIZE // 16
-    p, c = grid * grid, len(CONCEPTS)
+    grid = size // 16
+    p = grid * grid
     s = t + p + c
     img_ids = make_img_ids(grid, grid, b, device=dev)
     pe = embed_nd(torch.cat([torch.zeros(b, t, 3, device=dev), img_ids], 1), cfg.axes_dim, cfg.theta)
@@ -1593,6 +1602,388 @@ def new_shape_flash_phases(cfg, launches):
         controls=[("one key tile dropped", "all", lambda want: drop_key_tile(want, args, 512 + 64 * 32))],
     ))
     return results
+
+
+# The segmentation eval path at the ImageNet-Seg harness's protocol: 512^2
+# input (256 txt + 1024 img rows), 4 steps, noise step 2, layers 14-17, the
+# target and five background concepts (C = 6).
+EVAL_SIZE = 512
+EVAL_LAYERS = [14, 15, 16, 17]
+EVAL_TARGET = "dog"
+EVAL_IMAGES = 8
+EVAL_BATCH = 4
+# DAAMFlux takes the caption's words as its concepts: C = 8.
+EVAL_DAAM_CAPTION = "a brown dog sleeps on green grass outside"
+# The VOC multi-class runner's images: 5 background concepts and the classes
+# present, C = 6 or 7.
+EVAL_VOC_PRESENT = [["dog"], ["cat", "sofa"], ["bird"], ["horse"]]
+CROSS_SELF_MODES = [(True, True), (True, False), (False, True), (False, False)]
+# The fused backend's coefficients against the sdpa backend's (the same
+# pipeline, plain attention), relative RMS: bf16 rounding in another order
+# through 19 double blocks. On an H100 80GB HBM3 at 700 W: the output tap
+# and cross-only 1.4e-4, self-only 1.3e-3, cross_attention 0.0125, value
+# 0.0133, DAAMFlux (a softmax over the caption's words) 0.046; the control,
+# the fused layers 0-3 in place of 14-17, 0.746.
+EVAL_COEFF_LIMIT = 2.0**-4
+# segment_batch at B=4 against per-image calls, relative RMS of the target
+# coefficients (no softmax over concepts, unlike encode_images' heatmaps):
+# 1.27e-4 to 1.33e-4 on an H100 80GB HBM3 at 700 W, bf16 GEMMs summing in
+# another order; the limit is 7.3x the largest reading, the control (image 1
+# with seed 5 in place of 4) read 0.0198, 20x the limit.
+EVAL_BATCH_LIMIT = 2.0**-10
+# pixAcc, mIoU and mAP of the harness at --image_batch 1 and 4, absolute: the
+# labels are the masks segment_batch draws for the images, so the batch-4 run
+# scores 1.0 and the batch-1 run loses only the tokens its bf16 rounding
+# flips; the control is a model with another seed at batch 4.
+EVAL_METRIC_LIMIT = 2.0**-5
+# per_layer_coefficients against segment_individual_image at one layer, and
+# the concept basis's product against the output map of the same forward,
+# relative: the same launches on the same inputs, sums in another order.
+EVAL_SAME_FORWARD_LIMIT = 2.0**-12
+
+
+def eval_k1_runs():
+    """{eval path: {(b, cross, self, c): stopped forwards}}: what each path
+    of `eval_path` runs through K1 (19 launches a forward); the sdpa paths
+    run none."""
+    cs = (True, True)
+    b1, b4 = (1, *cs, 6), (EVAL_BATCH, *cs, 6)
+    voc = Counter((1, *cs, 5 + len(present)) for present in EVAL_VOC_PRESENT)
+    return {
+        "segment: output, cross_attention, value taps (fused)": {b1: 3},
+        "segment: cross-only ablation (fused)": {(1, True, False, 6): 1},
+        "segment: self-only ablation (fused)": {(1, False, True, 6): 1},
+        "segment: the five cases and DAAMFlux (sdpa)": {},
+        "per_layer_coefficients and 4 one-layer segment calls": {b1: 1 + len(EVAL_LAYERS)},
+        f"segment_batch B={EVAL_BATCH}": {b4: 1},
+        f"{EVAL_BATCH} per-image segment calls and the other-seed control": {b1: EVAL_BATCH + 1},
+        "concept basis and the output map of its forward": {b1: 2},
+        "harness labels: segment_batch of the images": {b4: EVAL_IMAGES // EVAL_BATCH},
+        f"imagenet harness --image_batch {EVAL_BATCH}": {b4: EVAL_IMAGES // EVAL_BATCH},
+        "imagenet harness --image_batch 1": {b1: EVAL_IMAGES},
+        f"imagenet harness --image_batch {EVAL_BATCH}, other-seed control":
+            {b4: EVAL_IMAGES // EVAL_BATCH},
+        f"voc multi-class runner, {len(EVAL_VOC_PRESENT)} images": dict(voc),
+        "DAAMFlux, 8-word caption (fused)": {(1, *cs, len(EVAL_DAAM_CAPTION.split())): 1},
+    }
+
+
+def eval_flash_phases(cfg):
+    """K1 at the eval path's shapes: the double block at 512^2 with 6
+    concepts at batch 1 and EVAL_BATCH in the four cross / self modes, and
+    with 7 (VOC) and 8 (DAAMFlux) concepts at batch 1; main-path launches
+    from `eval_k1_runs`."""
+    from conceptattention_torch.kernels import flash_saliency as fs
+
+    launches = Counter()
+    for runs in eval_k1_runs().values():
+        for key, forwards in runs.items():
+            launches[key] += forwards * cfg.depth
+    gen = torch.Generator("cuda").manual_seed(5)
+    h, d = cfg.num_heads, cfg.head_dim
+    results = []
+    for b, c, modes in ((1, 6, CROSS_SELF_MODES), (EVAL_BATCH, 6, CROSS_SELF_MODES),
+                        (1, 7, CROSS_SELF_MODES[:1]), (1, 8, CROSS_SELF_MODES[:1])):
+        (q, k, v, t, p, c, _, _, cos, sin), qr, kr = joint_rows_inputs(
+            cfg, gen, b, 256, size=EVAL_SIZE, c=c)
+        s = t + p + c
+        for cross, self_attention in modes:
+            args = (q, k, v, t, p, c, cross, self_attention, cos, sin)
+            mask = fs.segment_mask(s, t, p, c, cross, self_attention, "cuda")
+            flipped = {
+                "self_attention flipped": (*args[:7], not self_attention, cos, sin),
+                "cross flipped": (*args[:6], not cross, self_attention, cos, sin),
+            }
+            controls = [(label, "concept rows",
+                         lambda _, a=a: fs.fused_concept_flash_attention_plain(*a))
+                        for label, a in flipped.items()]
+            if cross and self_attention:
+                controls.append(("one img key tile dropped", "joint rows",
+                                 lambda want, a=args: drop_key_tile(want, a, t + 64 * 8)))
+            results.append(phase_result(
+                f"flash_saliency eval double_block B={b} S={s} C={c} cross={cross} "
+                f"self={self_attention}",
+                lambda a=args: fs.fused_concept_flash_attention(*a),
+                lambda a=args: fs.fused_concept_flash_attention_plain(*a),
+                lambda m=mask, qr=qr, kr=kr, v=v: F.scaled_dot_product_attention(
+                    qr, kr, v, attn_mask=m),
+                b * 4 * d * mask.sum().item() * h, b * (4 * h * s * d * 2 + 2 * s * d * 4),
+                launches[(b, cross, self_attention, c)],
+                {"joint rows": slice(0, t + p), "concept rows": slice(t + p, s)}, controls,
+            ))
+        del q, k, v, cos, sin, qr, kr
+        torch.cuda.empty_cache()
+    return results
+
+
+def eval_breakdown(model, images, concepts):
+    """Host seconds (median of 3, each ending in a synchronise) of the
+    stages of a harness image: the VAE encode of one image, its caption and
+    concepts through the pipeline's text encoders, the stopped forward at
+    batch 1 and EVAL_BATCH on encoded latents, the whole per-image segment
+    call, and scoring one image's mask and coefficients on the host."""
+    from conceptattention_torch.experiments import imagenet_segmentation as harness
+    from conceptattention_torch.pipeline.concept_pipeline import (
+        _full_f32,
+        batched_images_saliency,
+        batched_noise_saliency,
+    )
+    from conceptattention_torch.utils.eval_state import SegEvalState
+
+    pipe = model.pipe
+    b = EVAL_BATCH
+    (mask,), (coeff,), _ = model([images[0]], [EVAL_TARGET], concepts, [EVAL_TARGET])
+
+    def seconds(fn):
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times)
+
+    with torch.inference_mode(), _full_f32():
+        zs = pipe._encode_pixels_batch(images[:b], EVAL_SIZE, EVAL_SIZE, [model.seed] * b)
+        t = model._noise_step(zs)
+        txt, txt_ids, _ = pipe._prepare_text(EVAL_TARGET, b, need_clip=False)
+        c_emb, c_ids, c_vec = pipe._prepare_concepts(concepts, b)
+        spec = model._spec()
+        return {
+            "vae encode, one image": seconds(lambda: pipe._encode_pixels(
+                images[0], EVAL_SIZE, EVAL_SIZE, model.seed)),
+            "stopped forward B=1": seconds(lambda: batched_noise_saliency(
+                pipe, zs[:1], t, 1, EVAL_SIZE, EVAL_SIZE, model.seed, txt[:1], txt_ids[:1],
+                c_vec[:1], c_emb[:1], c_ids[:1], c_vec[:1], spec)),
+            f"stopped forward B={b}": seconds(lambda: batched_images_saliency(
+                pipe, zs, t, 1, EVAL_SIZE, EVAL_SIZE, model.seed, txt, txt_ids, c_vec, c_emb,
+                c_ids, c_vec, spec)),
+            "caption and concepts, one image": seconds(lambda: (
+                pipe._prepare_text(EVAL_TARGET, 1, need_clip=False),
+                pipe._prepare_concepts(concepts, 1))),
+            "segment call, one image": seconds(lambda: model(
+                [images[0]], [EVAL_TARGET], concepts, [EVAL_TARGET])),
+            "scoring one image": seconds(lambda: harness.score_one(
+                SegEvalState(), 0, 1, "timing", mask, mask, coeff)),
+        }
+
+
+def eval_path(pipe, counters):
+    """The segmentation eval path on the flux-schnell pipeline at the
+    harness protocol (EVAL_SIZE, 4 steps, noise step 2, EVAL_LAYERS): the
+    Flux tap models on the fused backend against the same models on the
+    sdpa backend (taps output, cross_attention, value; the cross-only and
+    self-only ablations; DAAMFlux), `segment_batch` against per-image calls,
+    `per_layer_coefficients` against one-layer calls, the concept basis
+    against the output map, the ImageNet harness functions at --image_batch
+    1 and EVAL_BATCH over EVAL_IMAGES images held in memory, and the VOC
+    multi-class runner. Counters are [K1, K2, K1 hopper, K2 hopper]; each
+    path's K1 launches must be what `eval_k1_runs` says. Returns {path:
+    (launches, seconds)}."""
+    from conceptattention_torch import ConceptAttentionFluxPipeline
+    from conceptattention_torch.evals.datasets import VOC_CLASSES
+    from conceptattention_torch.evals.segmentation import (
+        DAAMFluxSegmentationModel,
+        FluxMultiClassSegmentationModel,
+        FluxTapSegmentationModel,
+    )
+    from conceptattention_torch.experiments import imagenet_segmentation as harness
+    from conceptattention_torch.experiments import voc_multi_class
+    from conceptattention_torch.ops.attention import ConceptAttentionSpec
+    from conceptattention_torch.ops.schedule import get_schedule
+    from conceptattention_torch.pipeline.concept_encoding import (
+        generate_concept_basis_and_image_representation,
+    )
+    from conceptattention_torch.pipeline.concept_pipeline import _full_f32, batched_noise_saliency
+    from conceptattention_torch.utils.eval_state import SegEvalState
+    from conceptattention_torch.utils.plotting import upsample_nearest
+
+    depth = pipe.cfg.depth
+    expected = eval_k1_runs()
+    paths = {}
+
+    def run(label, fn):
+        out, seconds, launches = counted(fn, counters)
+        want = depth * sum(expected[label].values())
+        if launches != [want, 0, want, 0]:
+            raise AssertionError(f"eval path {label!r}: launches {launches}, want K1 {want}")
+        paths[label] = (launches, seconds)
+        return out
+
+    plain_pipe = ConceptAttentionFluxPipeline(
+        pipe.model_name, dtype=pipe.dtype, params=pipe.params, ae_params=pipe.ae_params,
+        text_encoders=pipe.text_encoders, attention_backend="sdpa", device=pipe.device)
+    rng = np.random.default_rng(7)
+    images = [rng.integers(0, 256, (EVAL_SIZE, EVAL_SIZE, 3), dtype=np.uint8)
+              for _ in range(EVAL_IMAGES)]
+    concepts = harness.concepts_for(EVAL_TARGET, harness.BACKGROUND_CONCEPTS)
+    kw = dict(num_steps=4, noise_timestep=2, layer_indices=EVAL_LAYERS, width=EVAL_SIZE,
+              height=EVAL_SIZE)
+    daam_concepts = [EVAL_TARGET, "grass"]
+
+    def coeffs(model, image=images[0]):
+        return model.segment_individual_image(image, concepts, EVAL_TARGET)[0]
+
+    def daam(p):
+        return DAAMFluxSegmentationModel(p, **kw).segment_individual_image(
+            images[0], daam_concepts, EVAL_DAAM_CAPTION)[0]
+
+    cases = {"output": dict(tap="output"), "cross_attention": dict(tap="cross_attention"),
+             "value": dict(tap="value"),
+             "cross-only": dict(tap="output", concept_self_attention=False),
+             "self-only": dict(tap="output", concept_cross_attention=False)}
+    fused = run("segment: output, cross_attention, value taps (fused)", lambda: {
+        name: coeffs(FluxTapSegmentationModel(pipe, **kw, **cases[name]))
+        for name in ("output", "cross_attention", "value")})
+    fused["cross-only"] = run("segment: cross-only ablation (fused)", lambda: coeffs(
+        FluxTapSegmentationModel(pipe, **kw, **cases["cross-only"])))
+    fused["self-only"] = run("segment: self-only ablation (fused)", lambda: coeffs(
+        FluxTapSegmentationModel(pipe, **kw, **cases["self-only"])))
+    fused["DAAMFlux"] = run("DAAMFlux, 8-word caption (fused)", lambda: daam(pipe))
+    plain = run("segment: the five cases and DAAMFlux (sdpa)", lambda: {
+        **{name: coeffs(FluxTapSegmentationModel(plain_pipe, **kw, **case))
+           for name, case in cases.items()}, "DAAMFlux": daam(plain_pipe)})
+    per_layer, one_layer = run("per_layer_coefficients and 4 one-layer segment calls", lambda: (
+        FluxTapSegmentationModel(pipe, **kw).per_layer_coefficients(images[0], concepts,
+                                                                    EVAL_TARGET),
+        [coeffs(FluxTapSegmentationModel(pipe, **dict(kw, layer_indices=[l])))
+         for l in EVAL_LAYERS]))
+
+    def mask_share(got, want):
+        return float(np.mean((got[0] > got[0].mean()) == (want[0] > want[0].mean())))
+
+    backends = {name: {"coeff_rel_rms": np_rel_rms(fused[name], plain[name]),
+                       "target_mask_agreement": mask_share(fused[name], plain[name])}
+                for name in fused}
+    backend_control = np_rel_rms(per_layer[:4].mean(0), plain["output"])
+    ok_backends = max(r["coeff_rel_rms"] for r in backends.values()) <= EVAL_COEFF_LIMIT \
+        < backend_control
+    print(f"eval: fused against sdpa at {EVAL_SIZE}^2 layers {EVAL_LAYERS}: "
+          f"{json.dumps(backends)}; control (fused layers 0-3) {backend_control}, limit "
+          f"{EVAL_COEFF_LIMIT}, ok={ok_backends}", flush=True)
+
+    layer_errs = [np_rel_rms(per_layer[l], c) for l, c in zip(EVAL_LAYERS, one_layer)]
+    layer_mean = np_rel_rms(per_layer[EVAL_LAYERS].mean(0), fused["output"])
+    layer_control = np_rel_rms(per_layer[EVAL_LAYERS[0] - 1], one_layer[0])
+    ok_layers = max(layer_errs + [layer_mean]) <= EVAL_SAME_FORWARD_LIMIT < layer_control
+    print(f"eval: per_layer_coefficients against one-layer segment calls, relative RMS per "
+          f"layer {layer_errs}, layers {EVAL_LAYERS} averaged {layer_mean}; control (the layer "
+          f"before) {layer_control}, limit {EVAL_SAME_FORWARD_LIMIT}, ok={ok_layers}", flush=True)
+
+    targets, lists = [EVAL_TARGET] * EVAL_BATCH, [concepts] * EVAL_BATCH
+    batch = run(f"segment_batch B={EVAL_BATCH}", lambda: FluxTapSegmentationModel(
+        pipe, **kw).segment_batch(images[:EVAL_BATCH], targets, lists, targets))
+
+    def single_calls():
+        model = FluxTapSegmentationModel(pipe, **kw)
+        other_seed = FluxTapSegmentationModel(pipe, **kw, seed=5)
+        return ([model([im], [EVAL_TARGET], concepts, [EVAL_TARGET]) for im in
+                 images[:EVAL_BATCH]], other_seed([images[1]], [EVAL_TARGET], concepts,
+                                                  [EVAL_TARGET]))
+
+    single, other_seed = run(
+        f"{EVAL_BATCH} per-image segment calls and the other-seed control", single_calls)
+    batch_errs = [np_rel_rms(batch[1][i], single[i][1][0]) for i in range(EVAL_BATCH)]
+    batch_masks = [float(np.mean(batch[0][i] == single[i][0][0])) for i in range(EVAL_BATCH)]
+    batch_control = np_rel_rms(batch[1][1], other_seed[1][0])
+    ok_batch = max(batch_errs) <= EVAL_BATCH_LIMIT < batch_control
+    print(f"eval: segment_batch B={EVAL_BATCH} against per-image calls: coefficients relative "
+          f"RMS {batch_errs}, target mask agreement {batch_masks}; control (image 1 with seed "
+          f"5) {batch_control}, limit {EVAL_BATCH_LIMIT}, ok={ok_batch}", flush=True)
+
+    basis_layers, seed = EVAL_LAYERS[1:3], 63
+
+    @torch.inference_mode()
+    @_full_f32()
+    def output_map():
+        """The output map of the basis's forward: its inputs, the map spec."""
+        z = pipe._encode_pixels(images[0], EVAL_SIZE, EVAL_SIZE, seed)
+        t = get_schedule(4, (z.shape[2] // 2) * (z.shape[3] // 2), shift=not pipe.is_schnell)[2]
+        txt, txt_ids, vec = pipe._prepare_text(EVAL_TARGET, 1)
+        c_emb, c_ids, c_vec = pipe._prepare_concepts(concepts, 1)
+        return batched_noise_saliency(
+            pipe, z, t, 1, EVAL_SIZE, EVAL_SIZE, seed, txt, txt_ids, vec, c_emb, c_ids, c_vec,
+            ConceptAttentionSpec(taps=("output",)))["output"][0, :, 0].float().cpu().numpy()
+
+    (iv, cv), maps = run("concept basis and the output map of its forward", lambda: (
+        generate_concept_basis_and_image_representation(
+            pipe, images[0], EVAL_TARGET, concepts, layers=basis_layers,
+            normalize_concepts=False, reduce_dims=False, height=EVAL_SIZE, width=EVAL_SIZE,
+            seed=seed), output_map()))
+    if iv.shape != (2, 1, (EVAL_SIZE // (2 * pipe.vae_factor)) ** 2, pipe.cfg.hidden_size) or \
+            cv.shape != (2, 1, len(concepts), pipe.cfg.hidden_size):
+        raise AssertionError(f"concept basis shapes {iv.shape} {cv.shape}")
+
+    def rel_max(got, want):
+        return float(np.abs(got - want).max() / np.abs(want).max())
+
+    layer = basis_layers[1]
+    basis_err = rel_max((iv[1, 0] @ cv[1, 0].T).T, maps[layer])
+    basis_control = rel_max((iv[0, 0] @ cv[0, 0].T).T, maps[layer])
+    ok_basis = basis_err <= EVAL_SAME_FORWARD_LIMIT < basis_control
+    print(f"eval: concept basis image_vectors @ concept_vectors.T at layer {layer} against the "
+          f"output map: relative max error {basis_err}; control (layer {basis_layers[0]}'s "
+          f"vectors) {basis_control}, limit {EVAL_SAME_FORWARD_LIMIT}, ok={ok_basis}", flush=True)
+    del iv, cv, maps
+
+    model = FluxTapSegmentationModel(pipe, **kw)
+
+    def label_masks():
+        return [m for lo in range(0, EVAL_IMAGES, EVAL_BATCH) for m in model.segment_batch(
+            images[lo:lo + EVAL_BATCH], targets, lists, targets)[0]]
+
+    labels = run("harness labels: segment_batch of the images", label_masks)
+    dataset = [(im, (upsample_nearest(m.astype(np.float64), EVAL_SIZE, EVAL_SIZE) > 0.5)
+                .astype(np.int64), f"{EVAL_TARGET}_{i}")
+               for i, (im, m) in enumerate(zip(images, labels))]
+    states = {}
+    for b, m, label in ((EVAL_BATCH, model, f"imagenet harness --image_batch {EVAL_BATCH}"),
+                        (1, model, "imagenet harness --image_batch 1"),
+                        (EVAL_BATCH, FluxTapSegmentationModel(pipe, **kw, seed=5),
+                         f"imagenet harness --image_batch {EVAL_BATCH}, other-seed control")):
+        states[label] = run(label, lambda b=b, m=m: harness.run(
+            m, dataset, SegEvalState(), EVAL_IMAGES, image_batch=b))
+    st4, st1, control = states.values()
+    metrics = {key: (getattr(st4, key), getattr(st1, key), getattr(control, key))
+               for key in ("pix_acc", "miou", "mean_ap")}
+    metric_err = max(abs(a - b) for a, b, _ in metrics.values())
+    metric_control = max(abs(a - c) for a, _, c in metrics.values())
+    ok_harness = metric_err <= EVAL_METRIC_LIMIT < metric_control
+    seconds = {label: paths[label][1] / EVAL_IMAGES for label in states}
+    print(f"eval: imagenet harness over {EVAL_IMAGES} images at {EVAL_SIZE}^2, metrics [batch "
+          f"{EVAL_BATCH}, batch 1, control]: {json.dumps(metrics)}; largest difference "
+          f"{metric_err}, control {metric_control}, limit {EVAL_METRIC_LIMIT}, ok={ok_harness}; "
+          f"seconds per image {json.dumps(seconds)}; K1 launches per image {depth}", flush=True)
+
+    print(f"eval: where a harness image's time goes (warm seconds, median of 3): "
+          f"{json.dumps(eval_breakdown(model, images, concepts))}", flush=True)
+
+    voc_model = FluxMultiClassSegmentationModel(
+        pipe, num_steps=4, noise_timestep=2, layer_indices=list(range(14, 19)),
+        width=EVAL_SIZE, height=EVAL_SIZE)
+    voc = []
+    for i, present in enumerate(EVAL_VOC_PRESENT):
+        mask = np.zeros((EVAL_SIZE, EVAL_SIZE), np.uint8)
+        for j, name in enumerate(present):
+            mask[(j + 1) * 100:(j + 2) * 100] = VOC_CLASSES.index(name) + 1
+        mask[:, :4] = 255
+        voc.append((images[i], mask, present))
+    label = f"voc multi-class runner, {len(EVAL_VOC_PRESENT)} images"
+    miou, pix_acc = run(label, lambda: voc_multi_class.run(
+        voc_model, voc, [f"voc_{i}" for i in range(len(voc))], len(voc)))
+    ok_voc = 0.0 <= miou <= 1.0 and 0.0 <= pix_acc <= 1.0
+    print(f"eval: voc multi-class runner: mIoU {miou}, pixAcc {pix_acc}, seconds "
+          f"{paths[label][1]}", flush=True)
+    print(f"eval paths (launches [K1, K2, K1 hopper, K2 hopper], seconds): "
+          f"{json.dumps(paths)}", flush=True)
+    del plain_pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (ok_backends and ok_layers and ok_batch and ok_basis and ok_harness and ok_voc):
+        raise AssertionError("eval path: a reading or its control is on the wrong side of its "
+                             "limit")
+    return paths
 
 
 def encoder_conv_shapes(ae_cfg, res: int) -> Counter:
@@ -2284,6 +2675,7 @@ def main() -> int:
         "dev double": (STEPS + i2i_steps) * dev_cfg.depth + 2 * CKPT_DEPTH,
         "dev single": (STEPS + i2i_steps) * dev_cfg.depth_single_blocks + 2 * CKPT_SINGLE,
         "double b2": cfg.depth, "double b4": cfg.depth})
+    flash += eval_flash_phases(cfg)
     # K1b: generate_image (batch 1) and generate_images (batch 2) with w8a8
     # + int8_qk, and encode_image with int8_qk.
     int8 = int8_flash_phases(cfg, {
@@ -2353,6 +2745,7 @@ def main() -> int:
           f"cold seconds {enc_seconds[0]:.4f}, warm seconds {enc_seconds[1]:.4f}", flush=True)
     print(f"peak device memory GiB {torch.cuda.max_memory_allocated() / 2**30:.3f}", flush=True)
     new_paths = encode_images_path(pipe, counters)
+    new_paths.update(eval_path(pipe, counters))
     names = ["flash_saliency", "conv3x3", "flash_saliency (Hopper instance)", "conv3x3 (Hopper instance)"]
     print("launches per kernel instance: " + json.dumps({
         "generate_image": dict(zip(names, want_gen)),

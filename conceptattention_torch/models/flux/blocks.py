@@ -8,7 +8,8 @@ block: concepts reuse the txt weights with their own modulation vector,
 concept queries attend over [concept; img] keys with their own softmax
 denominator, concepts get their own residual and MLP update, and the image
 and text streams are computed exactly as if concepts were absent. Saliency
-taps are emitted as reduced [B, C, P] f32 concept-by-patch maps.
+taps are emitted as reduced [B, C, P] f32 concept-by-patch maps, or, in the
+raw-vector mode, as the vector sets they are computed from.
 """
 
 from __future__ import annotations
@@ -106,7 +107,11 @@ def double_block(
     spec: ConceptAttentionSpec = ConceptAttentionSpec(),
 ):
     """One double-stream block. Returns (img, txt, concepts, saliency), where
-    saliency maps tap names to [B, C, P] f32 maps, empty without concepts."""
+    saliency maps tap names to [B, C, P] f32 maps, empty without concepts.
+    With `spec.return_raw_vectors` it holds the block's vector sets instead:
+    `output_space_{concept,image}_vectors`, the merged-head attention
+    outputs [B, L, H*D], and `cross_attention_{concept,image}_vectors`, the
+    pre-RoPE q in head form [B, H, L, D]."""
     img_mod1, img_mod2 = modulation(vec, p["img_mod"]["w"], p["img_mod"]["b"], double=True)
     txt_mod1, txt_mod2 = modulation(vec, p["txt_mod"]["w"], p["txt_mod"]["b"], double=True)
 
@@ -130,7 +135,14 @@ def double_block(
     )
 
     saliency: Dict[str, torch.Tensor] = {}
-    if concepts is not None:
+    if concepts is not None and spec.return_raw_vectors:
+        saliency = {
+            "output_space_concept_vectors": concept_attn,
+            "output_space_image_vectors": img_attn,
+            "cross_attention_concept_vectors": extras["concept_q"],
+            "cross_attention_image_vectors": extras["img_q"],
+        }
+    elif concepts is not None:
         pairs = {
             "output": ("concept_out_h", "img_out_h"),
             "cross_attention": ("concept_q", "img_q"),

@@ -57,7 +57,8 @@ def flux_forward(
 
     Returns (pred, saliency): pred [B, P, in_channels] (None when stopping
     after the double blocks), saliency {tap: [depth, B, C, P] f32} (empty
-    without concepts).
+    without concepts; with `spec.return_raw_vectors`, the blocks' vector
+    sets stacked over depth).
     """
     if img.dim() != 3 or txt.dim() != 3:
         raise ValueError("img and txt must be [B, L, D]")

@@ -37,6 +37,10 @@ class ConceptAttentionSpec:
     # Which similarity taps to emit as per-layer saliency maps
     # ("output", "cross_attention", "value").
     taps: Tuple[str, ...] = ("output", "cross_attention")
+    # Emit each double block's full vector sets (the merged-head attention
+    # outputs and the pre-RoPE head-form q of concepts and image) in place
+    # of the maps; large, for the concept basis.
+    return_raw_vectors: bool = False
     # "fused" (one flash-saliency kernel launch), "sdpa" (two plain SDPAs),
     # "ring" (the plain sequence-parallel ring) or "ring_rdma" (the CUDA ring).
     backend: str = "fused"
@@ -228,6 +232,12 @@ def _ring_joint_concept_attention(txt_qkv, img_qkv, concept_qkv, pe, concept_pe,
         "img_out_h": img_out_h,
     }
     return txt_attn, img_attn, merge_heads(concept_out_h), extras
+
+
+def similarity_map(concept_vectors: torch.Tensor, image_vectors: torch.Tensor) -> torch.Tensor:
+    """[B, C, D] x [B, P, D] (heads merged) -> [B, C, P] f32 concept-by-patch
+    similarity."""
+    return torch.einsum("bcd,bpd->bcp", concept_vectors.float(), image_vectors.float())
 
 
 def similarity_map_heads(concept_vectors: torch.Tensor, image_vectors: torch.Tensor) -> torch.Tensor:

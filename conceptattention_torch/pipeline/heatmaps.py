@@ -4,6 +4,8 @@ Counterpart of the JAX package's `pipeline/heatmaps.py`: raw [T, L, B, C, P]
 concept-by-patch similarity maps are normalized across concepts per patch
 (softmax, entmax15 or sparsemax), then the selected timesteps and layers are
 averaged and the patch axis reshaped to the 2D grid.
+`compute_heatmaps_from_vectors` does the same from full vector sets (the
+raw-vector mode of the double blocks).
 """
 
 from __future__ import annotations
@@ -13,6 +15,14 @@ from typing import List, Optional, Sequence
 import torch
 
 from conceptattention_torch.ops.sparse import entmax15, sparsemax
+
+
+def normalize_concepts_linear(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Shift to non-negative, then L1-normalize along `dim` (a zero sum
+    divides by one)."""
+    shifted = x - x.amin(dim=dim, keepdim=True)
+    total = shifted.sum(dim=dim, keepdim=True)
+    return shifted / torch.where(total == 0, torch.ones_like(total), total)
 
 
 def apply_attention_norm(maps: torch.Tensor, attention_norm: str, dim: int = -2) -> torch.Tensor:
@@ -62,6 +72,31 @@ def reduce_maps(
     if h * w != p:
         raise ValueError(f"spatial_shape {spatial_shape} does not hold {p} patches")
     return maps.reshape(b, c, h, w)
+
+
+def compute_heatmaps_from_vectors(
+    image_vectors: torch.Tensor,
+    concept_vectors: torch.Tensor,
+    layer_indices: Sequence[int],
+    timesteps: Optional[Sequence[int]] = None,
+    softmax: bool = True,
+    normalize_concepts: bool = False,
+    attention_norm: str = "sparsemax",
+    spatial_shape: Optional[tuple] = None,
+) -> torch.Tensor:
+    """Heatmaps from full vector sets: image_vectors [T, L, B, P, D] or, in
+    head form, [T, L, B, H, P, D]; concept_vectors the same with C rows.
+    The concept-by-patch products go through `reduce_maps`; returns
+    [B, C, h, w]."""
+    if image_vectors.dim() == 6:
+        t, l, b, h, p, d = image_vectors.shape
+        image_vectors = image_vectors.transpose(3, 4).reshape(t, l, b, p, h * d)
+        c = concept_vectors.shape[4]
+        concept_vectors = concept_vectors.transpose(3, 4).reshape(t, l, b, c, h * d)
+    if normalize_concepts:
+        concept_vectors = normalize_concepts_linear(concept_vectors, dim=-2)
+    maps = torch.einsum("tlbpd,tlbcd->tlbcp", image_vectors.float(), concept_vectors.float())
+    return reduce_maps(maps, layer_indices, timesteps, softmax, attention_norm, spatial_shape)
 
 
 def heatmaps_to_pil(heatmaps, cmap: str = "plasma") -> List:

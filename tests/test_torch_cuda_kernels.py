@@ -789,3 +789,41 @@ def test_conv_kernel_at_encoder_shapes(dev, res, cin, cout):
     dropped = w.clone()
     dropped[0, 0, :32] = 0
     assert (conv.conv3x3_same_plain(x, dropped, bias).float() - want.float()).abs().max().item() > limit
+
+
+@pytest.mark.parametrize("cross,self_attention",
+                         [(True, True), (True, False), (False, True), (False, False)],
+                         ids=["cross+self", "cross", "self", "neither"])
+@pytest.mark.parametrize("b", [1, 4])
+def test_hopper_flash_kernel_at_eval_shape(dev, b, cross, self_attention):
+    """K1 at the segmentation harness's double block: 512^2 input (256 txt +
+    1024 img rows) with 6 concepts, all 24 heads, at batch 1 and 4 (the
+    harness's --image_batch 4), in the four cross / self modes; the joint
+    and concept rows each against their own limit. Each concept key points
+    along its query (unrotated), so its own score competes with the image
+    keys' and both concept terms carry weight. Controls: the plain version
+    with one img key tile dropped (joint rows) and with the concept mode
+    flipped (concept rows) break their limits."""
+    t, p, c = 256, 1024, 6
+    s = t + p + c
+    gen = torch.Generator(dev).manual_seed(12)
+    q, k, v = (torch.randn(b, 24, s, 128, generator=gen, device=dev) for _ in range(3))
+    qc = q[:, :, t + p:]
+    k[:, :, t + p:] = 4.0 * qc / qc.norm(dim=-1, keepdim=True)
+    cos, sin = rope_tables(gen, b, s, 128, dev)
+    cos[:, t + p:], sin[:, t + p:] = 1.0, 0.0
+    args = ((3 * q).bfloat16(), k.bfloat16(), v.bfloat16(), t, p, c, cross, self_attention,
+            cos, sin)
+    got = fs.fused_concept_flash_attention(*args)
+    torch.cuda.synchronize()
+    want = fs.fused_concept_flash_attention_plain(*args)
+    joint, concept = slice(0, t + p), slice(t + p, s)
+    for rows in (joint, concept):
+        err = (got[:, :, rows].float() - want[:, :, rows].float()).abs().max().item()
+        assert err <= bf16_limit(want[:, :, rows])
+    flipped = fs.fused_concept_flash_attention_plain(*args[:7], not self_attention, cos, sin)
+    control = (flipped[:, :, concept].float() - want[:, :, concept].float()).abs().max().item()
+    assert control > bf16_limit(want[:, :, concept])
+    keep, dropped = without_key_tile(args, t + 64 * 8)
+    control = (dropped[:, :, :t + p - 64].float() - want[:, :, keep[:t + p - 64]].float())
+    assert control.abs().max().item() > bf16_limit(want[:, :, joint])

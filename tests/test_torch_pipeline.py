@@ -258,16 +258,25 @@ def test_image_helpers_bit_identical():
 
 def test_import_leaves_out_jax():
     """The port's modules (and the smoke script) import no JAX, nothing of
-    the JAX package, and neither `safetensors` nor `transformers`."""
+    the JAX package, neither `safetensors` nor `transformers`, and the eval
+    path's modules neither `h5py` nor PIL (the loaders import them when they
+    read files)."""
     modules = ("conceptattention_torch, conceptattention_torch.pipeline.concept_pipeline, "
                "conceptattention_torch.weights.convert, conceptattention_torch.models.text.t5, "
                "conceptattention_torch.models.text.clip, conceptattention_torch.models.text.encoders, "
                "conceptattention_torch.models.flux.autoencoder, "
                "conceptattention_torch.sampling.rectified_flow, conceptattention_torch.utils.watermark, "
+               "conceptattention_torch.pipeline.concept_encoding, conceptattention_torch.native, "
+               "conceptattention_torch.evals, conceptattention_torch.evals.segmentation, "
+               "conceptattention_torch.evals.datasets, conceptattention_torch.utils.eval_state, "
+               "conceptattention_torch.utils.plotting, "
+               "conceptattention_torch.experiments.imagenet_segmentation, "
+               "conceptattention_torch.experiments.voc_single_class, "
+               "conceptattention_torch.experiments.voc_multi_class, "
                "chip_smoke")
     code = (f"import sys, {modules}; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
-            "'conceptattention_tpu', 'safetensors', 'transformers')]; "
+            "'conceptattention_tpu', 'safetensors', 'transformers', 'h5py', 'PIL')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           timeout=120, cwd=ROOT)
