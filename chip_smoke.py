@@ -7,9 +7,11 @@ Run from the root of a checkout: `python3 chip_smoke.py`. In order it
    source, started together);
 3. holds each kernel against its plain PyTorch version in bf16 at the main
    paths' shapes, the flux-dev blocks (S=4611, 4608), the batched
-   encode's (B=2, 4), the NHWC encoder's convs and the eval path's double
+   encode's (B=2, 4), the NHWC encoder's convs, the eval path's double
    block (512x512: S=1286 at B=1 and 4 in the four cross / self modes, and
-   7 and 8 concepts) included (attention per
+   7 and 8 concepts) and the sweeps' (512x512 with 4 concepts: S=1284 with
+   flux-schnell's 256 txt rows, S=1540 with flux-dev's 512) included
+   (attention per
    row segment, each against its own scale;
    K1b, the int8-score attention, also against K1 and its pre-pass against
    the plain quantizer;
@@ -48,14 +50,19 @@ Run from the root of a checkout: `python3 chip_smoke.py`. In order it
    per-image calls, `per_layer_coefficients` against one-layer calls, the
    concept basis against the output map, the ImageNet harness functions at
    batch 1 and 4 over images held in memory (timed, with a breakdown), and
-   the VOC multi-class runner;
+   the VOC multi-class runner; the per-layer sweep over those images (its
+   rows against one-layer models' scores); the ViT family at full width
+   with random weights (the 8 ViT-B/16 baselines, TextSpan over ViT-B and
+   over open_clip ViT-H/14: the card's f32 maps against the CPU's) and the
+   ImageNet harness with four of them;
    then, with every earlier pipeline released, the T5-XXL and CLIP-L text
    towers from random HF state dicts through the port's converters (bf16
    against f32 at 2 layers, timed), flux-dev `generate_image` (1024x1024,
    4 steps, guidance 3.5) through `TorchTextEncoders` cold and warm, its
    image-to-image at strength 0.5, the watermark read back from its image,
    the NHWC encoder against the NCHW one (and the NCHW decoder against the
-   NHWC one), and the checkpoint path: a flux-dev-shaped `.safetensors`
+   NHWC one), the per-timestep sweep (50-step schedule, timesteps 0, 25, 45,
+   its sigmas against the schedule written out), and the checkpoint path: a flux-dev-shaped `.safetensors`
    checkpoint cut to 2 double and 4 single blocks and the full VAE, written
    under build/ and loaded by the pipeline in bf16 (bit for bit) and w8a8
    (device peak below the bf16 tree); every kernel's launch count (and the
@@ -1779,8 +1786,8 @@ def eval_path(pipe, counters):
     against the output map, the ImageNet harness functions at --image_batch
     1 and EVAL_BATCH over EVAL_IMAGES images held in memory, and the VOC
     multi-class runner. Counters are [K1, K2, K1 hopper, K2 hopper]; each
-    path's K1 launches must be what `eval_k1_runs` says. Returns {path:
-    (launches, seconds)}."""
+    path's K1 launches must be what `eval_k1_runs` says. Returns ({path:
+    (launches, seconds)}, the harness's in-memory dataset)."""
     from conceptattention_torch import ConceptAttentionFluxPipeline
     from conceptattention_torch.evals.datasets import VOC_CLASSES
     from conceptattention_torch.evals.segmentation import (
@@ -1983,7 +1990,346 @@ def eval_path(pipe, counters):
     if not (ok_backends and ok_layers and ok_batch and ok_basis and ok_harness and ok_voc):
         raise AssertionError("eval path: a reading or its control is on the wrong side of its "
                              "limit")
-    return paths
+    return paths, dataset
+
+
+# The sweeps over the eval path: the per-layer sweep on flux-schnell (256 txt
+# rows) and the per-timestep sweep on flux-dev (512 txt rows) at 512^2, with
+# their four concepts [target, "background", "floor", "sky"] (C = 4).
+SWEEP_LAYERS = EVAL_LAYERS
+SWEEP_TIME_STEPS = 50
+SWEEP_TIMESTEPS = [0, 25, 45]
+SWEEP_TIME_IMAGES = 2
+# A sweep row against the same images' scores through one-layer models:
+# the same launches on the same inputs (per-layer coefficients read bit for
+# bit equal to one-layer calls on an H100 80GB HBM3 at 700 W), so the limit
+# is exact equality up to float rounding of the ratios.
+SWEEP_ROW_LIMIT = 1e-12
+SWEEP_SIGMA_LIMIT = 1e-9
+
+
+def sweep_k1_runs():
+    """{(t, c): stopped forwards} of the sweeps' K1 runs (19 launches a
+    forward): the per-layer sweep over the harness images and its one-layer
+    checks, and the per-timestep sweep."""
+    return {(256, 4): EVAL_IMAGES * (1 + len(SWEEP_LAYERS)),
+            (512, 4): SWEEP_TIME_IMAGES * len(SWEEP_TIMESTEPS)}
+
+
+def sweep_flash_phases(cfg):
+    """K1 at the sweeps' double block: 512^2 with 4 concepts at B=1, with
+    256 txt rows (flux-schnell, S=1284) and 512 (flux-dev, S=1540)."""
+    from conceptattention_torch.kernels import flash_saliency as fs
+
+    gen = torch.Generator("cuda").manual_seed(6)
+    h, d = cfg.num_heads, cfg.head_dim
+    results = []
+    for (t_rows, c), forwards in sweep_k1_runs().items():
+        args, qr, kr = joint_rows_inputs(cfg, gen, 1, t_rows, size=EVAL_SIZE, c=c)
+        q, k, v, t, p, c, cross, self_attention, cos, sin = args
+        s = t + p + c
+        mask = fs.segment_mask(s, t, p, c, cross, self_attention, "cuda")
+        flipped = (*args[:7], not self_attention, cos, sin)
+        results.append(phase_result(
+            f"flash_saliency sweep double_block B=1 S={s} ({t} txt rows) C={c}",
+            lambda a=args: fs.fused_concept_flash_attention(*a),
+            lambda a=args: fs.fused_concept_flash_attention_plain(*a),
+            lambda m=mask, qr=qr, kr=kr, v=v: F.scaled_dot_product_attention(
+                qr, kr, v, attn_mask=m),
+            4 * d * mask.sum().item() * h, 4 * h * s * d * 2 + 2 * s * d * 4,
+            forwards * cfg.depth,
+            {"joint rows": slice(0, t + p), "concept rows": slice(t + p, s)},
+            [("self_attention flipped", "concept rows",
+              lambda _, a=flipped: fs.fused_concept_flash_attention_plain(*a)),
+             ("one img key tile dropped", "joint rows",
+              lambda want, a=args: drop_key_tile(want, a, t + 64 * 8))],
+        ))
+        del q, k, v, cos, sin, qr, kr
+        torch.cuda.empty_cache()
+    return results
+
+
+def per_layer_sweep(pipe, counters, dataset):
+    """The per-layer sweep (`experiments.per_layer_segmentation.run`) over
+    the harness's in-memory images on the flux-schnell pipeline at 512^2,
+    4 steps, noise step 2; its rows for SWEEP_LAYERS held against the scores
+    of one-layer models over the same images, the control a row against
+    the next layer's one-layer scores. Counters are [K1, K2, K1 hopper, K2
+    hopper]. Returns (launches, seconds) of the sweep and its checks."""
+    from conceptattention_torch.evals.segmentation import FluxTapSegmentationModel
+    from conceptattention_torch.experiments import per_layer_segmentation as sweep
+
+    depth = pipe.cfg.depth
+    kw = dict(num_steps=4, noise_timestep=2, width=EVAL_SIZE, height=EVAL_SIZE)
+    n = len(dataset)
+    rows, seconds, launches = counted(lambda: sweep.run(
+        FluxTapSegmentationModel(pipe, **kw), dataset, n), counters)
+    if launches != [n * depth, 0, n * depth, 0]:
+        raise AssertionError(f"per_layer sweep: launches {launches}, want K1 {n * depth}")
+
+    def one_layer_scores():
+        scores = {}
+        for layer in SWEEP_LAYERS:
+            model = FluxTapSegmentationModel(pipe, layer_indices=[layer], **kw)
+            stats = sweep.new_stats()
+            for image, gt_mask, name in dataset:
+                target = sweep.target_of(name)
+                (mask,), _, _ = model([image], [target], [target, *sweep.SWEEP_BACKGROUND],
+                                      [target])
+                sweep.score_mask(stats, mask, sweep.label_of(gt_mask, 224))
+            scores[layer] = sweep.metrics(stats)
+        return scores
+
+    scores, check_seconds, check_launches = counted(one_layer_scores, counters)
+    want = n * len(SWEEP_LAYERS) * depth
+    if check_launches != [want, 0, want, 0]:
+        raise AssertionError(f"per_layer sweep checks: launches {check_launches}, want K1 {want}")
+    errs = {layer: max(abs(a - b) for a, b in zip(rows[layer][1:], scores[layer]))
+            for layer in SWEEP_LAYERS}
+    control = max(abs(a - b) for a, b in zip(rows[SWEEP_LAYERS[0]][1:],
+                                             scores[SWEEP_LAYERS[1]]))
+    ok = max(errs.values()) <= SWEEP_ROW_LIMIT < control
+    if len(rows) != depth or not all(0.0 <= x <= 1.0 for r in rows for x in r[1:]):
+        raise AssertionError(f"per_layer sweep rows {rows}")
+    print(f"per_layer sweep over {n} images at {EVAL_SIZE}^2 (S=1284): rows [layer, pix_acc, "
+          f"miou] {json.dumps(rows)}; seconds per image {seconds / n}; K1 launches per image "
+          f"{depth}; rows {SWEEP_LAYERS} against one-layer models' scores: largest difference "
+          f"{json.dumps(errs)}, control (layer {SWEEP_LAYERS[0]}'s row against layer "
+          f"{SWEEP_LAYERS[1]}'s scores) {control}, limit {SWEEP_ROW_LIMIT}, ok={ok}; one-layer "
+          f"checks {check_seconds} s", flush=True)
+    if not ok:
+        raise AssertionError("per_layer sweep: a row or its control is on the wrong side of "
+                             "its limit")
+    return [a + b for a, b in zip(launches, check_launches)], seconds + check_seconds
+
+
+def shifted_sigma(num_steps: int, step: int, image_seq_len: int) -> float:
+    """Flux's shifted schedule at `step`, written out: t = 1 - step /
+    num_steps, mu linear in the image's tokens from 0.5 at 256 to 1.15 at
+    4096, sigma = e^mu / (e^mu + 1/t - 1)."""
+    t = 1.0 - step / num_steps
+    mu = 0.5 + (1.15 - 0.5) * (image_seq_len - 256) / (4096 - 256)
+    return math.exp(mu) / (math.exp(mu) + 1.0 / t - 1.0)
+
+
+def per_timestep_sweep(pipe, counters, dataset):
+    """The per-timestep sweep (`experiments.per_timestep_segmentation`) on
+    the flux-dev pipeline at 512^2, SWEEP_TIME_STEPS steps, SWEEP_TIMESTEPS,
+    layers 14-17, over `dataset`: each model's sigma against the shifted
+    schedule written out for a 512^2 image (1024 image tokens), the control
+    the sigma of a 1024^2 image (4096). Counters are [K1, K2, K1 hopper, K2
+    hopper]. Returns (launches, seconds)."""
+    from conceptattention_torch.experiments import per_timestep_segmentation as sweep
+
+    models = sweep.models_per_timestep(pipe, SWEEP_TIMESTEPS, num_steps=SWEEP_TIME_STEPS,
+                                       layers=SWEEP_LAYERS, width=EVAL_SIZE)
+    latent = torch.empty(1, 16, EVAL_SIZE // pipe.vae_factor, EVAL_SIZE // pipe.vae_factor)
+    sigmas = {t: (m._noise_step(latent), shifted_sigma(SWEEP_TIME_STEPS, t, 1024),
+                  shifted_sigma(SWEEP_TIME_STEPS, t, 4096)) for t, m in models.items()}
+    sigma_err = max(abs(used - want) for used, want, _ in sigmas.values())
+    sigma_control = max(abs(used - other) for used, _, other in sigmas.values())
+    ok = sigma_err <= SWEEP_SIGMA_LIMIT < sigma_control
+    n = len(dataset)
+    rows, seconds, launches = counted(lambda: sweep.run(models, dataset, n), counters)
+    want = n * len(SWEEP_TIMESTEPS) * pipe.cfg.depth
+    if launches != [want, 0, want, 0]:
+        raise AssertionError(f"per_timestep sweep: launches {launches}, want K1 {want}")
+    if [r[0] for r in rows] != SWEEP_TIMESTEPS or not all(
+            0.0 <= x <= 1.0 for r in rows for x in r[1:]):
+        raise AssertionError(f"per_timestep sweep rows {rows}")
+    print(f"per_timestep sweep (flux-dev, {SWEEP_TIME_STEPS} steps) over {n} images at "
+          f"{EVAL_SIZE}^2 (S=1540): rows [timestep, pix_acc, miou] {json.dumps(rows)}; sigma "
+          f"[used, the schedule at 1024 image tokens, at 4096] per timestep "
+          f"{json.dumps(sigmas)}; largest difference {sigma_err}, control (the 1024^2 "
+          f"schedule) {sigma_control}, limit {SWEEP_SIGMA_LIMIT}, ok={ok}; seconds per image and "
+          f"timestep {seconds / (n * len(SWEEP_TIMESTEPS))}; K1 launches per image and timestep "
+          f"{pipe.cfg.depth}", flush=True)
+    if not ok:
+        raise AssertionError("per_timestep sweep: the sigma or its control is on the wrong side "
+                             "of its limit")
+    return launches, seconds
+
+
+# The ViT family on the card in f32 (TF32 off) against the same port code on
+# the CPU, relative RMS of the saliency maps: f32 sums in another order (5e-7
+# to 6e-6 on an H100 80GB HBM3 at 700 W). The relevance methods are held in
+# f64 instead: their rules divide by activations and sums near zero, which
+# amplify a relative change of the input about 1e5-fold at ViT-B's depth
+# (f64 on the CPU: 1e-14 in, 1.4e-9 out for the pixel LRP), so their f32
+# maps differ by 1e-3 to 1 between two orders of summation. Their f32
+# readings are printed beside, not held.
+VIT_LIMIT = 2.0**-10
+VIT_F64_LIMIT = 2.0**-20
+VIT_RELEVANCE = ("CheferLRP", "CheferTransformerAttribution", "CheferFullLRP",
+                 "CheferLastLayerLRP")
+VIT_CHEFER = ["CheferLRP", "CheferRollout", "CheferLastLayerAttention", "CheferAttentionGradCAM",
+              "CheferTransformerAttribution", "CheferFullLRP", "CheferLastLayerLRP", "DINO"]
+VIT_CONCEPTS = ["dog", "sky"]
+VIT_HARNESS = ["CheferLRP", "CheferAttentionGradCAM", "DINO", "TextSpan"]
+
+
+def to_cpu(tree):
+    from conceptattention_torch.models.flux.params import tree_map
+
+    return tree_map(lambda x: x.cpu(), tree)
+
+
+def card_seconds(fn):
+    """(result, host seconds) of `fn` from an idle card to its end."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def vit_family_path(dataset, counters):
+    """The ViT family at full width with random weights: the 8 ViT-B/16
+    baselines (224^2, 12 layers of 768, 1000 classes; the zoo's seed 0),
+    `CLIPTextSpanSegmentationModel` over that ViT-B with the stand-in text
+    encoders, and the open_clip ViT-H/14 TextSpan model (1280 wide, 32
+    layers; text 1024 wide, 24 layers, 77 tokens): each one image's map on
+    the card held against the same code on the CPU, the control the CPU map
+    of another method (ViT-B) or of another seed's ViT-H (seed 1). The
+    relevance methods (VIT_RELEVANCE) are held in f64, their f32 maps read
+    beside (card against CPU, and each against its own f64 map). The ViT-H
+    TextSpan map on the CPU scores against the card's concept
+    vectors (80 templates a concept through a 24-layer tower is minutes
+    there); its text tower is held on 4 templates apart. Then the ImageNet
+    harness (`build_model` with --random_weights, `run`) for VIT_HARNESS
+    over `dataset`. No kernel of the port runs on this path: every counter
+    must stay 0."""
+    from conceptattention_torch.evals import model_zoo
+    from conceptattention_torch.evals.baselines import ViTAttentionSegmentationModel, _preprocess
+    from conceptattention_torch.evals.lrp import _attn_gradients
+    from conceptattention_torch.evals.textspan import (
+        PROMPT_TEMPLATES,
+        CLIPTextSpanSegmentationModel,
+        OpenCLIPTextSpanSegmentationModel,
+    )
+    from conceptattention_torch.experiments import imagenet_segmentation as harness
+    from conceptattention_torch.models import clip_vit
+    from conceptattention_torch.models.flux.params import tree_map
+    from conceptattention_torch.models.text.encoders import StubTextEncoders
+    from conceptattention_torch.pipeline.concept_pipeline import _full_f32
+    from conceptattention_torch.utils.eval_state import SegEvalState
+
+    torch.set_num_threads(8)
+    image = dataset[0][0]
+    readings, seconds, maps = {}, {}, {}
+
+    def run():
+        vit_cpu = None
+        for name in VIT_CHEFER:
+            model = model_zoo.build_segmentation_model(name, random_weights=True)
+            model.segment_individual_image(image, VIT_CONCEPTS, "a dog")  # warm
+            (card, _), seconds[name] = card_seconds(
+                lambda: model.segment_individual_image(image, VIT_CONCEPTS, "a dog"))
+            vit_cpu = vit_cpu or to_cpu(model.params)
+            cpu, _ = ViTAttentionSegmentationModel(vit_cpu, model.cfg, model.method) \
+                .segment_individual_image(image, VIT_CONCEPTS, "a dog")
+            maps[name] = (card, cpu)
+            if name in VIT_RELEVANCE:
+                x = _preprocess(image, model.cfg.image_size).double()
+                card64, cpu64 = (ViTAttentionSegmentationModel(
+                    tree_map(lambda t: t.double(), p), model.cfg, model.method).saliency(
+                        x.to(p["cls_token"].device)).cpu().numpy()
+                    for p in (model.params, vit_cpu))
+                readings[f"{name}, f32 (not held)"] = {
+                    "card against cpu": np_rel_rms(card[0], cpu[0]),
+                    "card against card f64": np_rel_rms(card[0], card64[0]),
+                    "cpu against cpu f64": np_rel_rms(cpu[0], cpu64[0])}
+                maps[name] = (card64, cpu64)
+            if name == "CheferAttentionGradCAM":
+                size = model.cfg.image_size
+                x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+                    (1, 3, size, size)).astype(np.float32))
+                idx = torch.tensor([3])
+                with _full_f32():
+                    g_card = _attn_gradients(model.params, model.cfg, x.cuda(), idx.cuda())[-1]
+                g_cpu = _attn_gradients(vit_cpu, model.cfg, x, idx)[-1]
+                readings["GradCAM last-layer dlogit/dA"] = {"rel_rms": np_rel_rms(
+                    g_card.cpu(), g_cpu)}
+        enc = StubTextEncoders(clip_dim=768)
+        card_ts = CLIPTextSpanSegmentationModel(model.params, model.cfg, enc)
+        card_ts.segment_individual_image(image, VIT_CONCEPTS, "a dog")
+        (card, _), seconds["CLIPTextSpan (ViT-B)"] = card_seconds(
+            lambda: card_ts.segment_individual_image(image, VIT_CONCEPTS, "a dog"))
+        cpu, _ = CLIPTextSpanSegmentationModel(vit_cpu, model.cfg, enc).segment_individual_image(
+            image, VIT_CONCEPTS, "a dog")
+        maps["CLIPTextSpan (ViT-B)"] = (card, cpu)
+        del model, card_ts, vit_cpu
+
+        model = model_zoo.build_segmentation_model("TextSpan", random_weights=True)
+        model.segment_individual_image(image, VIT_CONCEPTS, "a dog")  # warm, caches the vectors
+        (card, _), seconds["TextSpan (ViT-H/14)"] = card_seconds(
+            lambda: model.segment_individual_image(image, VIT_CONCEPTS, "a dog"))
+        cpu_model = OpenCLIPTextSpanSegmentationModel(
+            {"visual": to_cpu(model.params["visual"])}, model.vis_cfg, model.txt_cfg)
+        cpu_model._concept_cache = dict(model._concept_cache)
+        cpu, _ = cpu_model.segment_individual_image(image, VIT_CONCEPTS, "a dog")
+        other = clip_vit.init_open_clip_params(torch.Generator(model.device).manual_seed(1),
+                                               model.vis_cfg)
+        cpu_model.params = to_cpu(other)
+        del other
+        control, _ = cpu_model.segment_individual_image(image, VIT_CONCEPTS, "a dog")
+        maps["TextSpan (ViT-H/14)"] = (card, cpu, control)
+        ids = model.tokenize([t.format(VIT_CONCEPTS[0]) for t in PROMPT_TEMPLATES[:4]])
+        ids = torch.as_tensor(ids, dtype=torch.long)
+        with torch.inference_mode(), _full_f32():
+            t_card = clip_vit.text_encode(model.params["text"], model.txt_cfg, ids.cuda()).cpu()
+        t_cpu = clip_vit.text_encode(to_cpu(model.params["text"]), model.txt_cfg, ids)
+        readings["TextSpan (ViT-H/14) text tower, 4 templates"] = {
+            "rel_rms": np_rel_rms(t_card, t_cpu)}
+        del model, cpu_model
+
+    _, total, launches = counted(run, counters)
+    if any(launches):
+        raise AssertionError(f"ViT family: kernel launches {launches}, want none")
+    names = list(maps)
+    for i, name in enumerate(names):
+        card, cpu, *control = maps[name]
+        if not control:  # another method's CPU map (the ViT-B family)
+            others = [n for n in names[i + 1:] + names[:i] if maps[n][1].shape == cpu.shape
+                      and not np.array_equal(maps[n][1], cpu)]
+            control = [maps[others[0]][1]]
+        limit = VIT_F64_LIMIT if name in VIT_RELEVANCE else VIT_LIMIT
+        readings[name] = {"rel_rms": np_rel_rms(card, cpu), "dtype": str(cpu.dtype),
+                          "limit": limit, "control_rel_rms": np_rel_rms(control[0], cpu),
+                          "card_seconds": seconds[name],
+                          "largest_cpu_value": float(np.abs(cpu).max())}
+    ok = all(r["rel_rms"] <= r.get("limit", VIT_LIMIT) for r in readings.values()
+             if "rel_rms" in r) and all(
+        r["control_rel_rms"] > r["limit"] for r in readings.values() if "control_rel_rms" in r)
+    print(f"ViT family, card (TF32 off) against the CPU, one {EVAL_SIZE}^2 image resized to "
+          f"224^2, concepts {VIT_CONCEPTS}, relative RMS (f32; {VIT_RELEVANCE} in f64, their f32 "
+          f"readings beside): {json.dumps(readings)}; ok={ok}; path seconds {total}", flush=True)
+
+    def harness_runs():
+        out = {}
+        for name in VIT_HARNESS:
+            args = harness.parse_args(["--mat_path", "in-memory", "--segmentation_model", name,
+                                       "--random_weights"])
+            harness.check_segmentation_model(args.segmentation_model, args.image_batch)
+            model = harness.build_model(args)
+            st, secs = card_seconds(lambda: harness.run(model, dataset, SegEvalState(),
+                                                        len(dataset)))
+            out[name] = {"seconds_per_image": secs / len(dataset), "final": st.summary()}
+            print(f"ViT family harness --segmentation_model {name} --random_weights over "
+                  f"{len(dataset)} images: FINAL {st.summary()}, seconds per image "
+                  f"{secs / len(dataset)} (model build excluded)", flush=True)
+            del model
+        return out
+
+    runs, _, launches = counted(harness_runs, counters)
+    if any(launches):
+        raise AssertionError(f"ViT family harness: kernel launches {launches}, want none")
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("ViT family: a reading or its control is on the wrong side of its "
+                             "limit")
+    return readings, runs
 
 
 def encoder_conv_shapes(ae_cfg, res: int) -> Counter:
@@ -2272,12 +2618,13 @@ def text_towers():
     return enc
 
 
-def flux_dev_paths(enc, counters):
+def flux_dev_paths(enc, counters, dataset):
     """flux-dev through `TorchTextEncoders`: `generate_image` 1024^2, STEPS
     steps, guidance 3.5, cold and warm; image-to-image at strength 0.5 on
-    its image, cold and warm; the watermark read back from its image; then
-    the NHWC encoder and the NCHW decoder on its VAE. Counters are [K1, K2,
-    K1 hopper, K2 hopper]. Returns {path: (launches, seconds)}."""
+    its image, cold and warm; the watermark read back from its image; the
+    NHWC encoder and the NCHW decoder on its VAE; then the per-timestep
+    sweep over `dataset`. Counters are [K1, K2, K1 hopper, K2 hopper].
+    Returns {path: (launches, seconds)}."""
     from conceptattention_torch import ConceptAttentionFluxPipeline
     from conceptattention_torch.utils.watermark import WATERMARK_BITS, extract_watermark
 
@@ -2321,6 +2668,7 @@ def flux_dev_paths(enc, counters):
     if bits != WATERMARK_BITS:
         raise AssertionError("extract_watermark did not recover the embedded bits")
     paths["encode_nhwc"] = vae_layout_checks(pipe, out.image, counters)
+    paths["per_timestep sweep"] = per_timestep_sweep(pipe, counters, dataset)
     return paths
 
 
@@ -2676,6 +3024,7 @@ def main() -> int:
         "dev single": (STEPS + i2i_steps) * dev_cfg.depth_single_blocks + 2 * CKPT_SINGLE,
         "double b2": cfg.depth, "double b4": cfg.depth})
     flash += eval_flash_phases(cfg)
+    flash += sweep_flash_phases(cfg)
     # K1b: generate_image (batch 1) and generate_images (batch 2) with w8a8
     # + int8_qk, and encode_image with int8_qk.
     int8 = int8_flash_phases(cfg, {
@@ -2745,7 +3094,10 @@ def main() -> int:
           f"cold seconds {enc_seconds[0]:.4f}, warm seconds {enc_seconds[1]:.4f}", flush=True)
     print(f"peak device memory GiB {torch.cuda.max_memory_allocated() / 2**30:.3f}", flush=True)
     new_paths = encode_images_path(pipe, counters)
-    new_paths.update(eval_path(pipe, counters))
+    eval_paths, dataset = eval_path(pipe, counters)
+    new_paths.update(eval_paths)
+    new_paths["per_layer sweep"] = per_layer_sweep(pipe, counters, dataset)
+    vit_family_path(dataset, counters)
     names = ["flash_saliency", "conv3x3", "flash_saliency (Hopper instance)", "conv3x3 (Hopper instance)"]
     print("launches per kernel instance: " + json.dumps({
         "generate_image": dict(zip(names, want_gen)),
@@ -2775,7 +3127,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     enc = text_towers()
-    new_paths.update(flux_dev_paths(enc, counters))
+    new_paths.update(flux_dev_paths(enc, counters, dataset[:SWEEP_TIME_IMAGES]))
     del enc
     gc.collect()
     torch.cuda.empty_cache()

@@ -1,5 +1,8 @@
 """Zero-shot segmentation evals of the port: `metrics`, `datasets`,
-`segmentation` (the Flux tap-point models)."""
+`segmentation` (the Flux tap-point models), the ViT baseline zoo
+(`baselines`, `lrp`, `textspan`) and `model_zoo`, which builds every
+baseline by its harness name. The package exports the metrics, as the JAX
+package's does."""
 
 from conceptattention_torch.evals.metrics import (
     average_precision,

@@ -5,12 +5,16 @@ run_experiment.py`, with its flags, protocol and prints: 512^2 input, 224^2
 labels, token-grid maps upsampled nearest-neighbour, mean-value threshold,
 layers 14..17, noise timestep 2 of 4; pixAcc / mIoU / mAP over the stacked
 {background, foreground} pair, running prints `[i/n] name: ...`, a JSON
-state that resumes an interrupted run, and a `FINAL` line. Only the Flux tap
-models are ported (RawOutputSpace, RawCrossAttention, RawValueSpace,
-DAAMFlux).
+state that resumes an interrupted run, and a `FINAL` line.
+`--segmentation_model` takes every name of `evals/model_zoo.MODEL_CHOICES`
+but DAAMSD2 and DAAMSDXL (not ported); the ViT family (the Chefer methods,
+DINO, TextSpan) loads its checkpoint from an environment variable, or draws
+random weights with `--random_weights`, and runs in f32.
 
     python -m conceptattention_torch.experiments.imagenet_segmentation \\
         --mat_path /data/gtsegs_ijcv.mat --model_name flux-schnell --num_images 100
+    python -m conceptattention_torch.experiments.imagenet_segmentation \\
+        --mat_path /data/gtsegs_ijcv.mat --segmentation_model CheferLRP --random_weights
 
 The dataset (`gtsegs_ijcv.mat`) is not in the repository. `--device` is
 "cuda" unless another is asked for (`--device cpu --dtype float32` on the
@@ -27,7 +31,6 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
-FLUX_MODELS = ("RawOutputSpace", "RawCrossAttention", "RawValueSpace", "DAAMFlux")
 BACKGROUND_CONCEPTS = ["background", "floor", "grass", "tree", "sky"]
 
 
@@ -36,10 +39,11 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     parser.add_argument("--mat_path", required=True)
     parser.add_argument("--model_name", default="flux-schnell")
     parser.add_argument("--segmentation_model", default=None,
-                        help="RawOutputSpace, RawCrossAttention, RawValueSpace or DAAMFlux; "
-                        "default: the flux tap of --tap. The other baselines are not ported.")
+                        help="a name of evals/model_zoo.MODEL_CHOICES; default: the flux "
+                        "tap of --tap")
     parser.add_argument("--random_weights", action="store_true",
-                        help="the non-flux baselines' checkpoint-free run (not ported)")
+                        help="the non-flux baselines with seeded random weights in place of "
+                        "their checkpoints (a smoke run: the metrics are meaningless)")
     parser.add_argument("--tap", default="output", choices=["output", "cross_attention", "value"])
     parser.add_argument("--width", type=int, default=512)
     parser.add_argument("--label_size", type=int, default=224)
@@ -57,23 +61,32 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         "the binary mask keeps its full resolution")
     parser.add_argument("--num_images", type=int, default=None)
     parser.add_argument("--image_batch", type=int, default=1,
-                        help="flux taps only: encode and run this many images in one stopped "
-                        "forward (segment_batch); an image whose concept list has another "
-                        "length starts a new batch")
+                        help="flux taps only (refused for the non-flux baselines): encode and "
+                        "run this many images in one stopped forward (segment_batch); an "
+                        "image whose concept list has another length starts a new batch")
     parser.add_argument("--background_concepts", nargs="+", default=BACKGROUND_CONCEPTS)
     parser.add_argument("--state_path", default=None,
                         help="JSON state of the running metrics; an interrupted run resumes "
                         "from the next image")
     parser.add_argument("--device", default="cuda")
-    parser.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
+    parser.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"],
+                        help="the flux pipeline's dtype; the ViT family runs in f32")
     return parser.parse_args(argv)
 
 
-def check_segmentation_model(name: Optional[str]) -> None:
-    if name is not None and name not in FLUX_MODELS:
-        raise NotImplementedError(
-            f"segmentation model {name!r} is not ported: the port runs the flux taps "
-            f"{FLUX_MODELS}; the baseline zoo is ROADMAP.md Queue 1 item 7")
+def check_segmentation_model(name: Optional[str], image_batch: int = 1) -> None:
+    """Refuse, before any data is read, a name that is unknown or not
+    ported, and --image_batch above 1 for a non-flux baseline."""
+    from conceptattention_torch.evals.model_zoo import FLUX_MODELS, MODEL_CHOICES, check_ported
+
+    if name is None:
+        return
+    if name not in MODEL_CHOICES:
+        raise ValueError(f"unknown segmentation model {name!r}; choose from {MODEL_CHOICES}")
+    check_ported(name)
+    if image_batch > 1 and name not in FLUX_MODELS:
+        raise ValueError(f"--image_batch {image_batch}: segmentation model {name!r} segments "
+                         "one image at a time; batching is the flux taps' segment_batch")
 
 
 def concepts_for(target: str, background_concepts: Sequence[str]) -> List[str]:
@@ -90,11 +103,16 @@ def build_model(args: argparse.Namespace):
     import torch
 
     from conceptattention_torch import ConceptAttentionFluxPipeline
+    from conceptattention_torch.evals import model_zoo
     from conceptattention_torch.evals.segmentation import (
         DAAMFluxSegmentationModel,
         FluxTapSegmentationModel,
     )
 
+    if args.segmentation_model not in (None, *model_zoo.FLUX_MODELS):
+        # a baseline of the zoo: no flux pipeline
+        return model_zoo.build_segmentation_model(
+            args.segmentation_model, random_weights=args.random_weights, device=args.device)
     pipe = ConceptAttentionFluxPipeline(args.model_name, dtype=getattr(torch, args.dtype),
                                         device=args.device)
     common = dict(num_steps=args.num_steps, noise_timestep=args.noise_timestep,
@@ -212,7 +230,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     from conceptattention_torch.utils.eval_state import SegEvalState
 
     args = parse_args(argv)
-    check_segmentation_model(args.segmentation_model)
+    check_segmentation_model(args.segmentation_model, args.image_batch)
     if not ImagenetSegmentation.available(args.mat_path):
         print(f"dataset not found at {args.mat_path}", file=sys.stderr)
         return 2

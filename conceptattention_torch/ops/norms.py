@@ -24,8 +24,8 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.T
 
 
 def layer_norm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """Affine-free layer norm with f32 accumulation."""
-    xf = x.float()
+    """Affine-free layer norm with f32 accumulation (f64 for f64 inputs)."""
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
     mean = xf.mean(dim=-1, keepdim=True)
     var = (xf - mean).pow(2).mean(dim=-1, keepdim=True)
     return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)

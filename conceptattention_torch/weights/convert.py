@@ -1,10 +1,12 @@
 """Safetensors checkpoints -> the port's parameter trees.
 
-Counterpart of the JAX package's `weights/convert.py` (its flux, VAE and
-CogVideoX converters; the ViT and SD-UNet converters are not ported). Key
-names are the official ones: the Flux DiT's (`double_blocks.0.img_attn.qkv.
-weight`, `single_blocks.5.linear1.bias`, ...), its VAE's (`encoder.down.0.
-block.1.norm1.weight`, ...) and diffusers' CogVideoX transformer and VAE.
+Counterpart of the JAX package's `weights/convert.py` (its flux, VAE,
+CogVideoX and ViT converters; the SD-UNet converter is not ported; the
+open_clip ones live in `models/clip_vit.py`). Key names are the official
+ones: the Flux DiT's (`double_blocks.0.img_attn.qkv.weight`,
+`single_blocks.5.linear1.bias`, ...), its VAE's (`encoder.down.0.block.1.
+norm1.weight`, ...), diffusers' CogVideoX transformer and VAE, and the timm /
+Chefer / DINO ViT's (`blocks.3.attn.qkv.weight`, ...).
 
 The trees are the JAX package's, leaf for leaf: linear weights transposed
 to [in, out], the fused qkv weight as [D, 3, H, Dh], single-block `linear1`
@@ -339,4 +341,40 @@ def convert_cogvideox_vae_state_dict(
             "norm_out": sn("decoder.norm_out"),
             "conv_out": conv("decoder.conv_out"),
         },
+    }
+
+
+def convert_vit_state_dict(
+    sd: Mapping[str, Any], cfg, dtype: torch.dtype = torch.float32,
+    device: Optional[DeviceLike] = None,
+) -> Dict[str, Any]:
+    """timm / Chefer / DINO ViT state dict -> the port's tree
+    (`models/vit.py`): `patch_embed.proj` (the patch conv) as a [C*p*p, D]
+    matmul weight in (c, py, px) order, `cls_token`, `pos_embed`,
+    `blocks.{i}.{norm1, norm2}`, `.attn.{qkv, proj}`, `.mlp.{fc1, fc2}`
+    stacked by depth, `norm`, `head`."""
+    s = StateDict(sd, dtype, device)
+
+    def ln(key):
+        return {"scale": s(f"{key}.weight"), "bias": s(f"{key}.bias")}
+
+    def block(i):
+        base = f"blocks.{i}"
+        return {
+            "norm1": ln(f"{base}.norm1"),
+            "attn": {"qkv": s.linear(f"{base}.attn.qkv"), "proj": s.linear(f"{base}.attn.proj")},
+            "norm2": ln(f"{base}.norm2"),
+            "mlp_in": s.linear(f"{base}.mlp.fc1"),
+            "mlp_out": s.linear(f"{base}.mlp.fc2"),
+        }
+
+    conv_w = s("patch_embed.proj.weight")
+    return {
+        "patch_embed": {"w": conv_w.reshape(conv_w.shape[0], -1).t().contiguous(),
+                        "b": s("patch_embed.proj.bias")},
+        "cls_token": s("cls_token"),
+        "pos_embed": s("pos_embed"),
+        "blocks": stack_layers(block, cfg.depth),
+        "norm": ln("norm"),
+        "head": s.linear("head"),
     }

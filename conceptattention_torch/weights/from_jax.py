@@ -36,7 +36,10 @@ def params_from_numpy(tree, device="cpu", dtype: Optional[torch.dtype] = None):
     return tree_map(lambda a: _to_tensor(a, device, dtype), tree)
 
 
-# The DiT's and the VAE's trees convert the same way (the video trees, with
-# blocks stacked by depth as in JAX, go through `params_from_numpy` too).
+# The DiT's and the VAE's trees convert the same way; so do the video trees,
+# the ViT's (`models/vit.py`) and open_clip's ({"visual", "text"},
+# `models/clip_vit.py`), whose blocks JAX stacks by depth as the port does.
 flux_params_from_numpy = params_from_numpy
 ae_params_from_numpy = params_from_numpy
+vit_params_from_numpy = params_from_numpy
+open_clip_params_from_numpy = params_from_numpy

@@ -87,9 +87,9 @@ def test_imagenet_harness_runs_and_resumes(tmp_path, capsys):
 def test_imagenet_harness_gates(tmp_path, capsys):
     assert t_imagenet.main(["--mat_path", str(tmp_path / "absent.mat"), *CPU]) == 2
     assert "dataset not found" in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7b"):
         t_imagenet.main(["--mat_path", str(tmp_path / "absent.mat"),
-                         "--segmentation_model", "CheferLRP"])
+                         "--segmentation_model", "DAAMSD2"])
 
 
 def test_image_groups_split_on_concept_count():

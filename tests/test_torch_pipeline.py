@@ -259,8 +259,8 @@ def test_image_helpers_bit_identical():
 def test_import_leaves_out_jax():
     """The port's modules (and the smoke script) import no JAX, nothing of
     the JAX package, neither `safetensors` nor `transformers`, and the eval
-    path's modules neither `h5py` nor PIL (the loaders import them when they
-    read files)."""
+    path's modules neither `h5py`, PIL nor matplotlib (the loaders import
+    them when they read files, the sweep plots when they draw)."""
     modules = ("conceptattention_torch, conceptattention_torch.pipeline.concept_pipeline, "
                "conceptattention_torch.weights.convert, conceptattention_torch.models.text.t5, "
                "conceptattention_torch.models.text.clip, conceptattention_torch.models.text.encoders, "
@@ -273,10 +273,19 @@ def test_import_leaves_out_jax():
                "conceptattention_torch.experiments.imagenet_segmentation, "
                "conceptattention_torch.experiments.voc_single_class, "
                "conceptattention_torch.experiments.voc_multi_class, "
+               "conceptattention_torch.models.vit, conceptattention_torch.models.clip_vit, "
+               "conceptattention_torch.evals.lrp, conceptattention_torch.evals.baselines, "
+               "conceptattention_torch.evals.textspan, conceptattention_torch.evals.model_zoo, "
+               "conceptattention_torch.utils.sweep_plots, "
+               "conceptattention_torch.experiments.per_layer_segmentation, "
+               "conceptattention_torch.experiments.per_timestep_segmentation, "
+               "conceptattention_torch.experiments.plot_segmentations_per_layer, "
+               "conceptattention_torch.experiments.plot_segmentations_per_time, "
                "chip_smoke")
     code = (f"import sys, {modules}; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
-            "'conceptattention_tpu', 'safetensors', 'transformers', 'h5py', 'PIL')]; "
+            "'conceptattention_tpu', 'safetensors', 'transformers', 'h5py', 'PIL', "
+            "'matplotlib')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           timeout=120, cwd=ROOT)
