@@ -10,7 +10,8 @@ Run from the root of a checkout: `python3 chip_smoke.py`. In order it
    encode's (B=2, 4), the NHWC encoder's convs, the eval path's double
    block (512x512: S=1286 at B=1 and 4 in the four cross / self modes, and
    7 and 8 concepts) and the sweeps' (512x512 with 4 concepts: S=1284 with
-   flux-schnell's 256 txt rows, S=1540 with flux-dev's 512) included
+   flux-schnell's 256 txt rows, S=1540 with flux-dev's 512) and the
+   qualitative comparison's (512x512 with 3 concepts, S=1283) included
    (attention per
    row segment, each against its own scale;
    K1b, the int8-score attention, also against K1 and its pre-pass against
@@ -54,7 +55,16 @@ Run from the root of a checkout: `python3 chip_smoke.py`. In order it
    rows against one-layer models' scores); the ViT family at full width
    with random weights (the 8 ViT-B/16 baselines, TextSpan over ViT-B and
    over open_clip ViT-H/14: the card's f32 maps against the CPU's) and the
-   ImageNet harness with four of them;
+   ImageNet harness with four of them; the SD2-base and SDXL-base UNets at
+   full width (random weights, f32) at latent 32 and 64, eps and every
+   cross-attention map against the CPU's run, with planted controls, and
+   DAAMSD2 / DAAMSDXL through the ImageNet harness functions; the
+   perturbation test (ViT-B/16, 7 Chefer methods, positive and negative, 9
+   steps: the experiment's `run` timed per method, and the card's accuracies
+   against the CPU's with the relevance methods in f64, a tie-order control
+   beside); and `compare_methods.main` over all 15 segmentation methods on
+   one 512x512 image with 3 concepts (its 4 flux methods on the flux-schnell
+   pipeline, K1 counted);
    then, with every earlier pipeline released, the T5-XXL and CLIP-L text
    towers from random HF state dicts through the port's converters (bf16
    against f32 at 2 layers, timed), flux-dev `generate_image` (1024x1024,
@@ -2332,6 +2342,354 @@ def vit_family_path(dataset, counters):
     return readings, runs
 
 
+# The SD UNets: SD2-base and SDXL-base at the zoo's latent 32 and at
+# latent 64 (the reference's 512^2), f32, TF32 off, random weights from seed
+# 0; the card's eps and every cross-attention map against the CPU's f32 run,
+# relative RMS (the largest over the maps). The controls run the CPU's
+# forward with one planted fault at latent 32: one cross-attention's softmax
+# scale off (the first mid-block attn2's q weight doubled, so its logits
+# are), and one up-block resnet's time embedding dropped (its time_emb
+# projection zeroed). On an H100 80GB HBM3 at 700 W the card read 6.3e-6 to
+# 1.9e-5 from the CPU, the controls 0.0084 (SD2's dropped time embedding) to
+# 1.35: the limit sits between.
+UNET_LATENTS = (32, 64)
+UNET_LIMIT = 2.0**-10
+UNET_CTX_TOKENS = 77
+UNET_TIMESTEP = 981.0
+UNET_PARAMS = {"SD2-base": 865_910_724, "SDXL-base": 2_567_463_684}
+DAAM_MODELS = ("DAAMSD2", "DAAMSDXL")
+
+
+def with_leaf(tree, path, fn):
+    """A copy of `tree` sharing every leaf but the one at `path`, which is
+    fn(leaf)."""
+    if not path:
+        return fn(tree)
+    head, *rest = path
+    out = dict(tree) if isinstance(tree, dict) else list(tree)
+    out[head] = with_leaf(tree[head], rest, fn)
+    return out
+
+
+def unet_inputs(cfg, latent: int, device):
+    """Seeded inputs at `latent`: (latents, timesteps, context, added
+    conditions: SDXL's pooled text and time ids for an 8 * latent image)."""
+    rng = np.random.default_rng(latent)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(device)
+
+    args = (t(rng.standard_normal((1, cfg.in_channels, latent, latent))), t([UNET_TIMESTEP]),
+            t(rng.standard_normal((1, UNET_CTX_TOKENS, cfg.context_dim))))
+    added = {}
+    if cfg.addition_embed_type == "text_time":
+        side = 8 * latent
+        added = {"text_embeds": t(rng.standard_normal((1, cfg.pooled_text_dim))),
+                 "time_ids": t([[side, side, 0, 0, side, side]])}
+    return args, added
+
+
+def unet_run(params, cfg, latent, device):
+    from conceptattention_torch.models.sd_unet import unet_forward
+    from conceptattention_torch.pipeline.concept_pipeline import _full_f32
+
+    args, added = unet_inputs(cfg, latent, device)
+    with torch.inference_mode(), _full_f32():
+        eps, maps = unet_forward(params, cfg, *args, **added)
+    return eps.cpu().numpy(), [m.cpu().numpy() for m in maps]
+
+
+def unet_readings(got, want):
+    (eps, maps), (eps_ref, maps_ref) = got, want
+    if len(maps) != len(maps_ref) or any(a.shape != b.shape for a, b in zip(maps, maps_ref)):
+        raise AssertionError("UNet maps differ in number or shape")
+    return {"eps": np_rel_rms(eps, eps_ref),
+            "maps": max(np_rel_rms(a, b) for a, b in zip(maps, maps_ref))}
+
+
+def sd_unet_path(dataset, counters):
+    """The SD2-base and SDXL-base UNets at full width on the card against
+    the CPU, with their controls, the forward's seconds and device peak at
+    each latent; then DAAMSD2 and DAAMSDXL through the ImageNet harness
+    functions over `dataset`. No kernel of the port runs here."""
+    from conceptattention_torch.experiments import imagenet_segmentation as harness
+    from conceptattention_torch.models.flux.params import tree_leaves
+    from conceptattention_torch.models.sd_unet import SDXL_BASE_CONFIG, UNetConfig, init_unet_params
+    from conceptattention_torch.utils.eval_state import SegEvalState
+
+    torch.set_num_threads(8)
+    readings, ok = {}, True
+
+    def run():
+        nonlocal ok
+        for name, cfg in (("SD2-base", UNetConfig()), ("SDXL-base", SDXL_BASE_CONFIG)):
+            gc.collect()
+            torch.cuda.empty_cache()
+            params, build = card_seconds(
+                lambda: init_unet_params(torch.Generator("cuda").manual_seed(0), cfg))
+            n = sum(x.numel() for x in tree_leaves(params))
+            if n != UNET_PARAMS[name]:
+                raise AssertionError(f"{name}: {n} parameters, want {UNET_PARAMS[name]}")
+            cpu = to_cpu(params)
+            r = {"parameters": n, "build_seconds": build,
+                 "parameters_gib": 4 * n / 2**30}
+            for latent in UNET_LATENTS:
+                unet_run(params, cfg, latent, "cuda")  # warm
+                torch.cuda.reset_peak_memory_stats()
+                before = torch.cuda.memory_allocated()
+                card, secs = card_seconds(lambda: unet_run(params, cfg, latent, "cuda"))
+                peak = (torch.cuda.max_memory_allocated() - before) / 2**30
+                ref, cpu_secs = card_seconds(lambda: unet_run(cpu, cfg, latent, "cpu"))
+                if not all(np.isfinite(a).all() for a in [card[0], *card[1]]):
+                    raise AssertionError(f"{name} latent {latent}: non-finite output")
+                held = unet_readings(card, ref)
+                r[f"latent {latent}"] = {**held, "maps_count": len(card[1]),
+                                         "forward_seconds": secs,
+                                         "forward_peak_above_params_gib": peak,
+                                         "cpu_seconds": cpu_secs}
+                ok = ok and max(held.values()) <= UNET_LIMIT
+            mid_q = ["mid", "attn", "blocks", 0, "attn2", "q", "w"]
+            up_temb = ["up", 0, "resnets", 0, "time_emb"]
+            latent = UNET_LATENTS[0]
+            controls = {
+                "cross-attention softmax scale off": with_leaf(cpu, mid_q, lambda w: 2 * w),
+                "time embedding dropped in one resnet": with_leaf(
+                    cpu, up_temb, lambda p: {k: torch.zeros_like(v) for k, v in p.items()}),
+            }
+            card = unet_run(params, cfg, latent, "cuda")
+            for label, faulty in controls.items():
+                held = unet_readings(unet_run(faulty, cfg, latent, "cpu"), card)
+                key = "maps" if "softmax" in label else "eps"
+                r[f"control: {label}"] = {key: held[key]}
+                ok = ok and held[key] > UNET_LIMIT
+            readings[name] = r
+            del params, cpu, controls, card
+
+    _, total, launches = counted(run, counters)
+    if any(launches):
+        raise AssertionError(f"SD UNets: kernel launches {launches}, want none")
+    print(f"SD UNets, card (f32, TF32 off) against the CPU's f32 run, relative RMS (maps: the "
+          f"largest over the cross-attention maps), limit {UNET_LIMIT}, controls at latent "
+          f"{UNET_LATENTS[0]}, timestep {UNET_TIMESTEP}, {UNET_CTX_TOKENS} context tokens: "
+          f"{json.dumps(readings)}; ok={ok}; path seconds {total}", flush=True)
+    if not ok:
+        raise AssertionError("SD UNets: a reading or its control is on the wrong side of its "
+                             "limit")
+
+    def harness_runs():
+        out = {}
+        for name in DAAM_MODELS:
+            args = harness.parse_args(["--mat_path", "in-memory", "--segmentation_model", name,
+                                       "--random_weights"])
+            harness.check_segmentation_model(args.segmentation_model, args.image_batch)
+            model, build = card_seconds(lambda: harness.build_model(args))
+            st, secs = card_seconds(lambda: harness.run(model, dataset, SegEvalState(),
+                                                        len(dataset)))
+            final = st.summary()
+            out[name] = {"seconds_per_image": secs / len(dataset), "final": final,
+                         "build_seconds": build}
+            print(f"DAAM harness --segmentation_model {name} --random_weights over "
+                  f"{len(dataset)} images: FINAL {final}, seconds per image "
+                  f"{secs / len(dataset)} (model build {build} s excluded)", flush=True)
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+        return out
+
+    runs, _, launches = counted(harness_runs, counters)
+    if any(launches):
+        raise AssertionError(f"DAAM harness: kernel launches {launches}, want none")
+    return readings, runs
+
+
+# The perturbation test: ViT-B/16 at 224^2 (1000 classes, the zoo's
+# seed 0), the harness's 8 images as one batch, labels the unmasked
+# predictions, the 7 Chefer methods, positive and negative, 9 steps. The
+# card's accuracies must equal the CPU's; the relevance methods' relevance is
+# taken in f64 on both (their f32 maps are dominated by amplified
+# rounding), the classification in f32. The mean drops of the target's
+# probability are held too, absolute: 1.4e-8 apart on an H100 80GB HBM3 at
+# 700 W, where random weights leave most accuracies at 0 after the first
+# step. The control ranks ties the other way (ascending pixel index first)
+# on the card: its accuracies must differ, and its drops break the limit.
+PERT_F64 = ("transformer_attribution", "last_layer_lrp", "lrp", "full_lrp")
+PERT_DROP_LIMIT = 2.0**-17
+
+
+def perturbation_sweep(params, params64, cfg, x, labels):
+    """{(method, negative): PerturbationResult} of the 7 methods on one
+    batch, relevance in f64 for PERT_F64, classification in f32."""
+    from conceptattention_torch.evals import perturbation as pert
+    from conceptattention_torch.experiments.perturbation import IMAGENET_MEAN, IMAGENET_STD
+    from conceptattention_torch.models.vit import vit_forward
+    from conceptattention_torch.pipeline.concept_pipeline import _full_f32
+
+    @_full_f32()
+    def classify(a):
+        return vit_forward(params, cfg, a)[0]
+
+    fill = torch.from_numpy(-IMAGENET_MEAN / IMAGENET_STD).to(x.device)
+    out = {}
+    for method in pert.CHEFER_METHODS:
+        f64 = method in PERT_F64
+        rel = pert.compute_vit_relevance(params64 if f64 else params, cfg,
+                                         x.double() if f64 else x, method, index=labels)
+        if rel.shape[-1] != x.shape[-1]:
+            rel = pert.upsample_token_relevance(rel, x.shape[-1])
+        for negative in (False, True):
+            out[(method, negative)] = pert.run_perturbation_eval(
+                classify, x, labels, rel, negative=negative, fill=fill)
+    return out
+
+
+def other_tie_ranks(relevance):
+    """Descending ranks with ties in ascending pixel order (the control)."""
+    order = torch.argsort(-relevance, dim=-1, stable=True)
+    return torch.argsort(order, dim=-1)
+
+
+def perturbation_path(dataset, counters):
+    """The perturbation test on the card: the experiment's `run` (f32, the
+    user's path) one method at a time, timed; then the sweep with f64
+    relevance on the card and on the CPU, the accuracies held equal, and
+    the control. No kernel of the port runs here."""
+    from conceptattention_torch.evals import perturbation as pert
+    from conceptattention_torch.evals.baselines import _preprocess
+    from conceptattention_torch.experiments import perturbation as experiment
+    from conceptattention_torch.models.flux.params import tree_map
+    from conceptattention_torch.models.vit import ViTConfig, init_vit_params, vit_forward
+    from conceptattention_torch.pipeline.concept_pipeline import _full_f32
+
+    torch.set_num_threads(8)
+    cfg = ViTConfig()
+    result = {}
+
+    def run():
+        params = init_vit_params(torch.Generator("cuda").manual_seed(0), cfg)
+        x = torch.cat([_preprocess(img, cfg.image_size, "cuda") for img, _, _ in dataset])
+        with torch.no_grad(), _full_f32():
+            labels = vit_forward(params, cfg, x)[0].argmax(dim=-1)
+        seconds, aucs = {}, {}
+        for method in pert.CHEFER_METHODS:
+            experiment.run(params, cfg, [(x, labels)], [method])  # warm
+            rows, seconds[method] = card_seconds(
+                lambda: experiment.run(params, cfg, [(x, labels)], [method]))
+            aucs[method] = {row[1]: row[2] for row in rows}
+        result["card f32 experiment run: seconds per method"] = seconds
+        result["card f32 experiment run: AUC"] = aucs
+
+        double = tree_map(lambda t: t.double(), params)
+        card, card_secs = card_seconds(lambda: perturbation_sweep(params, double, cfg, x, labels))
+        cpu_params = to_cpu(params)
+        cpu, cpu_secs = card_seconds(lambda: perturbation_sweep(
+            cpu_params, tree_map(lambda t: t.double(), cpu_params), cfg, x.cpu(), labels.cpu()))
+        ranks = pert._pixel_ranks
+        pert._pixel_ranks = other_tie_ranks
+        try:
+            control = perturbation_sweep(params, double, cfg, x, labels)
+        finally:
+            pert._pixel_ranks = ranks
+        result["held"] = {
+            "accuracies equal": all(np.array_equal(card[k].accuracy, cpu[k].accuracy)
+                                    for k in cpu),
+            "largest AUC difference": max(abs(card[k].auc - cpu[k].auc) for k in cpu),
+            "largest drop difference": max(float(np.abs(card[k].target_prob_drop
+                                                         - cpu[k].target_prob_drop).max())
+                                            for k in cpu),
+            "drop limit": PERT_DROP_LIMIT,
+            "control: accuracies that differ (ties the other way)": int(sum(
+                (control[k].accuracy != cpu[k].accuracy).sum() for k in cpu)),
+            "control: largest drop difference": max(float(np.abs(
+                control[k].target_prob_drop - cpu[k].target_prob_drop).max()) for k in cpu),
+            "card seconds": card_secs, "cpu seconds": cpu_secs,
+            "cpu AUC": {f"{m} {'negative' if neg else 'positive'}": cpu[(m, neg)].auc
+                        for m, neg in cpu}}
+        del params, double, cpu_params
+
+    _, total, launches = counted(run, counters)
+    if any(launches):
+        raise AssertionError(f"perturbation: kernel launches {launches}, want none")
+    held = result["held"]
+    ok = (held["accuracies equal"] and held["largest drop difference"] <= PERT_DROP_LIMIT
+          < held["control: largest drop difference"]
+          and held["control: accuracies that differ (ties the other way)"] > 0)
+    print(f"perturbation, ViT-B/16 224^2, {len(dataset)} images, 7 methods x positive / "
+          f"negative x 9 steps: {json.dumps(result)}; ok={ok}; path seconds {total}", flush=True)
+    if not ok:
+        raise AssertionError("perturbation: the card's accuracies or drops differ from the "
+                             "CPU's, or the control does not change them")
+    return result
+
+
+# The qualitative comparison: `compare_methods.main` over all 15
+# methods on one 512^2 image with 3 concepts; its caption is the concepts'
+# words, so DAAMFlux also runs 3 concepts: every flux method is one stopped
+# flux-schnell forward at S = 256 txt + 1024 img + 3 = 1283.
+COMPARE_CONCEPTS = ["dog", "grass", "sky"]
+COMPARE_CAPTION = "dog, grass, sky"
+COMPARE_FLUX_METHODS = 4
+
+
+def compare_flash_phases(cfg):
+    """K1 at the qualitative comparison's double block: 512^2, 3 concepts,
+    256 txt rows (S=1283), B=1."""
+    from conceptattention_torch.kernels import flash_saliency as fs
+
+    gen = torch.Generator("cuda").manual_seed(8)
+    args, qr, kr = joint_rows_inputs(cfg, gen, 1, 256, size=EVAL_SIZE, c=len(COMPARE_CONCEPTS))
+    q, k, v, t, p, c, cross, self_attention, cos, sin = args
+    s = t + p + c
+    mask = fs.segment_mask(s, t, p, c, cross, self_attention, "cuda")
+    flipped = (*args[:7], not self_attention, cos, sin)
+    h, d = cfg.num_heads, cfg.head_dim
+    return [phase_result(
+        f"flash_saliency qualitative comparison double_block B=1 S={s} C={c}",
+        lambda a=args: fs.fused_concept_flash_attention(*a),
+        lambda a=args: fs.fused_concept_flash_attention_plain(*a),
+        lambda: F.scaled_dot_product_attention(qr, kr, v, attn_mask=mask),
+        4 * d * mask.sum().item() * h, 4 * h * s * d * 2 + 2 * s * d * 4,
+        COMPARE_FLUX_METHODS * cfg.depth,
+        {"joint rows": slice(0, t + p), "concept rows": slice(t + p, s)},
+        [("self_attention flipped", "concept rows",
+          lambda _, a=flipped: fs.fused_concept_flash_attention_plain(*a)),
+         ("one img key tile dropped", "joint rows",
+          lambda want, a=args: drop_key_tile(want, a, t + 64 * 8))],
+    )]
+
+
+def qualitative_path(pipe, counters, dataset):
+    """`compare_methods.main` over every name of MODEL_CHOICES on one of the
+    harness's images (written to build/ as a PNG) with the flux-schnell
+    pipeline; K1 must run 19 times a flux method. Returns (launches [K1, K2,
+    K1 hopper, K2 hopper], seconds)."""
+    import os
+
+    import PIL.Image
+
+    from conceptattention_torch.experiments import compare_methods
+
+    os.makedirs("build", exist_ok=True)
+    image_path, figure = "build/smoke_compare_input.png", "build/smoke_compare_methods.png"
+    PIL.Image.fromarray(dataset[0][0]).save(image_path)
+    argv = ["--image", image_path, "--caption", COMPARE_CAPTION, "--concepts",
+            *COMPARE_CONCEPTS, "--methods", "all", "--random_weights", "--width", str(EVAL_SIZE),
+            "--output", figure]
+    _, seconds, launches = counted(lambda: compare_methods.main(argv, pipeline=pipe), counters)
+    want = COMPARE_FLUX_METHODS * pipe.cfg.depth
+    if launches != [want, 0, want, 0]:
+        raise AssertionError(f"qualitative comparison: launches {launches}, want K1 {want}")
+    with PIL.Image.open(figure) as fig:
+        size = fig.size
+    if size[0] < 16 * 64:
+        raise AssertionError(f"qualitative comparison: figure {figure} of size {size}")
+    print(f"qualitative comparison (compare_methods.main, 15 methods, {EVAL_SIZE}^2, concepts "
+          f"{COMPARE_CONCEPTS}): figure {figure} {size}, K1 launches {launches[0]} "
+          f"({pipe.cfg.depth} a flux method), seconds {seconds}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, seconds
+
+
 def encoder_conv_shapes(ae_cfg, res: int) -> Counter:
     """(H, Cin, Cout) of every 3x3 conv of the NHWC encoder at `res` that the
     conv3x3 gate routes to the kernel, with its count per encode (the
@@ -3025,6 +3383,7 @@ def main() -> int:
         "double b2": cfg.depth, "double b4": cfg.depth})
     flash += eval_flash_phases(cfg)
     flash += sweep_flash_phases(cfg)
+    flash += compare_flash_phases(cfg)
     # K1b: generate_image (batch 1) and generate_images (batch 2) with w8a8
     # + int8_qk, and encode_image with int8_qk.
     int8 = int8_flash_phases(cfg, {
@@ -3098,6 +3457,9 @@ def main() -> int:
     new_paths.update(eval_paths)
     new_paths["per_layer sweep"] = per_layer_sweep(pipe, counters, dataset)
     vit_family_path(dataset, counters)
+    sd_unet_path(dataset, counters)
+    perturbation_path(dataset, counters)
+    new_paths["qualitative comparison"] = qualitative_path(pipe, counters, dataset)
     names = ["flash_saliency", "conv3x3", "flash_saliency (Hopper instance)", "conv3x3 (Hopper instance)"]
     print("launches per kernel instance: " + json.dumps({
         "generate_image": dict(zip(names, want_gen)),

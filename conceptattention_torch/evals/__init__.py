@@ -1,8 +1,9 @@
-"""Zero-shot segmentation evals of the port: `metrics`, `datasets`,
-`segmentation` (the Flux tap-point models), the ViT baseline zoo
-(`baselines`, `lrp`, `textspan`) and `model_zoo`, which builds every
-baseline by its harness name. The package exports the metrics, as the JAX
-package's does."""
+"""The evals of the port: `metrics`, `datasets`, `segmentation` (the Flux
+tap-point models and DAAM over Flux and the SD UNets), the ViT baseline zoo
+(`baselines`, `lrp`, `textspan`), `model_zoo`, which builds every baseline
+by its harness name, and the perturbation test (`perturbation`, over
+`imagenet_data` and `imagenet_classes`). The package exports the metrics,
+as the JAX package's does."""
 
 from conceptattention_torch.evals.metrics import (
     average_precision,

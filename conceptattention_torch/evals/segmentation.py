@@ -8,8 +8,9 @@ VAE, forward-noise it to a schedule step, run one DiT forward that stops
 after the double blocks, and average the per-layer concept-by-patch maps of
 one saliency tap ("output": the ConceptAttention method; "cross_attention":
 the raw q space; "value": the raw value space) over noise samples and
-layers. The DAAM baselines over Stable Diffusion UNets need the UNet, which
-is not ported.
+layers. The DAAM baselines read cross-attention probabilities instead:
+DAAMFlux those of the Flux double blocks, DAAM-SD and DAAM-SDXL those of one
+Stable Diffusion UNet forward (`models/sd_unet.py`).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from conceptattention_torch import native
 from conceptattention_torch.ops.schedule import get_schedule
@@ -289,6 +291,16 @@ def match_concept_word_indices(concept: str, words: Sequence[str]) -> List[int]:
     return sorted(idx)
 
 
+def word_maps_to_concepts(word_maps, concepts: Sequence[str], words: Sequence[str]) -> np.ndarray:
+    """[W, h, w] per-word maps -> [C, h, w]: a concept's map is the max over
+    the words it matches, else the mean over all words (DAAM's rule)."""
+    maps = []
+    for concept in concepts:
+        hits = [word_maps[i] for i in match_concept_word_indices(concept, words)]
+        maps.append(np.maximum.reduce(hits) if hits else np.mean(word_maps, axis=0))
+    return np.stack(maps)
+
+
 class DAAMFluxSegmentationModel(FluxTapSegmentationModel):
     """DAAM-style baseline: the caption's words are the concept set, their
     cross-attention maps (softmax over the words by default) the saliency;
@@ -302,11 +314,123 @@ class DAAMFluxSegmentationModel(FluxTapSegmentationModel):
     def segment_individual_image(self, image, concepts, caption, **kwargs):
         words = [w for w in caption.replace(",", " ").split() if w]
         coeff_words, recon = super().segment_individual_image(image, words, caption, **kwargs)
-        maps = []
-        for concept in concepts:
-            hits = [coeff_words[i] for i in match_concept_word_indices(concept, words)]
-            maps.append(np.maximum.reduce(hits) if hits else np.mean(coeff_words, axis=0))
-        return np.stack(maps), recon
+        return word_maps_to_concepts(coeff_words, concepts, words), recon
+
+
+class DAAMStableDiffusionSegmentationModel(SegmentationModel):
+    """DAAM over a Stable Diffusion UNet: encode the image, forward-noise it
+    to a late DDIM timestep, run one UNet forward, and aggregate each
+    caption word's cross-attention maps (mean over heads, each level
+    upsampled nearest to the finest grid, mean over maps); a concept's map
+    is the max over the words it matches, else the mean over all words.
+    The UNet runs in its parameters' dtype on their device, TF32 off."""
+
+    def __init__(
+        self,
+        unet_params,
+        unet_cfg,
+        text_encoders,
+        vae_params=None,
+        ae_cfg=None,
+        latent_size: int = 32,
+        timestep_idx: int = 49,  # timesteps[49] of 50: the last, least noisy step
+        num_inference_steps: int = 50,
+        seed: int = 0,
+    ):
+        self.params = unet_params
+        self.cfg = unet_cfg
+        self.text_encoders = text_encoders
+        self.vae_params = vae_params
+        self.ae_cfg = ae_cfg
+        self.latent_size = latent_size
+        self.timestep_idx = timestep_idx
+        self.num_inference_steps = num_inference_steps
+        self.seed = seed
+        self.device = unet_params["conv_in"]["w"].device
+
+    def _encode_latents(self, image) -> torch.Tensor:
+        """Image -> latents [1, 4, latent, latent]: the VAE's posterior mean
+        of the image in [-1, 1], or without VAE weights the RGB channels and
+        their mean in [-1, 1] (the random-weight smoke configs)."""
+        from conceptattention_torch.evals.baselines import resize_bilinear
+        from conceptattention_torch.utils.images import as_float01_chw
+
+        x = torch.from_numpy(as_float01_chw(image))[None].to(self.device)
+        if self.vae_params is not None:
+            from conceptattention_torch.models.flux.autoencoder import encode
+
+            f = 2 ** (len(self.ae_cfg.ch_mult) - 1)
+            return encode(self.vae_params, self.ae_cfg,
+                          resize_bilinear(x, self.latent_size * f) * 2 - 1)
+        x = resize_bilinear(x, self.latent_size)
+        return torch.cat([x, x.mean(dim=1, keepdim=True)], dim=1) * 2 - 1
+
+    def _noise(self, z: torch.Tensor) -> torch.Tensor:
+        """The forward-noising draw, from a generator seeded with `seed`."""
+        gen = torch.Generator(z.device).manual_seed(self.seed)
+        return torch.randn(z.shape, generator=gen, device=z.device, dtype=z.dtype)
+
+    def _context(self, words: List[str]) -> torch.Tensor:
+        """[1, T, context_dim]: each word's first T5 embedding row, cut or
+        zero-padded to the UNet's context width."""
+        ctx = torch.stack([self.text_encoders.encode_t5([w])[0, 0] for w in words])[None]
+        ctx = ctx[..., : self.cfg.context_dim].float()
+        return F.pad(ctx, (0, self.cfg.context_dim - ctx.shape[-1])).to(self.device)
+
+    @torch.inference_mode()
+    @_full_f32()
+    def segment_individual_image(self, image, concepts: List[str], caption: str, **kw):
+        from conceptattention_torch.sampling.ddim import add_noise, make_ddim_schedule
+
+        words = [w for w in caption.replace(",", " ").split() if w] or list(concepts)
+        ctx = self._context(words)
+        z = self._encode_latents(image)
+        sched = make_ddim_schedule(self.num_inference_steps)
+        if not 0 <= self.timestep_idx < self.num_inference_steps:
+            raise ValueError(f"timestep_idx {self.timestep_idx} out of range for "
+                             f"{self.num_inference_steps} inference steps")
+        t = int(sched.timesteps[self.timestep_idx])
+        z_t = add_noise(sched, z, self._noise(z), t)
+        _, maps = self._unet_call(z_t.float(), torch.tensor([t], dtype=torch.float32,
+                                                           device=self.device), ctx, caption)
+        side = round(max(m.shape[2] for m in maps) ** 0.5)
+        per_word = torch.zeros((len(words), side, side), dtype=torch.float32, device=self.device)
+        for m in maps:
+            mm = m.mean(dim=1)[0].float()  # [h*w, T]
+            s = round(mm.shape[0] ** 0.5)
+            reps = side // s
+            grid = mm.reshape(s, s, -1).repeat_interleave(reps, 0).repeat_interleave(reps, 1)
+            per_word += grid.permute(2, 0, 1) / len(maps)
+        return word_maps_to_concepts(per_word.cpu().numpy(), concepts, words), None
+
+    def _unet_call(self, z_t, t_vec, ctx, caption):
+        from conceptattention_torch.models.sd_unet import unet_forward
+
+        return unet_forward(self.params, self.cfg, z_t, t_vec, ctx)
+
+
+class DAAMStableDiffusionXLSegmentationModel(DAAMStableDiffusionSegmentationModel):
+    """DAAM over the SDXL UNet: the same flow with SDXL's added conditions,
+    the caption's pooled CLIP embedding (cut or zero-padded to the config's
+    pooled width) and the six time ids (height, width, crop 0, 0, height,
+    width). Use with `SDXL_BASE_CONFIG` and `convert_sd_unet_state_dict`
+    over an sd_xl_base checkpoint."""
+
+    def __init__(self, *args, height: int = 512, width: int = 512, **kw):
+        super().__init__(*args, **kw)
+        self.height = height
+        self.width = width
+
+    def _unet_call(self, z_t, t_vec, ctx, caption):
+        from conceptattention_torch.models.sd_unet import unet_forward
+
+        pooled = self.text_encoders.encode_clip([caption]).float()
+        want = self.cfg.pooled_text_dim
+        pooled = F.pad(pooled[..., :want], (0, max(0, want - pooled.shape[-1])))
+        time_ids = torch.tensor([[self.height, self.width, 0, 0, self.height, self.width]],
+                                dtype=torch.float32, device=self.device)
+        return unet_forward(self.params, self.cfg, z_t, t_vec, ctx,
+                            text_embeds=pooled.to(self.device), time_ids=time_ids)
 
 
 class FluxMultiClassSegmentationModel(FluxTapSegmentationModel):

@@ -6,10 +6,10 @@ labels, token-grid maps upsampled nearest-neighbour, mean-value threshold,
 layers 14..17, noise timestep 2 of 4; pixAcc / mIoU / mAP over the stacked
 {background, foreground} pair, running prints `[i/n] name: ...`, a JSON
 state that resumes an interrupted run, and a `FINAL` line.
-`--segmentation_model` takes every name of `evals/model_zoo.MODEL_CHOICES`
-but DAAMSD2 and DAAMSDXL (not ported); the ViT family (the Chefer methods,
-DINO, TextSpan) loads its checkpoint from an environment variable, or draws
-random weights with `--random_weights`, and runs in f32.
+`--segmentation_model` takes every name of `evals/model_zoo.MODEL_CHOICES`;
+the baselines that are not flux taps (the Chefer methods, DINO, DAAMSD2,
+DAAMSDXL, TextSpan) load their checkpoints from environment variables, or
+draw random weights with `--random_weights`, and run in f32.
 
     python -m conceptattention_torch.experiments.imagenet_segmentation \\
         --mat_path /data/gtsegs_ijcv.mat --model_name flux-schnell --num_images 100
@@ -75,15 +75,14 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 
 def check_segmentation_model(name: Optional[str], image_batch: int = 1) -> None:
-    """Refuse, before any data is read, a name that is unknown or not
-    ported, and --image_batch above 1 for a non-flux baseline."""
-    from conceptattention_torch.evals.model_zoo import FLUX_MODELS, MODEL_CHOICES, check_ported
+    """Refuse, before any data is read, an unknown name, and --image_batch
+    above 1 for a non-flux baseline."""
+    from conceptattention_torch.evals.model_zoo import FLUX_MODELS, MODEL_CHOICES
 
     if name is None:
         return
     if name not in MODEL_CHOICES:
         raise ValueError(f"unknown segmentation model {name!r}; choose from {MODEL_CHOICES}")
-    check_ported(name)
     if image_batch > 1 and name not in FLUX_MODELS:
         raise ValueError(f"--image_batch {image_batch}: segmentation model {name!r} segments "
                          "one image at a time; batching is the flux taps' segment_batch")

@@ -1,8 +1,8 @@
 #!/usr/bin/env bash
 # The baseline zoo over the port's ImageNet-Segmentation harness. Checkpoints
-# load from environment variables (CHEFER_VITB16, DINO_VITB16,
-# OPENCLIP_VITH14; see conceptattention_torch/evals/model_zoo.py); ARGS can
-# add --random_weights for a smoke run without them. Run from the
+# load from environment variables (CHEFER_VITB16, DINO_VITB16, SD2_UNET,
+# SDXL_UNET, OPENCLIP_VITH14; see conceptattention_torch/evals/model_zoo.py);
+# ARGS can add --random_weights for a smoke run without them. Run from the
 # repository root.
 set -euo pipefail
 
@@ -17,6 +17,6 @@ for m in CheferLRP CheferRollout CheferLastLayerAttention \
   $RUN "$m"
 done
 $RUN DINO
-# DAAMSD2 and DAAMSDXL wait for the Stable Diffusion UNet (ROADMAP.md Queue 1
-# item 7b); the harness refuses them until then.
+$RUN DAAMSD2
+$RUN DAAMSDXL
 $RUN TextSpan

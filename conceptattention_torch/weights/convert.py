@@ -1,12 +1,13 @@
 """Safetensors checkpoints -> the port's parameter trees.
 
 Counterpart of the JAX package's `weights/convert.py` (its flux, VAE,
-CogVideoX and ViT converters; the SD-UNet converter is not ported; the
-open_clip ones live in `models/clip_vit.py`). Key names are the official
-ones: the Flux DiT's (`double_blocks.0.img_attn.qkv.weight`,
-`single_blocks.5.linear1.bias`, ...), its VAE's (`encoder.down.0.block.1.
-norm1.weight`, ...), diffusers' CogVideoX transformer and VAE, and the timm /
-Chefer / DINO ViT's (`blocks.3.attn.qkv.weight`, ...).
+CogVideoX, ViT and SD-UNet converters; the open_clip ones live in
+`models/clip_vit.py`). Key names are the official ones: the Flux DiT's
+(`double_blocks.0.img_attn.qkv.weight`, `single_blocks.5.linear1.bias`,
+...), its VAE's (`encoder.down.0.block.1.norm1.weight`, ...), diffusers'
+CogVideoX transformer and VAE, the timm / Chefer / DINO ViT's
+(`blocks.3.attn.qkv.weight`, ...) and diffusers' `UNet2DConditionModel`
+(`down_blocks.1.attentions.0.transformer_blocks.0.attn2.to_k.weight`, ...).
 
 The trees are the JAX package's, leaf for leaf: linear weights transposed
 to [in, out], the fused qkv weight as [D, 3, H, Dh], single-block `linear1`
@@ -378,3 +379,85 @@ def convert_vit_state_dict(
         "norm": ln("norm"),
         "head": s.linear("head"),
     }
+
+
+def convert_sd_unet_state_dict(
+    sd: Mapping[str, Any], cfg, dtype: torch.dtype = torch.float32,
+    device: Optional[DeviceLike] = None,
+) -> Dict[str, Any]:
+    """diffusers `UNet2DConditionModel` state dict (the SD2 or the SDXL
+    layout, linear projections) -> the port's tree (`models/sd_unet.py`) on
+    `device` (the state dict's by default). Pass `SDXL_BASE_CONFIG` for an
+    sd_xl_base checkpoint (several blocks a transformer, `add_embedding`)."""
+    s = StateDict(sd, dtype, device)
+
+    def conv(key):
+        return _conv(s, key)
+
+    def norm(key):
+        return _gn(s, key)
+
+    def res(key):
+        p = {"norm1": norm(f"{key}.norm1"), "conv1": conv(f"{key}.conv1"),
+             "time_emb": s.linear(f"{key}.time_emb_proj"),
+             "norm2": norm(f"{key}.norm2"), "conv2": conv(f"{key}.conv2")}
+        if f"{key}.conv_shortcut.weight" in s.sd:
+            p["shortcut"] = conv(f"{key}.conv_shortcut")
+        return p
+
+    def attn_inner(key):
+        return {"q": s.linear(f"{key}.to_q"), "k": s.linear(f"{key}.to_k"),
+                "v": s.linear(f"{key}.to_v"), "proj": s.linear(f"{key}.to_out.0")}
+
+    def basic_block(tb):
+        return {"norm1": norm(f"{tb}.norm1"), "attn1": attn_inner(f"{tb}.attn1"),
+                "norm2": norm(f"{tb}.norm2"), "attn2": attn_inner(f"{tb}.attn2"),
+                "norm3": norm(f"{tb}.norm3"), "ff_in": s.linear(f"{tb}.ff.net.0.proj"),
+                "ff_out": s.linear(f"{tb}.ff.net.2")}
+
+    def transformer(key, n_blocks):
+        return {"norm": norm(f"{key}.norm"), "proj_in": s.linear(f"{key}.proj_in"),
+                "blocks": [basic_block(f"{key}.transformer_blocks.{n}") for n in range(n_blocks)],
+                "proj_out": s.linear(f"{key}.proj_out")}
+
+    n_levels = len(cfg.block_out_channels)
+    down = []
+    for i in range(n_levels):
+        base = f"down_blocks.{i}"
+        block: Dict[str, Any] = {
+            "resnets": [res(f"{base}.resnets.{j}") for j in range(cfg.layers_per_block)]}
+        if cfg.cross_attention_levels[i]:
+            block["attentions"] = [transformer(f"{base}.attentions.{j}", cfg.tlayers(i))
+                                   for j in range(cfg.layers_per_block)]
+        if f"{base}.downsamplers.0.conv.weight" in s.sd:
+            block["downsample"] = conv(f"{base}.downsamplers.0.conv")
+        down.append(block)
+
+    up = []
+    for k in range(n_levels):
+        i = n_levels - 1 - k
+        base = f"up_blocks.{k}"
+        block = {"resnets": [res(f"{base}.resnets.{j}") for j in range(cfg.layers_per_block + 1)]}
+        if cfg.cross_attention_levels[i]:
+            block["attentions"] = [transformer(f"{base}.attentions.{j}", cfg.tlayers(i))
+                                   for j in range(cfg.layers_per_block + 1)]
+        if f"{base}.upsamplers.0.conv.weight" in s.sd:
+            block["upsample"] = conv(f"{base}.upsamplers.0.conv")
+        up.append(block)
+
+    out = {
+        "time1": s.linear("time_embedding.linear_1"),
+        "time2": s.linear("time_embedding.linear_2"),
+        "conv_in": conv("conv_in"),
+        "down": down,
+        "mid": {"res1": res("mid_block.resnets.0"),
+                "attn": transformer("mid_block.attentions.0", cfg.tlayers(n_levels - 1)),
+                "res2": res("mid_block.resnets.1")},
+        "up": up,
+        "norm_out": norm("conv_norm_out"),
+        "conv_out": conv("conv_out"),
+    }
+    if cfg.addition_embed_type == "text_time":
+        out["add1"] = s.linear("add_embedding.linear_1")
+        out["add2"] = s.linear("add_embedding.linear_2")
+    return out

@@ -38,8 +38,11 @@ def params_from_numpy(tree, device="cpu", dtype: Optional[torch.dtype] = None):
 
 # The DiT's and the VAE's trees convert the same way; so do the video trees,
 # the ViT's (`models/vit.py`) and open_clip's ({"visual", "text"},
-# `models/clip_vit.py`), whose blocks JAX stacks by depth as the port does.
+# `models/clip_vit.py`), whose blocks JAX stacks by depth as the port does,
+# and the SD UNet's (`models/sd_unet.py`), whose levels, resnets and
+# transformer blocks are lists in both packages.
 flux_params_from_numpy = params_from_numpy
 ae_params_from_numpy = params_from_numpy
 vit_params_from_numpy = params_from_numpy
 open_clip_params_from_numpy = params_from_numpy
+unet_params_from_numpy = params_from_numpy

@@ -270,7 +270,7 @@ class TestPreprocess:
 
 
 class TestModelZoo:
-    """The cases of `tests/test_model_zoo.py`; DAAMSD2 and DAAMSDXL raise."""
+    """The cases of `tests/test_model_zoo.py`."""
 
     def test_choices_cover_reference_switch(self):
         assert t_zoo.MODEL_CHOICES == j_zoo.MODEL_CHOICES and len(t_zoo.MODEL_CHOICES) == 15
@@ -289,9 +289,18 @@ class TestModelZoo:
             t_zoo.build_segmentation_model("CheferRollout", vit_cfg=T_VIT, device="cpu")
 
     @pytest.mark.parametrize("name", ["DAAMSD2", "DAAMSDXL"])
-    def test_daam_sd_is_not_ported(self, name):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7b"):
-            t_zoo.build_segmentation_model(name, random_weights=True, device="cpu")
+    def test_daam_sd_segments(self, name, monkeypatch):
+        """The zoo's tiny UNets with random weights: one coefficient map per
+        concept at the finest attention level (SD2 attends at level 0 of an
+        8x8 latent, SDXL only at level 1, 4x4), and boolean masks."""
+        monkeypatch.delenv("SDXL_UNET" if name == "DAAMSDXL" else "SD2_UNET", raising=False)
+        model = t_zoo.build_segmentation_model(name, random_weights=True, tiny=True,
+                                               device="cpu", latent_size=8)
+        masks, coeffs, _ = model([image()], target_concepts=["cat"], concepts=["cat", "sky"],
+                                 captions=["a cat under the sky"])
+        side = 8 if name == "DAAMSD2" else 4
+        assert masks[0].dtype == bool and masks[0].shape == (side, side)
+        assert np.isfinite(np.asarray(coeffs[0])).all()
 
     @pytest.mark.parametrize("name", ["DINO", *CHEFER])
     def test_vit_baselines_segment(self, name):
@@ -391,14 +400,20 @@ def test_imagenet_harness_with_vit_baselines_matches_jax(tmp_path, monkeypatch, 
             assert abs(g[key] - w[key]) <= FINAL_TOL, (name, key, got, want)
 
 
-def test_imagenet_harness_refuses_what_it_cannot_run(tmp_path):
+def test_imagenet_harness_refuses_what_it_cannot_run(tmp_path, monkeypatch, capsys):
     absent = ["--mat_path", str(tmp_path / "absent.mat"), "--device", "cpu"]
     with pytest.raises(ValueError, match="image_batch"):
         t_imagenet.main([*absent, "--segmentation_model", "DINO", "--image_batch", "4"])
     with pytest.raises(ValueError, match="unknown segmentation model"):
         t_imagenet.main([*absent, "--segmentation_model", "Chefer"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7b"):
-        t_imagenet.main([*absent, "--segmentation_model", "DAAMSDXL"])
+    # DAAMSDXL, once refused, now builds and runs (the zoo's tiny UNet)
+    monkeypatch.delenv("SDXL_UNET", raising=False)
+    monkeypatch.setattr(t_zoo, "build_segmentation_model",
+                        functools.partial(t_zoo.build_segmentation_model, tiny=True))
+    mat = make_mat(str(tmp_path / "gtsegs.mat"), n=2)
+    assert t_imagenet.main(["--mat_path", mat, "--device", "cpu", "--segmentation_model",
+                            "DAAMSDXL", "--random_weights"]) == 0
+    assert len(final_numbers(capsys.readouterr().out)) == 1
 
 
 @pytest.mark.parametrize("script", ["run_ablations.sh", "run_baselines.sh"])
@@ -413,7 +428,7 @@ def test_shell_scripts_use_harness_flags(script):
     runs = [shlex.split(line.split("$RUN", 1)[1].replace('"$m"', m))
             for line in text.splitlines() if line.strip().startswith("$RUN")
             for m in (re.findall(r"\b(Chefer\w+)", text) if '"$m"' in line else [""])]
-    assert len(runs) == {"run_ablations.sh": 10, "run_baselines.sh": 9}[script]
+    assert len(runs) == {"run_ablations.sh": 10, "run_baselines.sh": 11}[script]
     base = "--segmentation_model" if script == "run_baselines.sh" else ""
     for args in runs:
         parsed = t_imagenet.parse_args(["--mat_path", "x", *base.split(), *args])

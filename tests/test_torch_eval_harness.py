@@ -13,6 +13,7 @@ to 4 decimals, must agree within 2e-4 (the printed rounding of values equal
 to 1e-5; one flipped mask token moves pixAcc by about 0.02 here).
 """
 
+import functools
 import json
 import os
 import re
@@ -84,12 +85,19 @@ def test_imagenet_harness_runs_and_resumes(tmp_path, capsys):
     assert json.load(open(state))["next_index"] == 3
 
 
-def test_imagenet_harness_gates(tmp_path, capsys):
+def test_imagenet_harness_gates(tmp_path, capsys, monkeypatch):
     assert t_imagenet.main(["--mat_path", str(tmp_path / "absent.mat"), *CPU]) == 2
     assert "dataset not found" in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7b"):
-        t_imagenet.main(["--mat_path", str(tmp_path / "absent.mat"),
-                         "--segmentation_model", "DAAMSD2"])
+    # DAAMSD2 passes the gate and runs (the zoo's tiny UNet, random weights)
+    from conceptattention_torch.evals import model_zoo
+
+    monkeypatch.delenv("SD2_UNET", raising=False)
+    monkeypatch.setattr(model_zoo, "build_segmentation_model",
+                        functools.partial(model_zoo.build_segmentation_model, tiny=True))
+    mat = make_mat(str(tmp_path / "gtsegs.mat"), n=2)
+    assert t_imagenet.main(["--mat_path", mat, *CPU, "--segmentation_model", "DAAMSD2",
+                            "--random_weights"]) == 0
+    assert len(final_numbers(capsys.readouterr().out)) == 1
 
 
 def test_image_groups_split_on_concept_count():
