@@ -64,7 +64,21 @@ Run from the root of a checkout: `python3 chip_smoke.py`. In order it
    against the CPU's with the relevance methods in f64, a tie-order control
    beside); and `compare_methods.main` over all 15 segmentation methods on
    one 512x512 image with 3 concepts (its 4 flux methods on the flux-schnell
-   pipeline, K1 counted);
+   pipeline, K1 counted); LoRA on the same weights (one rank-16 adapter over
+   every target written as `.safetensors` in the BFL, kohya and diffusers
+   namings, their converted trees compared; `generate_image` with `lora=`,
+   its merge held leaf by leaf against the CPU's f32 merge, against weights
+   merged by hand and at strength 0 against the bf16 image, bit for bit);
+   `lora=` on CogVideoX-5b cut to VIDEO_LORA_LAYERS blocks (K1 and K3
+   through the merged DiT); the serving daemon over the same weights and
+   the cut video pipeline (concurrent /v1/generate, /v1/encode,
+   /v1/generate_video, /healthz and /metrics, each answer against its
+   direct call; a LoRA swap and a clear; one request padded to bucket 2; a
+   burst beyond the queue's depth); `FluxWithConceptAttentionPipeline` with
+   true CFG against the sdpa backend and the ControlNet residuals (zeros bit
+   for bit at full width; random ones on the card in f32 against the CPU);
+   the CLI (`python -m conceptattention_torch --loop`, two images) in a
+   subprocess;
    then, with every earlier pipeline released, the T5-XXL and CLIP-L text
    towers from random HF state dicts through the port's converters (bf16
    against f32 at 2 layers, timed), flux-dev `generate_image` (1024x1024,
@@ -75,7 +89,9 @@ Run from the root of a checkout: `python3 chip_smoke.py`. In order it
    its sigmas against the schedule written out), and the checkpoint path: a flux-dev-shaped `.safetensors`
    checkpoint cut to 2 double and 4 single blocks and the full VAE, written
    under build/ and loaded by the pipeline in bf16 (bit for bit) and w8a8
-   (device peak below the bf16 tree); every kernel's launch count (and the
+   (device peak below the bf16 tree), then with `lora=` in w8, w8a8 and w4
+   (merged on the host before the quantize; each cell's layout and
+   dequantized error); every kernel's launch count (and the
    Hopper instances', which take K1 at head dims 64, 128 and 512, K1b at
    head dim 128, K3, and K4's steps at head dims 64 and 128) is set to 0
    just before and read just after each run;
@@ -93,10 +109,12 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
 import time
+import types
 from collections import Counter
 
 import numpy as np
@@ -1554,19 +1572,19 @@ def joint_rows_inputs(cfg, gen, b, t, dev="cuda", size=SIZE, c=len(CONCEPTS)):
     return (q, k, v, t, p, c, True, True, cos, sin), torch.cat([qj, qc], 2), torch.cat([kj, kc], 2)
 
 
-def single_rows_inputs(cfg, gen, t, dev="cuda"):
+def single_rows_inputs(cfg, gen, t, dev="cuda", b=1):
     """A single block's attention inputs at SIZE with `t` txt rows (one
-    segment, as the single blocks call K1): K1's args, and the roped q and k
-    for the library call."""
+    segment, as the single blocks call K1), batch `b`: K1's args, and the
+    roped q and k for the library call."""
     from conceptattention_torch.kernels import flash_saliency as fs
     from conceptattention_torch.ops.packing import make_img_ids
     from conceptattention_torch.ops.rope import apply_rope, embed_nd
 
     grid = SIZE // 16
     s = t + grid * grid
-    img_ids = make_img_ids(grid, grid, 1, device=dev)
-    pe = embed_nd(torch.cat([torch.zeros(1, t, 3, device=dev), img_ids], 1), cfg.axes_dim, cfg.theta)
-    q, k, v = (torch.randn(1, cfg.num_heads, s, cfg.head_dim, generator=gen, device=dev)
+    img_ids = make_img_ids(grid, grid, b, device=dev)
+    pe = embed_nd(torch.cat([torch.zeros(b, t, 3, device=dev), img_ids], 1), cfg.axes_dim, cfg.theta)
+    q, k, v = (torch.randn(b, cfg.num_heads, s, cfg.head_dim, generator=gen, device=dev)
                for _ in range(3))
     q, k, v = (Q_SCALE * q).bfloat16(), k.bfloat16(), v.bfloat16()
     cos, sin = fs.expand_rope_tables([pe], s)
@@ -3278,6 +3296,9 @@ def checkpoint_path(counters):
                 raise AssertionError(f"checkpoint path {mode or 'bf16'} failed its checks")
             paths[label] = (launches, seconds)
             del pipe, out
+        gc.collect()
+        torch.cuda.empty_cache()
+        paths.update(checkpoint_lora_merges(name, cut, str(flux_path), root, counters, conv))
     finally:
         shutil.rmtree(root, ignore_errors=True)
         os.environ.pop("SMOKE_FLUX_CKPT", None)
@@ -3285,6 +3306,1044 @@ def checkpoint_path(counters):
         configs.pop(name, None)
     gc.collect()
     torch.cuda.empty_cache()
+    return paths
+
+
+# ---------------------------------------------------------------------------
+# LoRA adapters, the serving daemon, the CLI, the diffusers-style pipeline and
+# the ControlNet residuals. They run no new kernel: K1, K2 and K3 behind new
+# entry points. Two shapes are new to K1: the single block at batch 2 (two
+# coalesced /v1/generate requests) and the double block without concept rows
+# (the negative-prompt forward of true CFG).
+
+LORA_RANK = 16
+LORA_STRENGTH = 0.8
+# A merge on the card against the CPU's f32 merge of the same tensors, per
+# leaf and layer: one rounding of the f32 sum to bf16 (half a step: up to
+# 2^-8 of a value at the bottom of its binade), the sum taken in another
+# order (a whole step where it sits on a rounding edge); the limit is one
+# bf16 step, 2^-7, of the layer's largest merged value. On an H100 80GB HBM3
+# at 700 W every element equalled the CPU's own rounding (0.0026 of the
+# largest value); the control, another layer's delta, read 0.053.
+LORA_MERGE_LIMIT = 2.0**-7
+# The diffusers naming's factors against the BFL naming's, where the two are
+# alike only up to zero rows (the single block's linear1 against to_q / to_k
+# / to_v / proj_mlp): the same products summed over other ranks, f32.
+LORA_NAMING_LIMIT = 2.0**-20
+# A quantized cell of a merged checkpoint against the f32 merge rounded to
+# bf16, in half steps of its stored scale: rounding to the nearest step is
+# at most one half step (the f32 division that picks it off by an ulp of a
+# value up to 127 steps, under 2^-12 of a half step). The w8 / w8a8 scales
+# are then stored in bf16, as in JAX: up to 2^-8 of the scale, times up to
+# 127 steps, adds just under one more half step; the w4 group scales stay
+# f32.
+QUANT_MERGE_LIMIT = {"w8": 2.0 + 2.0**-12, "w8a8": 2.0 + 2.0**-12, "w4": 1.0 + 2.0**-12}
+VIDEO_LORA_LAYERS = 2  # CogVideoX-5b cut from 42 blocks for the video LoRA and the daemon
+SERVE_MAX_WAIT_MS = 500  # long enough that concurrent requests coalesce every time
+SERVE_QUEUE_DEPTH = 6
+SERVE_BURST = 9
+# (prompt, seed) of the three concurrent /v1/generate requests; the first is
+# the smoke's bf16 `generate_image`, whose output is its direct call.
+SERVE_GENERATE = [(PROMPT, 0), ("a dragon flying over a castle at night", 1),
+                  ("a red rock in the desert sand under a blue sky", 2)]
+SERVE_ENCODE_SEEDS = (5, 6)
+# A /v1/generate request served in a batch of 2 against its direct batch-1
+# call, relative RMS of the heatmaps: the bf16 products round in another
+# order, the random-weight DiT's peaked concept softmax magnifies that (one
+# stopped forward: 0.030-0.035, encode_images above), and 4 denoising steps
+# carry it into each other's latents. On an H100 80GB HBM3 at 700 W: 0.067
+# and 0.079, and 0.079 for one request padded to a batch of 2 (so no
+# request sees another's prompt); the limit is 1.6x the largest, the
+# control (another request's direct call) read 0.59-0.66. The images stay
+# within 0.7% relative RMS. Served encodes (one forward) keep
+# ENCODE_IMAGES_LIMIT.
+SERVE_BATCH_LIMIT = 2.0**-3
+# The diffusers-style pipeline on the fused backend against the sdpa one,
+# relative RMS of its maps: a softmax over the 4096 patches of each
+# concept's output-space similarity, the mean over the gated steps and
+# layers 14-17. The similarities before that softmax agree as the DiT's
+# saliency does (the reference check's 2^-7 of the largest value), but the
+# random-weight similarities span tens of units, so the patch softmax turns
+# those errors into shifts of mass between nearly tied patches: on an H100
+# 80GB HBM3 at 700 W the maps read 0.122 apart after one true-CFG step (the
+# same latents in both), 0.166 at steps [1, 3] of four, with the images
+# 0.8% apart. The limit is 1.5x the larger; the control pairs each fused
+# map with another concept's sdpa map (0.77-0.80 there).
+DIFFUSERS_LIMIT = 2.0**-2
+# ControlNet residuals: the card in f32 (TF32 off, sdpa) against the CPU in
+# f32 on a full-width flux-schnell cut to CN_DEPTH double and CN_SINGLE
+# single blocks, relative RMS of pred: sums in another order only. The
+# control is the other layout of the same residuals.
+CONTROLNET_LIMIT = 2.0**-14
+CN_DEPTH, CN_SINGLE, CN_SIZE, CN_TXT = 3, 2, 128, 64
+
+
+def pr13_k1_plan(cfg):
+    """K1 launches per shape of the paths of this section, and decodes (one
+    K1 at head dim 512 and the decoder's K2 launches each): {"double",
+    "single": flux-schnell B1; "double b2", "single b2": B2; "double no
+    concepts": B1, S = 4352; "dev double", "dev single": the checkpoint cut;
+    "video": CogVideoX at 13x60x90, B2; "decodes"}. Each path checks its own
+    launches against its share."""
+    d, s = cfg.depth, cfg.depth_single_blocks
+    gen = {"double": STEPS * d, "single": STEPS * s, "decodes": 1}  # one generate_image
+    plan = Counter()
+
+    def add(part, n=1):
+        for k, v in part.items():
+            plan[k] += n * v
+
+    b2 = {"double b2": STEPS * d, "single b2": STEPS * s, "decodes": 2}
+    video = {"video": VIDEO_LORA_LAYERS * STEPS_VIDEO}
+    # lora_path: generate_image with lora=, on hand-merged weights, at strength 0
+    add(gen, 3)
+    # checkpoint_path's LoRA merges: a 1-step generate_image each in w8, w8a8, w4
+    add({"dev double": CKPT_DEPTH, "dev single": CKPT_SINGLE, "decodes": 1}, 3)
+    # video_lora_path (PAIR_HEADS off; K3 takes the other run)
+    add(video)
+    # daemon_path: traffic (a batch of 2 and one of 1, two encodes at B2, the
+    # video), two generates around the swap, the padded batch, the burst
+    # (one 4-step request, then SERVE_QUEUE_DEPTH 1-step ones in batches of
+    # 2), the direct calls (two generate_image, two encode_image, the video)
+    add(b2)
+    add(gen)
+    add({"double b2": d})
+    add(video)
+    add(gen, 2)
+    add(b2)
+    add(gen)
+    add({"double b2": d, "single b2": s, "decodes": 2}, SERVE_QUEUE_DEPTH // 2)
+    add(gen, 2)
+    add({"double": d}, 2)
+    add(video)
+    # cli_path: two images in one --loop
+    add(gen, 2)
+    # diffusers_controlnet_path: true CFG at 4 steps and at 1 (the positive
+    # pass with concepts, the negative without), the sdpa runs' decodes, two
+    # full-width forwards
+    add({"double": STEPS * d, "double no concepts": STEPS * d, "single": 2 * STEPS * s,
+         "decodes": 1})
+    add({"double": d, "double no concepts": d, "single": 2 * s, "decodes": 1})  # one step
+    add({"decodes": 1}, 2)
+    add({"double": 2 * d, "single": 2 * s})
+    return plan
+
+
+def serving_flash_phases(cfg, launches):
+    """K1 at the shapes new on this section's paths: the single block at B2
+    (S=4352: two coalesced /v1/generate requests, the padded batch) and the
+    double block without concept rows at B1 (S=4352 with 256 txt and 4096
+    img rows: the true-CFG negative pass). `launches` is {"single b2",
+    "double no concepts": main-path launches}."""
+    from conceptattention_torch.kernels import flash_saliency as fs
+
+    gen = torch.Generator("cuda").manual_seed(13)
+    h, d = cfg.num_heads, cfg.head_dim
+    results = []
+    args, qs, ks = single_rows_inputs(cfg, gen, 256, b=2)
+    s = args[3]
+    results.append(phase_result(
+        f"flash_saliency single_block B=2 S={s}",
+        lambda: fs.fused_concept_flash_attention(*args),
+        lambda: fs.fused_concept_flash_attention_plain(*args),
+        lambda: F.scaled_dot_product_attention(qs, ks, args[2]),
+        2 * 4 * d * s * s * h, 2 * (4 * h * s * d * 2 + 2 * s * d * 4), launches["single b2"],
+        controls=[("one key tile dropped", "all", lambda want: drop_key_tile(want, args, 256 + 64 * 32))],
+        extra=mma_sync_reading(args),
+    ))
+    del args, qs, ks
+    args, qs, ks = single_rows_inputs(cfg, gen, 256)
+    q, k, v, s, _, _, _, _, cos, sin = args
+    t = 256
+    nc_args = (q, k, v, t, s - t, 0, True, True, cos, sin)
+    results.append(phase_result(
+        f"flash_saliency double_block without concepts S={s} (T={t}, P={s - t})",
+        lambda: fs.fused_concept_flash_attention(*nc_args),
+        lambda: fs.fused_concept_flash_attention_plain(*nc_args),
+        lambda: F.scaled_dot_product_attention(qs, ks, v),
+        4 * d * s * s * h, 4 * h * s * d * 2 + 2 * s * d * 4, launches["double no concepts"],
+        segments={"txt rows": slice(0, t), "img rows": slice(t, s)},
+        controls=[("one img key tile dropped", "img rows",
+                   lambda want: drop_key_tile(want, nc_args, t + 64 * 32)),
+                  ("txt keys hidden from img rows", "img rows",
+                   lambda want: torch.cat([want[:, :, :t], fs.fused_concept_flash_attention_plain(
+                       q[:, :, t:], k[:, :, t:], v[:, :, t:], s - t, 0, 0, True, True,
+                       cos[:, t:], sin[:, t:])], 2))],
+        extra=mma_sync_reading(nc_args),
+    ))
+    return results
+
+
+def lora_state_dicts(depth, depth_single, d, m, gen, rank=LORA_RANK):
+    """One adapter over every flux target, rank `rank` per diffusers module,
+    in the three published namings: {"bfl", "kohya", "diffusers"} state
+    dicts of f32 tensors. The BFL and kohya files fuse what diffusers
+    names apart (to_q / to_k / to_v into the qkv, and with proj_mlp into
+    the single block's linear1) as block-diagonal factors of the summed
+    rank; every module's alpha is half its rank."""
+    def pair(d_in, d_out):
+        a = torch.randn(rank, d_in, generator=gen, device="cuda") * d_in**-0.5
+        b = torch.randn(d_out, rank, generator=gen, device="cuda") * (0.2 * rank**-0.5)
+        return a, b
+
+    sds = {"bfl": {}, "kohya": {}, "diffusers": {}}
+
+    def put(naming, key, a, b):
+        names = ("lora_down", "lora_up") if naming == "kohya" else ("lora_A", "lora_B")
+        sd = sds[naming]
+        sd[f"{key}.{names[0]}.weight"], sd[f"{key}.{names[1]}.weight"] = a, b
+        sd[f"{key}.alpha"] = torch.tensor(a.shape[0] / 2, dtype=torch.float32)
+
+    def fused(blocks, i, module, pairs, diff_names):
+        for (a, b), name in zip(pairs, diff_names):
+            prefix = "transformer_blocks" if blocks == "double_blocks" else "single_transformer_blocks"
+            put("diffusers", f"transformer.{prefix}.{i}.{name}", a, b)
+        a = torch.cat([p[0] for p in pairs])
+        b = torch.block_diag(*[p[1] for p in pairs])
+        put("bfl", f"{blocks}.{i}.{module}", a, b)
+        put("kohya", f"lora_unet_{blocks}_{i}_{module.replace('.', '_')}", a, b)
+
+    for i in range(depth):
+        for stream, names in (
+            ("img", ("norm1.linear", ("attn.to_q", "attn.to_k", "attn.to_v"), "attn.to_out.0",
+                     "ff.net.0.proj", "ff.net.2")),
+            ("txt", ("norm1_context.linear", ("attn.add_q_proj", "attn.add_k_proj",
+                                              "attn.add_v_proj"), "attn.to_add_out",
+                     "ff_context.net.0.proj", "ff_context.net.2")),
+        ):
+            mod, qkv, proj, mlp0, mlp2 = names
+            fused("double_blocks", i, f"{stream}_mod.lin", [pair(d, 6 * d)], [mod])
+            fused("double_blocks", i, f"{stream}_attn.qkv", [pair(d, d) for _ in range(3)], qkv)
+            fused("double_blocks", i, f"{stream}_attn.proj", [pair(d, d)], [proj])
+            fused("double_blocks", i, f"{stream}_mlp.0", [pair(d, m)], [mlp0])
+            fused("double_blocks", i, f"{stream}_mlp.2", [pair(m, d)], [mlp2])
+    for i in range(depth_single):
+        fused("single_blocks", i, "modulation.lin", [pair(d, 3 * d)], ["norm.linear"])
+        fused("single_blocks", i, "linear1", [pair(d, d), pair(d, d), pair(d, d), pair(d, m)],
+              ["attn.to_q", "attn.to_k", "attn.to_v", "proj_mlp"])
+        fused("single_blocks", i, "linear2", [pair(d + m, d)], ["proj_out"])
+    return sds
+
+
+def naming_readings(trees):
+    """The converted adapters of the three namings against the BFL one:
+    per leaf and layer, whether the factors are bit-equal, and the largest
+    |a @ b - a_bfl @ b_bfl| over the largest |a_bfl @ b_bfl|; the control
+    is layer 0's BFL product against layer 1's."""
+    from conceptattention_torch.pipeline.concept_pipeline import _full_f32
+
+    ref = trees["bfl"]
+    out = {name: {"leaves": 0, "bit-equal leaves": 0, "max relative product diff": 0.0}
+           for name in trees if name != "bfl"}
+    control = float("inf")
+    with _full_f32():
+        for stack, leaves in ref.items():
+            for leaf, f in leaves.items():
+                want = torch.bmm(f["a"].cuda(), f["b"].cuda())
+                scale = want.abs().amax(dim=(1, 2))
+                control = min(control, ((want[0] - want[1]).abs().max() / scale[0]).item())
+                for name, tree in trees.items():
+                    if name == "bfl":
+                        continue
+                    g = tree[stack][leaf]
+                    r = out[name]
+                    r["leaves"] += 1
+                    r["bit-equal leaves"] += int(all(
+                        g[p].shape == f[p].shape and torch.equal(g[p], f[p]) for p in ("a", "b")))
+                    got = torch.bmm(g["a"].cuda(), g["b"].cuda())
+                    r["max relative product diff"] = max(
+                        r["max relative product diff"],
+                        ((got - want).abs().amax(dim=(1, 2)) / scale).max().item())
+    return out, control
+
+
+def leaf_weight(tree, stack, leaf):
+    """The "w" of an adapter's (stack, dotted leaf) in a parameter tree."""
+    node = tree[stack]
+    for p in leaf.split("."):
+        node = node[p]
+    return node["w"]
+
+
+def merge_readings(base, merged, adapter, strength):
+    """A merge on the card against the CPU's f32 merge of the same tensors,
+    per targeted leaf at its first and last layer: the largest |card - cpu|
+    over the layer's largest |cpu| (limit LORA_MERGE_LIMIT), the share of
+    elements equal to the CPU's own bf16 rounding, and the control (another
+    layer's delta)."""
+    worst, control, equal, n = 0.0, float("inf"), 0, 0
+    for stack, leaves in adapter.items():
+        for leaf, f in leaves.items():
+            w, got = leaf_weight(base, stack, leaf), leaf_weight(merged, stack, leaf)
+            a, b = f["a"].cpu(), f["b"].cpu()
+            for i in (0, w.shape[0] - 1):
+                w_i = w[i].float().cpu()
+                cpu = w_i + (a[i] @ b[i]).reshape(w_i.shape) * strength
+                other = w_i + (a[i - 1] @ b[i - 1]).reshape(w_i.shape) * strength
+                g = got[i].cpu()
+                limit_scale = cpu.abs().max().item()
+                worst = max(worst, (g.float() - cpu).abs().max().item() / limit_scale)
+                control = min(control, (other - cpu).abs().max().item() / limit_scale)
+                equal += int((g == cpu.to(g.dtype)).sum())
+                n += g.numel()
+    return {"max abs err over the layer's largest value": worst, "limit": LORA_MERGE_LIMIT,
+            "control (another layer's delta)": control,
+            "share bit-equal to the CPU's rounding": equal / n,
+            "ok": worst <= LORA_MERGE_LIMIT < control}
+
+
+def same_output(a, b) -> bool:
+    return (np.array_equal(a.image, b.image)
+            and np.array_equal(a.concept_heatmaps, b.concept_heatmaps)
+            and np.array_equal(a.cross_attention_maps, b.cross_attention_maps))
+
+
+def lora_path(pipe, bf16_out, counters, root):
+    """flux-schnell LoRA at full width: one rank-16 adapter over every
+    target written in the three namings (their converted trees compared),
+    `generate_image` with `lora=` (its merge held leaf by leaf against the
+    CPU's f32 merge), the same call on weights merged by hand (bit for bit),
+    and with `lora_strength=0` (bit for bit the bf16 image). Counters are
+    [K1, K2, K1 hopper, K2 hopper]. Returns ({path: (launches, seconds)},
+    the BFL file's path, the lora= output)."""
+    from conceptattention_torch import ConceptAttentionFluxPipeline
+    from conceptattention_torch.pipeline.concept_pipeline import _full_f32
+    from conceptattention_torch.weights.lora import load_lora
+
+    cfg = pipe.cfg
+    per_image = STEPS * (cfg.depth + cfg.depth_single_blocks) + 1
+    conv = sum(decoder_conv_shapes(pipe.spec.ae_params, SIZE // 8).values())
+    want = [per_image, conv, per_image, conv]
+    kw = dict(width=SIZE, height=SIZE, num_inference_steps=STEPS, return_pil_heatmaps=False,
+              return_image_array=True)
+    same = dict(ae_params=pipe.ae_params, text_encoders=pipe.text_encoders)
+    sds = lora_state_dicts(cfg.depth, cfg.depth_single_blocks, cfg.hidden_size,
+                           cfg.mlp_hidden_dim, torch.Generator("cuda").manual_seed(21))
+    files, seconds = {}, {}
+    for naming, sd in sds.items():
+        files[naming] = str(root / f"lora-{naming}.safetensors")
+        write_safetensors(files[naming], sd)
+    del sds
+    trees = {}
+    for naming, path in files.items():
+        t0 = time.perf_counter()
+        trees[naming] = load_lora(path, cfg)
+        seconds[naming] = time.perf_counter() - t0
+    names, control = naming_readings(trees)
+    ok = (names["kohya"]["bit-equal leaves"] == names["kohya"]["leaves"]
+          and max(r["max relative product diff"] for r in names.values()) <= LORA_NAMING_LIMIT
+          < control)
+    n_params = sum(t.numel() for f in trees["bfl"].values() for ab in f.values() for t in ab.values())
+    print(f"lora files: rank {LORA_RANK} per module, {n_params} f32 factor values (BFL), "
+          f"{os.path.getsize(files['bfl']) / 2**20:.1f} MiB; load_lora seconds "
+          f"{json.dumps(seconds)}; namings against BFL {json.dumps(names)}, limit "
+          f"{LORA_NAMING_LIMIT}, control (layer 0 against 1) {control}: ok={ok}", flush=True)
+    if not ok:
+        raise AssertionError("the three LoRA namings do not convert to one adapter")
+    adapter = trees["bfl"]
+    del trees
+    paths = {}
+
+    def run(label, p):
+        out, secs, launches = counted(lambda: p.generate_image(PROMPT, CONCEPTS, **kw), counters)
+        if launches != want:
+            raise AssertionError(f"{label}: launches {launches} != {want}")
+        check_image_output(out, label)
+        paths[label] = (launches, secs)
+        return out, secs
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lp = ConceptAttentionFluxPipeline("flux-schnell", params=pipe.params, lora=files["bfl"],
+                                      lora_strength=LORA_STRENGTH, **same)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    merge = merge_readings(pipe.params, lp.params, adapter, LORA_STRENGTH)
+    lora_out, lora_s = run("generate_image (lora=)", lp)
+    changed = heatmaps_rms(lora_out, bf16_out)
+    del lp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hand = dict(pipe.params)
+    with torch.inference_mode(), _full_f32():
+        for stack, leaves in adapter.items():
+            hand[stack] = dict(hand[stack])
+            for leaf, f in leaves.items():
+                w = pipe.params[stack][leaf]["w"]
+                a, b = f["a"].cuda(), f["b"].cuda()
+                hand[stack][leaf] = dict(hand[stack][leaf], w=torch.stack([
+                    (w[i].float() + (a[i] @ b[i]).reshape(w[i].shape) * LORA_STRENGTH).to(w.dtype)
+                    for i in range(w.shape[0])]))
+    torch.cuda.synchronize()
+    hand_s = time.perf_counter() - t0
+    hp = ConceptAttentionFluxPipeline("flux-schnell", params=hand, **same)
+    hand_out, _ = run("generate_image (weights merged by hand)", hp)
+    del hp, hand
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    zp = ConceptAttentionFluxPipeline("flux-schnell", params=pipe.params, lora=files["bfl"],
+                                      lora_strength=0.0, **same)
+    zero_leaves = all(torch.equal(zp.params[stack][leaf]["w"], pipe.params[stack][leaf]["w"])
+                      for stack, leaves in adapter.items() for leaf in leaves)
+    zero_out, _ = run("generate_image (lora_strength=0)", zp)
+    del zp
+    gc.collect()
+    torch.cuda.empty_cache()
+    readings = {
+        "merge on the card against the CPU's f32 merge (each leaf's first and last layer)": merge,
+        "lora= against the weights merged by hand: bit for bit": same_output(lora_out, hand_out),
+        "lora_strength=0: merged leaves equal the base": zero_leaves,
+        "lora_strength=0 against the bf16 generate_image: bit for bit": same_output(zero_out,
+                                                                                   bf16_out),
+        "control: lora= heatmaps against the bf16 ones, relative RMS": changed,
+    }
+    ok = (merge.pop("ok") and readings["lora= against the weights merged by hand: bit for bit"]
+          and zero_leaves and readings[
+              "lora_strength=0 against the bf16 generate_image: bit for bit"] and changed > 0)
+    print(f"lora flux-schnell {SIZE}x{SIZE}: pipeline with lora= built in {build_s:.3f} s "
+          f"(load and merge on the card), merged by hand in {hand_s:.3f} s; generate_image "
+          f"(lora=) seconds {lora_s:.4f}, launches [K1, K2, K1 hopper, K2 hopper] {want}; "
+          f"{json.dumps(readings)}: ok={ok}", flush=True)
+    if not ok:
+        raise AssertionError("the LoRA path failed a check")
+    return paths, files["bfl"], lora_out
+
+
+def checkpoint_lora_merges(name, cut, flux_path, root, counters, conv):
+    """LoRA on the checkpoint path of the cut checkpoint, quantized w8, w8a8
+    and w4: the adapter merges into the bf16 tree on the host before the
+    quantize. Per mode, every targeted cell's layout (the w8a8 stacks
+    input-axis-fastest) and its dequantized error against the f32 merge of
+    the written weights rounded to bf16, in units of half its quantization
+    step (at most 1), with the unmerged weights as the control; then a
+    1-step `generate_image`. Returns {path: (launches, seconds)}."""
+    from conceptattention_torch import ConceptAttentionFluxPipeline
+    from conceptattention_torch.ops.quant import dequantize_w4, w4_dims
+    from conceptattention_torch.weights.convert import convert_flux_state_dict, load_safetensors
+    from conceptattention_torch.weights.lora import load_lora
+
+    sd = lora_state_dicts(cut.depth, cut.depth_single_blocks, cut.hidden_size, cut.mlp_hidden_dim,
+                          torch.Generator("cuda").manual_seed(22))["bfl"]
+    path = str(root / "lora-cut.safetensors")
+    write_safetensors(path, sd)
+    adapter = load_lora(path, cut)
+    host = convert_flux_state_dict(load_safetensors(flux_path), cut, torch.bfloat16)
+    refs = {}
+    for stack, leaves in adapter.items():
+        for leaf, f in leaves.items():
+            w = host[stack][leaf]["w"]
+            delta = torch.stack([(f["a"][i] @ f["b"][i]).reshape(w[i].shape)
+                                 for i in range(w.shape[0])])
+            refs[(stack, leaf)] = (w.float() + delta * LORA_STRENGTH, w.float())
+    del host
+    kw = dict(width=SIZE, height=SIZE, num_inference_steps=1, guidance=3.5,
+              return_pil_heatmaps=False, return_image_array=True)
+    n = CKPT_DEPTH + CKPT_SINGLE + 1
+    want = [n, conv, n, conv]
+    paths = {}
+    for mode in ("w8", "w8a8", "w4"):
+        t0 = time.perf_counter()
+        pipe = ConceptAttentionFluxPipeline(name, quantize=mode, lora=path,
+                                            lora_strength=LORA_STRENGTH)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        worst, control, layouts = 0.0, float("inf"), set()
+        for (stack, leaf), (ref, base) in refs.items():
+            ref = ref.to(pipe.dtype).float()  # the merge rounds once to the pipeline's dtype
+            if not isinstance(pipe.params[stack][leaf]["w"], dict):
+                raise AssertionError(f"checkpoint {mode}: {stack}.{leaf} was left unquantized")
+            cell = {k: v.cpu() for k, v in pipe.params[stack][leaf]["w"].items()}
+            if "q4p" in cell:
+                ax, _, group = w4_dims(cell)
+                deq = dequantize_w4(cell, torch.float32)
+                half = cell["gscale"].float().repeat_interleave(group, dim=ax) / 2
+                layouts.add(f"q4p packed along axis {ax}, groups of {group}")
+            else:
+                key = "qa" if "qa" in cell else "q"
+                q = cell[key]
+                lay = q.reshape(q.shape[0], q.shape[1], -1)
+                major = "input-axis-fastest" if lay.stride(1) == 1 else "row-major"
+                layouts.add(f"{key} {major}")
+                deq = q.float() * cell["scale"].float()
+                half = cell["scale"].float().expand_as(deq) / 2
+            worst = max(worst, ((deq - ref).abs() / half).max().item())
+            control = min(control, ((deq - base).abs() / half).max().item())
+        label = f"generate_image (checkpoint {mode}, lora=, 1 step)"
+        out, seconds, launches = counted(lambda: pipe.generate_image(PROMPT, CONCEPTS, **kw),
+                                         counters)
+        check_image_output(out, label)
+        want_layout = {"w8": {"q row-major"}, "w8a8": {"qa input-axis-fastest"}}.get(mode)
+        ok = (worst <= QUANT_MERGE_LIMIT[mode] < control and launches == want
+              and (want_layout is None or layouts == want_layout)
+              and (mode != "w4" or all("q4p packed along axis 1" in s for s in layouts)))
+        print(f"checkpoint {mode} with lora= (merged on the host before the quantize): init "
+              f"seconds {init_s:.3f}; cells {sorted(layouts)}; dequantized error against the "
+              f"merged weights, in half steps of their scale: {worst} (limit "
+              f"{QUANT_MERGE_LIMIT[mode]}), control (the "
+              f"unmerged weights) {control}; {label}: launches [K1, K2, K1 hopper, K2 hopper] "
+              f"{launches}, seconds {seconds:.4f}: ok={ok}", flush=True)
+        if not ok:
+            raise AssertionError(f"checkpoint LoRA merge {mode} failed its checks")
+        paths[label] = (launches, seconds)
+        del pipe, out
+        gc.collect()
+        torch.cuda.empty_cache()
+    return paths
+
+
+def video_lora_state_dict(blocks, layers, gen, rank=LORA_RANK):
+    """A CogVideoX adapter in diffusers' naming over every block target of
+    `layers` layers (qkv as to_q / to_k / to_v), shaped from the stack
+    tree `blocks`; alpha is half the rank."""
+    sd = {}
+    d_qkv = blocks["qkv"]["w"].shape[-1] // 3
+    modules = {"attn1.to_q": (blocks["qkv"]["w"].shape[1], d_qkv),
+               "attn1.to_k": (blocks["qkv"]["w"].shape[1], d_qkv),
+               "attn1.to_v": (blocks["qkv"]["w"].shape[1], d_qkv)}
+    for name, leaf in (("attn1.to_out.0", ("proj",)), ("ff.net.0.proj", ("ff_in",)),
+                       ("ff.net.2", ("ff_out",)), ("norm1.linear", ("norm1", "lin")),
+                       ("norm2.linear", ("norm2", "lin"))):
+        node = blocks
+        for p in leaf:
+            node = node[p]
+        modules[name] = tuple(node["w"].shape[1:])
+    for i in range(layers):
+        for name, (d_in, d_out) in modules.items():
+            key = f"transformer.transformer_blocks.{i}.{name}"
+            sd[f"{key}.lora_A.weight"] = torch.randn(rank, d_in, generator=gen,
+                                                     device="cuda") * d_in**-0.5
+            sd[f"{key}.lora_B.weight"] = torch.randn(d_out, rank, generator=gen,
+                                                     device="cuda") * (0.2 * rank**-0.5)
+            sd[f"{key}.alpha"] = torch.tensor(rank / 2, dtype=torch.float32)
+    return sd
+
+
+def video_lora_path(counters, root):
+    """CogVideoX-5b at full width cut to VIDEO_LORA_LAYERS blocks: `lora=` a
+    diffusers-named file over every block target, its merge held against
+    the CPU's f32 merge leaf by leaf, then `generate_video` (13x60x90,
+    STEPS_VIDEO steps) through the merged DiT with K1 and with the heads
+    paired (K3). Counters are [K1, K3, K1 hopper]. Returns ({path:
+    (launches, seconds)}, the plain pipeline, the lora= output)."""
+    from conceptattention_torch import VideoConceptAttentionPipeline
+    from conceptattention_torch.kernels import flash_saliency as fs
+    from conceptattention_torch.models.video.dit import cogvideox_5b_config
+    from conceptattention_torch.weights.convert import load_safetensors
+    from conceptattention_torch.weights.lora import convert_cogvideox_lora_state_dict
+
+    full = cogvideox_5b_config()
+    vcfg = dataclasses.replace(full, num_layers=VIDEO_LORA_LAYERS)
+    print(f"video lora: reduced {json.dumps({'model': 'cogvideox-5b', 'num_layers': [full.num_layers, VIDEO_LORA_LAYERS]})}",
+          flush=True)
+    plain = VideoConceptAttentionPipeline(vcfg, init_seed=0)
+    path = str(root / "lora-video.safetensors")
+    write_safetensors(path, video_lora_state_dict(plain.params["blocks"], VIDEO_LORA_LAYERS,
+                                                  torch.Generator("cuda").manual_seed(23)))
+    t0 = time.perf_counter()
+    lv = VideoConceptAttentionPipeline(vcfg, init_seed=0, lora=path, lora_strength=LORA_STRENGTH)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    adapter = convert_cogvideox_lora_state_dict(load_safetensors(path), vcfg)
+    merge = merge_readings(plain.params, lv.params, adapter, LORA_STRENGTH)
+    per_run = VIDEO_LORA_LAYERS * STEPS_VIDEO
+    kw = dict(num_frames=VIDEO_FRAMES, height=VIDEO_H, width=VIDEO_W,
+              num_inference_steps=STEPS_VIDEO, guidance_scale=6.0, seed=0)
+    paths, outs = {}, {}
+    for paired in (False, True):
+        fs.PAIR_HEADS = paired
+        try:
+            out, seconds, launches = counted(lambda: lv.generate_video(VIDEO_PROMPT, CONCEPTS, **kw),
+                                             counters)
+        finally:
+            fs.PAIR_HEADS = False
+        want = [0, per_run, 0] if paired else [per_run, 0, per_run]
+        label = f"generate_video (lora=, PAIR_HEADS {'on' if paired else 'off'})"
+        if launches != want or not np.isfinite(out.concept_heatmaps).all():
+            raise AssertionError(f"{label}: launches [K1, K3, K1 hopper] {launches} != {want}")
+        paths[label] = (launches, seconds)
+        outs[paired] = out
+    ok = merge.pop("ok")
+    print(f"video lora (CogVideoX-5b, {VIDEO_LORA_LAYERS} blocks, {VIDEO_FRAMES}x{VIDEO_H}x"
+          f"{VIDEO_W}, {STEPS_VIDEO} steps): built with lora= in {build_s:.3f} s; merge on the "
+          f"card against the CPU's f32 merge {json.dumps(merge)}; "
+          f"{json.dumps({k: {'launches [K1, K3, K1 hopper]': v[0], 'seconds': v[1]} for k, v in paths.items()})}; "
+          f"K3 against K1 through the merged DiT: concept heatmaps max abs diff "
+          f"{float(np.abs(outs[True].concept_heatmaps - outs[False].concept_heatmaps).max())}: "
+          f"ok={ok}", flush=True)
+    if not ok:
+        raise AssertionError("the video LoRA merge disagrees with the CPU's")
+    del lv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths, plain, outs[False]
+
+
+def http_json(port, method, path, body=None, timeout=600):
+    """(status, headers, JSON body) of one request to the daemon."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    conn.request(method, path, None if body is None else json.dumps(body),
+                 {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    data = json.loads(resp.read())
+    conn.close()
+    return resp.status, dict(resp.getheaders()), data
+
+
+def served_output(data):
+    """The served image (uint8, from its PNG) and heatmaps of a /v1/generate
+    or /v1/encode answer with heatmap_format "array"."""
+    import base64
+    import io
+
+    import PIL.Image
+
+    maps = lambda key: np.stack([np.asarray(data[key][c], np.float32) for c in CONCEPTS])  # noqa: E731
+    image = (np.asarray(PIL.Image.open(io.BytesIO(base64.b64decode(data["image"]))))
+             if "image" in data else None)
+    return types.SimpleNamespace(image=image, concept_heatmaps=maps("concept_heatmaps"),
+                                 cross_attention_maps=maps("cross_attention_maps"))
+
+
+def png_b64(arr) -> str:
+    import base64
+    import io
+
+    import PIL.Image
+
+    buf = io.BytesIO()
+    PIL.Image.fromarray(arr).save(buf, format="PNG")
+    return base64.b64encode(buf.getvalue()).decode()
+
+
+def concurrently(calls):
+    """Run every (label, fn) at once on its own thread; {label: result}."""
+    import threading
+
+    results = {}
+
+    def go(label, fn):
+        results[label] = fn()
+
+    threads = [threading.Thread(target=go, args=c) for c in calls]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return results
+
+
+def daemon_path(pipe, vpipe, lora_file, lora_out, video_lora_out, bf16_out, warm_seconds,
+                counters):
+    """The serving daemon on the smoke's bf16 flux-schnell weights (a
+    pipeline with `keep_base_for_swap=True` sharing them) and the cut video
+    pipeline: concurrent /v1/generate (3: one batch of 2, one of 1),
+    /v1/encode (2, one batch), /v1/generate_video, /healthz and /metrics;
+    each answer held against its direct call; a LoRA swap and a clear; the
+    cost of padding one request to bucket 2; a burst beyond the queue's
+    depth. Counters are [K1, K2, K1 hopper, K2 hopper]. Returns {path:
+    (launches, seconds)}."""
+    from conceptattention_torch import ConceptAttentionFluxPipeline
+    from conceptattention_torch.serving import ConceptAttentionServer, GenerateRequest
+
+    cfg = pipe.cfg
+    d, s = cfg.depth, cfg.depth_single_blocks
+    conv = sum(decoder_conv_shapes(pipe.spec.ae_params, SIZE // 8).values())
+    t0 = time.perf_counter()
+    dp = ConceptAttentionFluxPipeline("flux-schnell", params=pipe.params, ae_params=pipe.ae_params,
+                                      text_encoders=pipe.text_encoders, keep_base_for_swap=True)
+    torch.cuda.synchronize()
+    copy_s = time.perf_counter() - t0
+    swap_seconds = []
+    swap_loras = dp.swap_loras
+
+    def timed_swap(*args, **kwargs):  # the swap alone, on the batcher's worker
+        t0 = time.perf_counter()
+        out = swap_loras(*args, **kwargs)
+        torch.cuda.synchronize()
+        swap_seconds.append(time.perf_counter() - t0)
+        return out
+
+    dp.swap_loras = timed_swap
+    server = ConceptAttentionServer(dp, port=0, max_batch=2, bucket_sizes=(1, 2),
+                                    max_wait_ms=SERVE_MAX_WAIT_MS, max_queue_depth=SERVE_QUEUE_DEPTH,
+                                    request_timeout_s=600, video_pipeline=vpipe)
+    server.start()
+    port = server.port
+    gen_body = lambda prompt, seed, steps=STEPS: {  # noqa: E731
+        "prompt": prompt, "concepts": CONCEPTS, "seed": seed, "width": SIZE, "height": SIZE,
+        "num_inference_steps": steps, "heatmap_format": "array", "return_cross_attention": True}
+    rng = np.random.default_rng(13)
+    enc_images = [rng.integers(0, 256, (SIZE, SIZE, 3), dtype=np.uint8) for _ in SERVE_ENCODE_SEEDS]
+    enc_body = lambda i: {  # noqa: E731
+        "image": png_b64(enc_images[i]), "concepts": CONCEPTS, "width": SIZE, "height": SIZE,
+        "seed": SERVE_ENCODE_SEEDS[i], "heatmap_format": "array", "return_cross_attention": True}
+    video_kw = dict(num_frames=VIDEO_FRAMES, height=VIDEO_H, width=VIDEO_W,
+                    num_inference_steps=STEPS_VIDEO, guidance_scale=6.0, seed=0)
+    video_body = {"prompt": VIDEO_PROMPT, "concepts": CONCEPTS, "heatmap_format": "array",
+                  **video_kw}
+    paths = {}
+
+    def expect(label, launches, k1, decodes):
+        want = [k1, decodes * conv, k1, decodes * conv]
+        if launches != want:
+            raise AssertionError(f"daemon {label}: launches {launches} != {want}")
+
+    try:
+        calls = [(f"generate {i}", lambda i=i: http_json(port, "POST", "/v1/generate",
+                                                          gen_body(*SERVE_GENERATE[i])))
+                 for i in range(3)]
+        calls += [(f"encode {i}", lambda i=i: http_json(port, "POST", "/v1/encode", enc_body(i)))
+                  for i in range(2)]
+        calls += [("video", lambda: http_json(port, "POST", "/v1/generate_video", video_body)),
+                  ("healthz", lambda: http_json(port, "GET", "/healthz")),
+                  ("metrics", lambda: http_json(port, "GET", "/metrics"))]
+        res, seconds, launches = counted(lambda: concurrently(calls), counters)
+        bad = {k: (v[0], v[2].get("error")) for k, v in res.items() if v[0] != 200}
+        if bad:
+            raise AssertionError(f"daemon traffic: failed requests {bad}")
+        batch = {k: v[2].get("batch_size") for k, v in res.items() if "batch_size" in v[2]}
+        latency = {k: v[2].get("latency_ms") for k, v in res.items() if "latency_ms" in v[2]}
+        gen_sizes = sorted(batch[f"generate {i}"] for i in range(3))
+        if gen_sizes != [1, 2, 2] or [batch["encode 0"], batch["encode 1"], batch["video"]] != [2, 2, 1]:
+            raise AssertionError(f"daemon traffic: batch sizes {batch}")
+        per_image = STEPS * (d + s)
+        expect("traffic", launches, 2 * per_image + 3 + d + VIDEO_LORA_LAYERS * STEPS_VIDEO, 3)
+        paths["daemon: concurrent traffic"] = (launches, seconds)
+        health, metrics = res["healthz"][2], res["metrics"][2]
+        print(f"daemon traffic ({len(calls)} concurrent requests): seconds {seconds:.4f}, launches "
+              f"[K1, K2, K1 hopper, K2 hopper] {launches}; batch sizes {json.dumps(batch)}; "
+              f"latency ms {json.dumps(latency)}; healthz {json.dumps(health)}; metrics "
+              f"{json.dumps(metrics)}", flush=True)
+        if health.get("platform") != "cuda" or health.get("device") != torch.cuda.get_device_name(0):
+            raise AssertionError(f"healthz does not name the card: {health}")
+
+        swap = {}
+        for label, adapters in (("swap", [{"path": lora_file, "strength": LORA_STRENGTH}]),
+                                ("clear", [])):
+            def swap_and_generate(adapters=adapters):
+                st, _, answer = http_json(port, "POST", "/v1/loras", {"adapters": adapters})
+                return st, answer, http_json(port, "POST", "/v1/generate", gen_body(PROMPT, 0))
+            (st, answer, (gst, _, gen)), secs, launches = counted(swap_and_generate, counters)
+            if st != 200 or gst != 200:
+                raise AssertionError(f"daemon {label}: statuses {st}, {gst}: {answer} {gen}")
+            expect(label, launches, per_image + 1, 1)
+            swap[label] = {"active_loras": answer["active_loras"],
+                           "swap_loras seconds (merge and upload)": swap_seconds[-1],
+                           "POST /v1/loras latency ms": answer["latency_ms"],
+                           "generate latency ms": gen["latency_ms"], "output": served_output(gen)}
+            paths[f"daemon: {label} and generate"] = (launches, secs)
+        swapped, cleared = swap["swap"].pop("output"), swap["clear"].pop("output")
+        swap_ok = (same_output(swapped, lora_out) and same_output(cleared, bf16_out)
+                   and not np.array_equal(swapped.image, cleared.image)
+                   and swap["swap"]["active_loras"] == [{"source": lora_file,
+                                                         "strength": LORA_STRENGTH}]
+                   and swap["clear"]["active_loras"] == [])
+        print(f"daemon lora swap: keep_base_for_swap host copy seconds {copy_s:.3f}; "
+              f"{json.dumps(swap)}; swapped image equals the lora= pipeline's bit for bit, and the "
+              f"clear restores the pre-swap (bf16 generate_image) image bit for bit: ok={swap_ok}",
+              flush=True)
+
+        req = GenerateRequest.from_json(gen_body(PROMPT, 0))
+        buckets, server._buckets = server._buckets, (2,)
+        try:
+            (padded,), pad_s, launches = counted(lambda: server._run_batch([req]), counters)
+        finally:
+            server._buckets = buckets
+        expect("padded batch", launches, per_image + 2, 2)
+        paths["daemon: one request padded to bucket 2"] = (launches, pad_s)
+        print(f"daemon padding: one request padded to bucket 2 seconds {pad_s:.4f}, batch 1 "
+              f"(the warm generate_image) {warm_seconds:.4f}, cost {pad_s - warm_seconds:.4f} s; "
+              f"its heatmaps against batch 1, relative RMS {heatmaps_rms(padded[0], bf16_out)}",
+              flush=True)
+
+        def burst():
+            busy = []
+            import threading
+
+            before = server.batcher.stats.requests_total
+            t = threading.Thread(target=lambda: busy.append(
+                http_json(port, "POST", "/v1/generate", gen_body(PROMPT, 0))))
+            t.start()
+            deadline = time.monotonic() + 60
+            while (server.batcher.stats.requests_total == before or server.batcher.queue_depth()) \
+                    and time.monotonic() < deadline:
+                time.sleep(0.001)
+            out = concurrently([(i, lambda i=i: http_json(port, "POST", "/v1/generate",
+                                                          gen_body(f"burst request {i}", 100 + i, 1)))
+                                for i in range(SERVE_BURST)])
+            t.join()
+            return busy[0], out
+
+        rejects0 = server.batcher.stats.rejects_total
+        (busy, out), secs, launches = counted(burst, counters)
+        codes = sorted(v[0] for v in out.values())
+        refused = [v for v in out.values() if v[0] == 503]
+        retry = sorted({int(v[1].get("Retry-After", 0)) for v in refused})
+        burst_ok = (busy[0] == 200 and codes.count(200) == SERVE_QUEUE_DEPTH
+                    and len(refused) == SERVE_BURST - SERVE_QUEUE_DEPTH
+                    and all(r >= 1 for r in retry)
+                    and server.batcher.stats.rejects_total - rejects0 == len(refused))
+        expect("burst", launches, per_image + 1 + (SERVE_QUEUE_DEPTH // 2) * (d + s + 2),
+               1 + SERVE_QUEUE_DEPTH)
+        paths["daemon: burst"] = (launches, secs)
+        print(f"daemon burst: {SERVE_BURST} requests while one runs, max_queue_depth "
+              f"{SERVE_QUEUE_DEPTH}: statuses {codes}, Retry-After {retry}; seconds {secs:.4f}, "
+              f"launches {launches}: ok={burst_ok}", flush=True)
+        _, _, metrics = http_json(port, "GET", "/metrics")
+        print(f"daemon metrics at the end: {json.dumps(metrics)}", flush=True)
+    finally:
+        server.stop()
+
+    def directs():
+        kw = dict(width=SIZE, height=SIZE, num_inference_steps=STEPS, return_pil_heatmaps=False,
+                  return_image_array=True)
+        gens = [bf16_out] + [pipe.generate_image(p, CONCEPTS, seed=sd, **kw)
+                             for p, sd in SERVE_GENERATE[1:]]
+        encs = [pipe.encode_image(enc_images[i], CONCEPTS, width=SIZE, height=SIZE, seed=sd,
+                                  return_pil_heatmaps=False)
+                for i, sd in enumerate(SERVE_ENCODE_SEEDS)]
+        return gens, encs, vpipe.generate_video(VIDEO_PROMPT, CONCEPTS, **video_kw)
+
+    (gens, encs, video), secs, launches = counted(directs, counters)
+    expect("direct calls", launches, 2 * per_image + 2 * d + 2 + VIDEO_LORA_LAYERS * STEPS_VIDEO, 2)
+    paths["daemon: direct calls"] = (launches, secs)
+    readings, ok = {}, burst_ok and swap_ok
+    for i in range(3):
+        got = served_output(res[f"generate {i}"][2])
+        other = gens[(i + 1) % 3]
+        if batch[f"generate {i}"] == 1:
+            r = {"batch": 1, "bit for bit": same_output(got, gens[i])}
+            ok = ok and r["bit for bit"]
+        else:
+            r = {"batch": 2, "heatmaps relative RMS": heatmaps_rms(got, gens[i]),
+                 "image relative RMS": np_rel_rms(got.image, gens[i].image),
+                 "control (another request's direct call)": heatmaps_rms(got, other),
+                 "limit": SERVE_BATCH_LIMIT}
+            ok = ok and r["heatmaps relative RMS"] <= SERVE_BATCH_LIMIT < r[
+                "control (another request's direct call)"]
+        readings[f"generate {i}"] = r
+    for i in range(2):
+        got = served_output(res[f"encode {i}"][2])
+        r = {"batch": 2, "heatmaps relative RMS": heatmaps_rms(got, encs[i]),
+             "control (the other image's direct call)": heatmaps_rms(got, encs[1 - i]),
+             "limit": ENCODE_IMAGES_LIMIT}
+        ok = ok and r["heatmaps relative RMS"] <= ENCODE_IMAGES_LIMIT < r[
+            "control (the other image's direct call)"]
+        readings[f"encode {i}"] = r
+    served_video = np.stack([np.asarray(res["video"][2]["concept_heatmaps"][c], np.float32)
+                             for c in CONCEPTS])
+    r = {"bit for bit": bool(np.array_equal(served_video, video.concept_heatmaps)),
+         "control (the lora= DiT's maps) max abs diff": float(
+             np.abs(served_video - video_lora_out.concept_heatmaps).max())}
+    ok = ok and r["bit for bit"] and r["control (the lora= DiT's maps) max abs diff"] > 0
+    readings["video"] = r
+    print(f"daemon answers against direct calls (launches {launches}, seconds {secs:.4f}): "
+          f"{json.dumps(readings)}: ok={ok}", flush=True)
+    if not ok:
+        raise AssertionError("the daemon failed a check")
+    del dp
+    gc.collect()
+    return paths
+
+
+def cli_path():
+    """`python -m conceptattention_torch --loop` in a subprocess on the card
+    at SIZE: two prompts from its standard input (cold, then warm), the image
+    and one heatmap PNG per concept, the NSFW gate without its classifier
+    (the card's machine has no `transformers`), and its kernel launches read
+    back from its output. Returns ({path: (launches, seconds)}, seconds)."""
+    import re
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    free, total = torch.cuda.mem_get_info()
+    print(f"cli: device memory free before the subprocess {free / 2**30:.2f} GiB of "
+          f"{total / 2**30:.2f}", flush=True)
+    root = Path(tempfile.mkdtemp(prefix="smoke_cli_", dir=Path(__file__).resolve().parent / "build"))
+    try:
+        out_png, hm_dir = root / "cli.png", root / "heatmaps"
+        env = dict(os.environ, HF_HUB_OFFLINE="1",
+                   PYTHONPATH=str(Path(__file__).resolve().parent))
+        stdin = f"{PROMPT}\n{' '.join(CONCEPTS)}\n{SERVE_GENERATE[1][0]}\n\nq\n"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "conceptattention_torch", "--loop", "--width", str(SIZE),
+             "--height", str(SIZE), "--output", str(out_png), "--heatmap_dir", str(hm_dir)],
+            input=stdin, capture_output=True, text=True, timeout=600, env=env,
+            cwd=Path(__file__).resolve().parent)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"the CLI failed ({proc.returncode}): {proc.stderr[-3000:]}")
+        seconds = [float(x) for x in re.findall(r"wrote \S+ in ([0-9.]+)s", proc.stdout)]
+        launches = [json.loads(x) for x in re.findall(r"kernel launches (\{.*\})", proc.stdout)]
+        import PIL.Image
+
+        from conceptattention_torch.config import configs
+
+        image = PIL.Image.open(out_png)
+        maps = sorted(os.listdir(hm_dir))
+        spec = configs["flux-schnell"]
+        conv = sum(decoder_conv_shapes(spec.ae_params, SIZE // 8).values())
+        per_image = STEPS * (spec.params.depth + spec.params.depth_single_blocks) + 1
+        want = {"flash_saliency": per_image, "conv3x3": conv,
+                "flash_saliency (Hopper instance)": per_image, "conv3x3 (Hopper instance)": conv}
+        ok = (len(seconds) == 2 and len(launches) == 2 and image.size == (SIZE, SIZE)
+              and maps == sorted(f"{c}.png" for c in CONCEPTS)
+              and all({k: l[k] for k in want} == want for l in launches)
+              and "NSFW classifier unavailable" in proc.stdout)
+        print(f"cli subprocess: wall seconds {wall:.3f} (start, random bf16 init, two images); "
+              f"image seconds cold {seconds[0] if seconds else None}, warm "
+              f"{seconds[1] if len(seconds) > 1 else None}; launches {json.dumps(launches)}; "
+              f"heatmaps {maps}; NSFW line "
+              f"{[l for l in proc.stdout.splitlines() if 'NSFW' in l][:1]}: ok={ok}", flush=True)
+        if not ok:
+            raise AssertionError(f"the CLI's output is not what it should be:\n{proc.stdout[-3000:]}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    total = [sum(l[k] for l in launches) for k in ("flash_saliency", "conv3x3",
+                                                   "flash_saliency (Hopper instance)",
+                                                   "conv3x3 (Hopper instance)")]
+    return {"cli (python -m conceptattention_torch --loop, 2 images)": (total, sum(seconds))}
+
+
+def diffusers_controlnet_path(pipe, counters):
+    """`FluxWithConceptAttentionPipeline` on the smoke's pipeline with true
+    CFG (2.0, a negative prompt), maps gated to 4 layers and to 2 of STEPS
+    steps (and to the one step of a 1-step call), against the same calls on
+    the sdpa backend; then the ControlNet
+    residuals: zeros leave `flux_forward` (full width, SIZE) bit for bit,
+    and random residuals in both layouts on the card in f32 against the CPU
+    on a cut model. Counters are [K1, K2, K1 hopper, K2 hopper]. Returns
+    {path: (launches, seconds)}."""
+    from conceptattention_torch import ConceptAttentionFluxPipeline
+    from conceptattention_torch.models.flux.dit import flux_forward
+    from conceptattention_torch.models.flux.params import tree_map
+    from conceptattention_torch.ops.attention import ConceptAttentionSpec
+    from conceptattention_torch.ops.packing import make_img_ids
+    from conceptattention_torch.pipeline.concept_pipeline import _full_f32
+    from conceptattention_torch.pipeline.diffusers_like import FluxWithConceptAttentionPipeline
+
+    cfg = pipe.cfg
+    d, s = cfg.depth, cfg.depth_single_blocks
+    conv = sum(decoder_conv_shapes(pipe.spec.ae_params, SIZE // 8).values())
+    call = dict(prompt=PROMPT, negative_prompt="blurry, low quality", height=SIZE, width=SIZE,
+                num_inference_steps=STEPS, true_cfg=2.0, seed=0, output_type="np",
+                concept_attention_kwargs={"concepts": CONCEPTS, "timesteps": [1, 3],
+                                          "layers": EVAL_LAYERS})
+    paths = {}
+    sp = ConceptAttentionFluxPipeline("flux-schnell", params=pipe.params, ae_params=pipe.ae_params,
+                                      text_encoders=pipe.text_encoders, attention_backend="sdpa")
+    readings, ok = {}, True
+    for steps, gate in ((STEPS, [1, 3]), (1, [0])):
+        kw = dict(call, num_inference_steps=steps,
+                  concept_attention_kwargs=dict(call["concept_attention_kwargs"], timesteps=gate))
+        fused, f_s, f_l = counted(lambda: FluxWithConceptAttentionPipeline(pipe)(**kw), counters)
+        want = [2 * steps * (d + s) + 1, conv, 2 * steps * (d + s) + 1, conv]
+        if f_l != want:
+            raise AssertionError(f"diffusers_like launches {f_l} != {want}")
+        plain, p_s, p_l = counted(lambda: FluxWithConceptAttentionPipeline(sp)(**kw), counters)
+        if p_l != [1, conv, 1, conv]:
+            raise AssertionError(f"diffusers_like (sdpa) launches {p_l}")
+        paths[f"diffusers_like (true CFG, {steps} steps)"] = (f_l, f_s)
+        paths[f"diffusers_like (true CFG, {steps} steps, sdpa)"] = (p_l, p_s)
+        fm, pm = np.stack(fused.concept_attention_maps), np.stack(plain.concept_attention_maps)
+        r = {"fused seconds": f_s, "sdpa seconds": p_s, "launches [K1, K2, K1 hopper, K2 hopper]": f_l,
+             "maps relative RMS": np_rel_rms(fm, pm),
+             "control (each map against another concept's)": np_rel_rms(np.roll(fm, 1, 0), pm),
+             "limit": DIFFUSERS_LIMIT,
+             "image relative RMS": np_rel_rms(fused.images[0], plain.images[0]),
+             "map sums": [float(m.sum()) for m in fm]}
+        ok = (ok and r["maps relative RMS"] <= DIFFUSERS_LIMIT
+              < r["control (each map against another concept's)"]
+              and fm.shape == (len(CONCEPTS), SIZE // 16, SIZE // 16)
+              and fused.images[0].shape == (SIZE, SIZE, 3))
+        readings[f"{steps} steps, maps at steps {gate}"] = r
+    del sp
+    print(f"diffusers_like {SIZE}x{SIZE}, true_cfg 2.0, layers {EVAL_LAYERS}, fused against sdpa "
+          f"(per step {d} double blocks with concept rows, {d} without (the negative pass), "
+          f"2 x {s} single blocks, all on K1, the gated layers and steps kept from them; the sdpa "
+          f"runs launch K1 in the decode only): {json.dumps(readings)}: ok={ok}", flush=True)
+
+    gen = torch.Generator("cuda").manual_seed(31)
+    with torch.inference_mode():
+        txt, txt_ids, vec = pipe._prepare_text(PROMPT)
+        c_emb, c_ids, c_vec = pipe._prepare_concepts(CONCEPTS)
+        grid = SIZE // 16
+        img = torch.randn(1, grid * grid, cfg.in_channels, generator=gen,
+                          device="cuda").to(pipe.dtype)
+        args = dict(img=img, img_ids=make_img_ids(grid, grid, 1, device="cuda"), txt=txt,
+                    txt_ids=txt_ids, timesteps=torch.full((1,), 0.5, device="cuda"), y=vec,
+                    concepts=c_emb, concept_ids=c_ids, concept_vec=c_vec, spec=pipe.attention_spec)
+        zeros = torch.zeros(2, 1, grid * grid, cfg.hidden_size, dtype=pipe.dtype, device="cuda")
+
+        def zero_check():
+            a = flux_forward(pipe.params, cfg, **args)
+            b = flux_forward(pipe.params, cfg, **args, controlnet_block_samples=zeros,
+                             controlnet_single_block_samples=zeros)
+            return a, b
+
+        ((pa, sa), (pb, sb)), z_s, z_l = counted(zero_check, counters)
+    if z_l != [2 * (d + s), 0, 2 * (d + s), 0]:
+        raise AssertionError(f"controlnet zero check launches {z_l}")
+    paths["flux_forward (zero ControlNet residuals, twice)"] = (z_l, z_s)
+    zero_ok = torch.equal(pa, pb) and all(torch.equal(sa[k], sb[k]) for k in sa)
+
+    cut = dataclasses.replace(cfg, depth=CN_DEPTH, depth_single_blocks=CN_SINGLE)
+    params = {k: v for k, v in pipe.params.items() if k not in ("double", "single")}
+    params["double"] = tree_map(lambda x: x[:CN_DEPTH], pipe.params["double"])
+    params["single"] = tree_map(lambda x: x[:CN_SINGLE], pipe.params["single"])
+    card = tree_map(lambda x: x.float(), params)
+    host = tree_map(lambda x: x.cpu(), card)
+    cgen = torch.Generator().manual_seed(32)
+    g = CN_SIZE // 16
+    inputs = dict(img=torch.randn(1, g * g, cfg.in_channels, generator=cgen),
+                  img_ids=make_img_ids(g, g, 1), txt=torch.randn(1, CN_TXT, cfg.context_in_dim,
+                                                                  generator=cgen),
+                  txt_ids=torch.zeros(1, CN_TXT, 3), timesteps=torch.full((1,), 0.5),
+                  y=torch.randn(1, cfg.vec_in_dim, generator=cgen),
+                  concepts=torch.randn(1, len(CONCEPTS), cfg.context_in_dim, generator=cgen),
+                  concept_ids=torch.zeros(1, len(CONCEPTS), 3),
+                  concept_vec=torch.zeros(1, cfg.vec_in_dim))
+    residuals = dict(controlnet_block_samples=torch.randn(2, 1, g * g, cfg.hidden_size,
+                                                          generator=cgen),
+                     controlnet_single_block_samples=torch.randn(2, 1, g * g, cfg.hidden_size,
+                                                                 generator=cgen))
+    spec = ConceptAttentionSpec(backend="sdpa")
+    runs = {}
+    with torch.inference_mode(), _full_f32():
+        for repeat in (False, True):
+            kw = dict(spec=spec, controlnet_blocks_repeat=repeat)
+            on_card = flux_forward(card, cut, **{k: v.cuda() for k, v in inputs.items()},
+                                   **{k: v.cuda() for k, v in residuals.items()}, **kw)
+            t0 = time.perf_counter()
+            on_cpu = flux_forward(host, cut, **inputs, **residuals, **kw)
+            runs[repeat] = (on_card, on_cpu, time.perf_counter() - t0)
+    cn = {}
+    for repeat, (on_card, on_cpu, cpu_s) in runs.items():
+        layout = "repeat" if repeat else "interval"
+        cn[layout] = {"pred relative RMS": rel_rms(on_card[0].cpu(), on_cpu[0]),
+                      "output maps relative RMS": rel_rms(on_card[1]["output"].cpu(),
+                                                          on_cpu[1]["output"]),
+                      "control (the other layout's CPU pred)": rel_rms(
+                          on_card[0].cpu(), runs[not repeat][1][0]),
+                      "CPU seconds": cpu_s}
+    cn_ok = zero_ok and all(
+        max(r["pred relative RMS"], r["output maps relative RMS"]) <= CONTROLNET_LIMIT
+        < r["control (the other layout's CPU pred)"] for r in cn.values())
+    print(f"controlnet: zero residuals leave flux_forward ({SIZE}x{SIZE}, full width, fused) bit "
+          f"for bit: {zero_ok} (launches {z_l}, seconds {z_s:.4f}); random residuals on the card "
+          f"(f32, sdpa) against the CPU, flux-schnell cut to {CN_DEPTH} + {CN_SINGLE} blocks at "
+          f"{CN_SIZE}x{CN_SIZE} with {CN_TXT} txt tokens: {json.dumps(cn)}, limit "
+          f"{CONTROLNET_LIMIT}: ok={cn_ok}", flush=True)
+    if not (ok and cn_ok):
+        raise AssertionError("diffusers_like or the ControlNet residuals failed a check")
     return paths
 
 
@@ -3374,13 +4433,19 @@ def main() -> int:
     # img2img, and the two checkpoint pipelines' 1-step generate_image), and
     # encode_nhwc runs the encoder's mid-attention once.
     dev_decodes = 4
-    flash = flash_phases(cfg, n_double, n_single, decodes + dev_decodes + 1)
+    # LoRA, the daemon, the CLI, diffusers_like and ControlNet (their K1
+    # launches per shape, and their decodes)
+    plan = pr13_k1_plan(cfg)
+    flash = flash_phases(cfg, n_double + plan["double"], n_single + plan["single"],
+                         decodes + dev_decodes + 1 + plan["decodes"])
     dev_cfg = configs["flux-dev"].params
     i2i_steps = STEPS - int(0.5 * STEPS)
     flash += new_shape_flash_phases(cfg, {
-        "dev double": (STEPS + i2i_steps) * dev_cfg.depth + 2 * CKPT_DEPTH,
-        "dev single": (STEPS + i2i_steps) * dev_cfg.depth_single_blocks + 2 * CKPT_SINGLE,
-        "double b2": cfg.depth, "double b4": cfg.depth})
+        "dev double": (STEPS + i2i_steps) * dev_cfg.depth + 2 * CKPT_DEPTH + plan["dev double"],
+        "dev single": ((STEPS + i2i_steps) * dev_cfg.depth_single_blocks + 2 * CKPT_SINGLE
+                       + plan["dev single"]),
+        "double b2": cfg.depth + plan["double b2"], "double b4": cfg.depth})
+    flash += serving_flash_phases(cfg, plan)
     flash += eval_flash_phases(cfg)
     flash += sweep_flash_phases(cfg)
     flash += compare_flash_phases(cfg)
@@ -3390,12 +4455,15 @@ def main() -> int:
         "double": STEPS * cfg.depth + cfg.depth, "double b2": STEPS * cfg.depth,
         "single": STEPS * cfg.depth_single_blocks, "single b2": STEPS * cfg.depth_single_blocks})
     conv_counts = decoder_conv_shapes(spec.ae_params, SIZE // 8)
-    conv = conv_phases(Counter({shape: (decodes + dev_decodes) * n for shape, n in conv_counts.items()})
+    conv = conv_phases(Counter({shape: (decodes + dev_decodes + plan["decodes"]) * n
+                                for shape, n in conv_counts.items()})
                        + encoder_conv_shapes(spec.ae_params, SIZE))
     video_per_run = cogvideox_5b_config().num_layers * STEPS_VIDEO  # one generate_video
-    # K1 in generate_video (bf16, PAIR_HEADS off) and in the w8a8 run
-    video_k1, video_k3 = video_flash_phases(cogvideox_5b_config(), 2 * video_per_run,
-                                            video_per_run)
+    video_lora_k3 = VIDEO_LORA_LAYERS * STEPS_VIDEO  # the lora= run with PAIR_HEADS on
+    # K1 in generate_video (bf16, PAIR_HEADS off), in the w8a8 run and on the
+    # cut DiT of the video LoRA and the daemon
+    video_k1, video_k3 = video_flash_phases(cogvideox_5b_config(), 2 * video_per_run + plan["video"],
+                                            video_per_run + video_lora_k3)
     # K4 in the ring_rdma generate_image and encode_image (every double block)
     ring = ring_phases(cfg, cogvideox_5b_config(), STEPS * cfg.depth + cfg.depth)
     across = cross_card_ring_phase(cfg)
@@ -3460,6 +4528,26 @@ def main() -> int:
     sd_unet_path(dataset, counters)
     perturbation_path(dataset, counters)
     new_paths["qualitative comparison"] = qualitative_path(pipe, counters, dataset)
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    video_counters = [fused_concept_flash_attention, fused_concept_flash_attention_paired,
+                      fused_concept_flash_attention_hopper]
+    scratch = Path(tempfile.mkdtemp(prefix="smoke_lora_", dir=Path(__file__).resolve().parent / "build"))
+    try:
+        lora_paths, lora_file, lora_out = lora_path(pipe, bf16_out, counters, scratch)
+        new_paths.update(lora_paths)
+        video_lora_paths, vpipe, video_lora_out = video_lora_path(video_counters, scratch)
+        new_paths.update(daemon_path(pipe, vpipe, lora_file, lora_out, video_lora_out, bf16_out,
+                                     gen_seconds[1], counters))
+        del vpipe, video_lora_out, lora_out
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    new_paths.update(diffusers_controlnet_path(pipe, counters))
+    gc.collect()
+    torch.cuda.empty_cache()
+    new_paths.update(cli_path())
     names = ["flash_saliency", "conv3x3", "flash_saliency (Hopper instance)", "conv3x3 (Hopper instance)"]
     print("launches per kernel instance: " + json.dumps({
         "generate_image": dict(zip(names, want_gen)),
@@ -3477,8 +4565,6 @@ def main() -> int:
                            bf16_out, want_gen[1])
     del bf16_out
 
-    video_counters = [fused_concept_flash_attention, fused_concept_flash_attention_paired,
-                      fused_concept_flash_attention_hopper]
     video_summary = video_path(video_counters)
     print(f"generate_video summary {json.dumps(video_summary)}", flush=True)
     video_k1_w8a8 = quantized_video_path(video_counters)
@@ -3533,10 +4619,11 @@ def main() -> int:
     def new_path_launches(i):
         return {k: launches[i] for k, (launches, _) in new_paths.items() if launches[i]}
 
+    video_lora_k1 = {k: v[0][0] for k, v in video_lora_paths.items() if v[0][0]}
     k1_paths, k1_total = per_path(0, {
         "generate_image": want_gen[0], "encode_image": cfg.depth,
         "generate_video (PAIR_HEADS off)": video_k1_bf16, "generate_video (w8a8)": video_k1_w8a8,
-        "generate_image (ring_rdma)": ring_gen[1], **new_path_launches(0)})
+        "generate_image (ring_rdma)": ring_gen[1], **video_lora_k1, **new_path_launches(0)})
     k1b_paths, k1b_total = per_path(1, {})
     k1b_hopper_paths, _ = per_path(5, {})
     if k1b_hopper_paths != k1b_paths:  # every flux K1b launch is at head dim 128
@@ -3545,6 +4632,10 @@ def main() -> int:
                                       "generate_image (ring_rdma)": ring_gen[2],
                                       **new_path_launches(1)})
     k4_paths = {label: launches[0] for label, (launches, _, _) in ring_paths.items()}
+    k3_paths = {"generate_video (PAIR_HEADS on)": video_k3_paired,
+                **{k: v[0][1] for k, v in video_lora_paths.items() if v[0][1]}}
+    if sum(k3_paths.values()) != video_k3_paired + video_lora_k3:
+        raise AssertionError(f"K3 launches {k3_paths} != the plan's")
     kernels = [
         entry("flash_saliency", "conceptattention_torch/csrc/flash_saliency_sm90.cu",
               "conceptattention_tpu/kernels/flash_saliency.py:305", k1_total, flash + video_k1,
@@ -3559,16 +4650,17 @@ def main() -> int:
                       video_summary["ddim warm"]["launches [K1, K3, K1 hopper]"][2],
                   "generate_video (w8a8)": video_k1_w8a8,
                   "generate_image (ring_rdma)": ring_gen[3],
+                  **{k: v[0][2] for k, v in video_lora_paths.items() if v[0][2]},
                   **{k: v[3] for k, v in quant_paths.items() if v[3]}, **new_path_launches(2)}),
         entry("flash_saliency_paired", "conceptattention_torch/csrc/flash_saliency_sm90.cu",
-              "conceptattention_tpu/kernels/flash_saliency.py:670", video_k3_paired, video_k3,
-              {"generate_video (PAIR_HEADS on)": video_k3_paired}, also=("mma_sync_ms", "k1_ms"),
+              "conceptattention_tpu/kernels/flash_saliency.py:670", video_k3_paired + video_lora_k3,
+              video_k3, k3_paths, also=("mma_sync_ms", "k1_ms"),
               instances={
                   "conceptattention_torch/csrc/flash_saliency_sm90.cu":
                       "head dim 64, two heads a block (Hopper; ca_flash_saliency_paired_sm90_bf16)",
                   "conceptattention_torch/csrc/flash_saliency.cu":
                       "not launched by the port; its mma.sync instance timed as mma_sync_ms"},
-              hopper_launches_per_path={"generate_video (PAIR_HEADS on)": video_k3_paired}),
+              hopper_launches_per_path=k3_paths),
         entry("conv3x3", "conceptattention_torch/csrc/conv3x3_sm90.cu",
               "conceptattention_tpu/kernels/conv3x3.py:91", k2_total, conv, k2_paths, instances={
                   "conceptattention_torch/csrc/conv3x3_sm90.cu": "bf16, Cin % 64 == 0 (Hopper)",

@@ -1,10 +1,11 @@
 """Flux DiT forward pass with the optional concept stream.
 
-Counterpart of the JAX package's `models/flux/dit.py` (no ControlNet, no
-remat): Python loops over the 19 double and 38 single blocks of the stacked
-parameters. With `concepts=None` this is the vanilla Flux forward; with
-concepts it adds the third token stream and emits per-layer saliency maps.
+Counterpart of the JAX package's `models/flux/dit.py` (no remat): Python
+loops over the 19 double and 38 single blocks of the stacked parameters.
+With `concepts=None` this is the vanilla Flux forward; with concepts it adds
+the third token stream and emits per-layer saliency maps.
 `stop_after_multimodal_attentions` returns after the double blocks.
+ControlNet residuals are added to the image stream after each block.
 """
 
 from __future__ import annotations
@@ -30,6 +31,19 @@ def _conditioning_vector(params, cfg: FluxConfig, timesteps, guidance, y):
     return vec + mlp_embedder(y, params["vector_in"])
 
 
+def _controlnet_per_layer(samples: Optional[torch.Tensor], depth: int, repeat: bool):
+    """[n, B, P, D] ControlNet residuals -> one [B, P, D] residual per layer
+    (views): sample i % n when `repeat` (the XLabs layout), else
+    i // ceil(depth / n) (diffusers' interval layout). None gives None."""
+    if samples is None:
+        return None
+    n = samples.shape[0]
+    if repeat:
+        return [samples[i % n] for i in range(depth)]
+    interval = -(-depth // n)  # ceil
+    return [samples[min(i // interval, n - 1)] for i in range(depth)]
+
+
 def flux_forward(
     params: Dict[str, Any],
     cfg: FluxConfig,
@@ -45,6 +59,9 @@ def flux_forward(
     concept_vec: Optional[torch.Tensor] = None,
     stop_after_multimodal_attentions: bool = False,
     spec: ConceptAttentionSpec = ConceptAttentionSpec(),
+    controlnet_block_samples: Optional[torch.Tensor] = None,
+    controlnet_single_block_samples: Optional[torch.Tensor] = None,
+    controlnet_blocks_repeat: bool = False,
 ) -> Tuple[Optional[torch.Tensor], Dict[str, torch.Tensor]]:
     """Run the DiT.
 
@@ -54,6 +71,11 @@ def flux_forward(
       timesteps: [B] flow time in [0, 1]; y: [B, vec_in_dim] pooled vector.
       concepts: [B, C, context_in_dim] concept embeddings, or None.
       concept_vec: [B, vec_in_dim] concept pooled vector (zeros).
+      controlnet_block_samples: [n, B, P, hidden] residuals added to the img
+        stream after each double block, laid out per
+        `controlnet_blocks_repeat` (`_controlnet_per_layer`).
+      controlnet_single_block_samples: [m, B, P, hidden] residuals added to
+        the image slice after each single block (interval layout).
 
     Returns (pred, saliency): pred [B, P, in_channels] (None when stopping
     after the double blocks), saliency {tap: [depth, B, C, P] f32} (empty
@@ -75,12 +97,16 @@ def flux_forward(
             torch.cat([concept_ids, img_ids], dim=1), cfg.axes_dim, cfg.theta
         )
 
+    cn_double = _controlnet_per_layer(controlnet_block_samples, cfg.depth,
+                                      controlnet_blocks_repeat)
     per_layer = []
     for i in range(cfg.depth):
         img, txt, concepts, saliency = double_block(
             layer(params["double"], i), img, txt, vec, pe, cfg.num_heads,
             concepts=concepts, concept_vec=cvec, concept_pe=concept_pe, spec=spec,
         )
+        if cn_double is not None:
+            img = img + cn_double[i].to(img.dtype)
         per_layer.append(saliency)
     saliency = {k: torch.stack([s[k] for s in per_layer]) for k in per_layer[0]}
 
@@ -89,10 +115,14 @@ def flux_forward(
 
     t_len = txt.shape[1]
     x = torch.cat([txt, img], dim=1)
+    cn_single = _controlnet_per_layer(controlnet_single_block_samples,
+                                      cfg.depth_single_blocks, False)
     for i in range(cfg.depth_single_blocks):
         x = single_block(
             layer(params["single"], i), x, vec, pe, cfg.num_heads, cfg.mlp_hidden_dim,
             backend=spec.backend, int8_qk=spec.int8_qk,
         )
+        if cn_single is not None:  # the residual lands on the image slice only
+            x = torch.cat([x[:, :t_len], x[:, t_len:] + cn_single[i].to(x.dtype)], dim=1)
     pred = last_layer(params["final"], x[:, t_len:], vec)
     return pred, saliency

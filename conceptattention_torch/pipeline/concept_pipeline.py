@@ -15,7 +15,10 @@ key names, `weights/convert.py`), else they are randomly initialized from
 converted and quantized on the host and only the quantized tree moves to the
 device; without one the stacks are drawn already quantized (`ops/quant.py`).
 `int8_qk=True` computes the attention scores of every DiT block from int8 q
-and k (K1b).
+and k (K1b). `lora=` merges LoRA adapters into the DiT weights as they are
+built (`weights/lora.py`; before the host quantize on the checkpoint path),
+and with `keep_base_for_swap=True` a host copy of the pre-merge weights lets
+`swap_loras` replace the merged set at run time.
 
 The pipeline runs on one device, "cuda" unless the caller names another; it
 never falls back to the CPU. With `mesh=` (`parallel.make_mesh(seq=N)`) and a
@@ -60,6 +63,7 @@ from conceptattention_torch.parallel.mesh import Mesh
 from conceptattention_torch.pipeline.heatmaps import heatmaps_to_pil, reduce_maps
 from conceptattention_torch.sampling.rectified_flow import denoise, forward_noise, get_noise
 from conceptattention_torch.utils.images import as_float01_chw
+from conceptattention_torch.weights.lora import load_lora, merge_loras
 
 # Salt of the VAE reparameterization draw's seed, kept apart from the
 # diffusion-noise seeds (seed + i) so the two draws never coincide.
@@ -177,17 +181,19 @@ def batched_images_saliency(
 
 
 def _load_flux_params(path: str, cfg, dtype: torch.dtype, mode: Optional[str],
-                      device: torch.device):
+                      device: torch.device, prepare=lambda params, stage: params):
     """A Flux checkpoint's parameter tree on `device`. Without a quantize
     `mode` each mapped tensor is copied to the device as stored and converted
     there. With one the tree is converted, quantized (one layer in f32 at a
     time) and laid out for the int8 GEMM on the host, then moved, so the
-    unquantized tree never reaches the device."""
+    unquantized tree never reaches the device. `prepare(params, stage)`
+    runs on the unquantized tree: on the device ("final"), or on the host
+    before the quantize ("prequant")."""
     from conceptattention_torch.weights.convert import convert_flux_state_dict, load_safetensors
 
     if not mode:
-        return convert_flux_state_dict(load_safetensors(path), cfg, dtype, device)
-    params = convert_flux_state_dict(load_safetensors(path), cfg, dtype)
+        return prepare(convert_flux_state_dict(load_safetensors(path), cfg, dtype, device), "final")
+    params = prepare(convert_flux_state_dict(load_safetensors(path), cfg, dtype), "prequant")
     params = int8_gemm_layout(quantize_flux_params(params, mode=mode))
     return tree_map(lambda x: x.to(device), params)
 
@@ -221,6 +227,9 @@ class ConceptAttentionFluxPipeline:
         int8_qk: bool = False,
         lora: Optional[Any] = None,
         mesh: Optional[Mesh] = None,
+        lora_strength: Union[float, Sequence[float]] = 1.0,
+        keep_base_for_swap: bool = False,
+        offload_model: bool = False,
     ):
         """Without `params`, the DiT comes from the checkpoint that
         `spec.ckpt_path` names (its environment variable), else from a
@@ -236,9 +245,19 @@ class ConceptAttentionFluxPipeline:
         run the plain path. `int8_qk` needs "fused". With a mesh the
         parameters live on its first device, which is the pipeline's device
         (a mesh whose only axis above 1 is `seq` replicates them); `device`
-        is then left unset."""
-        if lora is not None:
-            raise NotImplementedError("LoRA adapters are not ported yet")
+        is then left unset.
+
+        `lora` is a LoRA `.safetensors` path, an adapter tree
+        (`weights/lora.py`), or a list of either, merged into the DiT at
+        `lora_strength` (one value, or one per adapter) as the weights are
+        built: on the device in f32, rounded once; on the checkpoint +
+        quantize path on the host before the quantize, so the int8 cells
+        quantize the adapted weights. `keep_base_for_swap` keeps a host copy
+        of the weights before any merge (the bf16 tree before the quantize
+        on that path), which `swap_loras` needs. `offload_model` is accepted
+        for the JAX package's signature and ignored: the weights stay on
+        the device."""
+        del offload_model
         if attention_backend not in ("fused", "sdpa", *RING_BACKENDS):
             raise ValueError(
                 f"attention_backend must be 'fused', 'sdpa', 'ring' or 'ring_rdma', "
@@ -272,14 +291,27 @@ class ConceptAttentionFluxPipeline:
         on_card = self.device.type == "cuda"
         self.decode_dtype = torch.bfloat16 if on_card else torch.float32
         mode = resolve_quant_mode(quantize)
+        self._quantize = mode
+        self._swap_base = None  # the host copy of the pre-merge tree, for swap_loras
+        self._swap_stage = "final"
+        adapters, strengths, self._active_loras = self._load_adapters(lora, lora_strength)
+        self._adapters = (adapters, strengths)
+
+        def merged(p, stage="final"):
+            if keep_base_for_swap:
+                self._swap_base = tree_map(lambda x: x.to("cpu"), p)
+                self._swap_stage = stage
+            return merge_loras(p, adapters, strengths) if adapters else p
+
         if params is None and self.spec.ckpt_path:
-            params = _load_flux_params(self.spec.ckpt_path, self.cfg, dtype, mode, self.device)
+            params = _load_flux_params(self.spec.ckpt_path, self.cfg, dtype, mode, self.device,
+                                       merged)
         elif params is None:
             gen = torch.Generator(self.device).manual_seed(init_seed)
-            params = (init_flux_params_quantized(gen, self.cfg, dtype, mode=mode) if mode
-                      else init_flux_params(gen, self.cfg, dtype))
+            params = merged(init_flux_params_quantized(gen, self.cfg, dtype, mode=mode) if mode
+                            else init_flux_params(gen, self.cfg, dtype))
         else:
-            params = int8_gemm_layout(params)
+            params = merged(int8_gemm_layout(params))
         if ae_params is None and self.spec.ae_path:
             from conceptattention_torch.weights.convert import (
                 convert_autoencoder_state_dict,
@@ -309,6 +341,64 @@ class ConceptAttentionFluxPipeline:
             stash_dtype="bf16" if on_card else None,
             mesh=mesh if attention_backend in RING_BACKENDS else None,
         )
+
+    # ------------------------------------------------------------------
+    def _load_adapters(self, lora, lora_strength):
+        """(adapters, strengths, descriptors) of the `lora` forms: a
+        `.safetensors` path, an adapter tree, or a list of either; the
+        descriptors are JSON-able {"source", "strength"} records."""
+        items = [] if lora is None else lora if isinstance(lora, (list, tuple)) else [lora]
+        adapters = [load_lora(it, self.cfg) if isinstance(it, str) else it for it in items]
+        sources = [it if isinstance(it, str) else "<adapter pytree>" for it in items]
+        strengths = (list(lora_strength) if isinstance(lora_strength, (list, tuple))
+                     else [float(lora_strength)] * len(adapters))
+        if len(strengths) != len(adapters):
+            raise ValueError(f"{len(adapters)} LoRA adapter(s) but {len(strengths)} strengths")
+        descriptors = [{"source": s, "strength": float(st)} for s, st in zip(sources, strengths)]
+        return adapters, strengths, descriptors
+
+    @property
+    def active_loras(self) -> List[dict]:
+        """JSON-able descriptors of the merged adapter set."""
+        return list(self._active_loras)
+
+    def swap_loras(self, lora: Optional[Any] = None,
+                   lora_strength: Union[float, Sequence[float]] = 1.0) -> List[dict]:
+        """Replace the merged adapter set (`lora=None` clears it) from the
+        host copy that `keep_base_for_swap=True` kept, building what the
+        constructor would have built: on the checkpoint + quantize path the
+        adapters merge into the bf16 base on the host and the tree is
+        quantized again; otherwise each targeted leaf of the base is merged
+        on the device as it is uploaded, and the rest is uploaded as it is.
+        The old tree is let go before the new one is built, so two trees
+        never share the device; if the build fails, the previous set is
+        built again and the error raised. Not safe against forwards running
+        on other threads: the serving daemon runs swaps on its one worker
+        thread. Returns the new descriptors."""
+        if self._swap_base is None:
+            raise RuntimeError("swap_loras needs keep_base_for_swap=True at construction (the "
+                               "pipeline keeps no copy of its pre-merge weights by default)")
+        adapters, strengths, descriptors = self._load_adapters(lora, lora_strength)
+        previous = self._adapters
+        self.params = None
+        try:
+            self.params = self._params_from_base(adapters, strengths)
+        except BaseException:
+            self.params = self._params_from_base(*previous)
+            raise
+        self._adapters = (adapters, strengths)
+        self._active_loras = descriptors
+        return self.active_loras
+
+    def _params_from_base(self, adapters, strengths):
+        """The device tree of the host base with `adapters` merged."""
+        if self._swap_stage == "prequant":
+            p = merge_loras(self._swap_base, adapters, strengths) if adapters else self._swap_base
+            p = int8_gemm_layout(quantize_flux_params(p, mode=self._quantize))
+        else:
+            p = (merge_loras(self._swap_base, adapters, strengths, device=self.device)
+                 if adapters else self._swap_base)
+        return tree_map(lambda x: x.to(self.device), p)
 
     # ------------------------------------------------------------------
     def _prepare_text(self, prompt: str, batch_size: int = 1, need_clip: bool = True):

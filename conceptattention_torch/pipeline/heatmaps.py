@@ -99,18 +99,37 @@ def compute_heatmaps_from_vectors(
     return reduce_maps(maps, layer_indices, timesteps, softmax, attention_norm, spatial_shape)
 
 
+def _colormap(cmap: str):
+    """A function from values in [0, 1] to RGB in [0, 1]: the copied tables
+    of `utils/colormaps.py` for the names they hold (no matplotlib needed),
+    else matplotlib's colormap of that name."""
+    from conceptattention_torch.utils import colormaps
+
+    if cmap in colormaps.NAMES:
+        return lambda x: colormaps.apply(cmap, x)
+    from matplotlib import pyplot as plt
+
+    colormap = plt.get_cmap(cmap)
+    return lambda x: colormap(x)[..., :3]
+
+
+def cmap_available(cmap: str) -> bool:
+    """Whether `heatmaps_to_pil` can colour with `cmap` here."""
+    try:
+        _colormap(cmap)
+    except (ImportError, ValueError):
+        return False
+    return True
+
+
 def heatmaps_to_pil(heatmaps, cmap: str = "plasma") -> List:
     """[C, h, w] float heatmaps -> PIL images through a matplotlib colormap
-    with one global min/max normalization."""
+    (`_colormap`) with one global min/max normalization."""
     import numpy as np
     import PIL.Image
-    from matplotlib import pyplot as plt
 
     arr = np.asarray(heatmaps, dtype=np.float32)
     lo, hi = arr.min(), arr.max()
     scale = (hi - lo) if hi > lo else 1.0
-    colormap = plt.get_cmap(cmap)
-    return [
-        PIL.Image.fromarray((colormap((hm - lo) / scale)[:, :, :3] * 255).astype(np.uint8))
-        for hm in arr
-    ]
+    colormap = _colormap(cmap)
+    return [PIL.Image.fromarray((colormap((hm - lo) / scale) * 255).astype(np.uint8)) for hm in arr]

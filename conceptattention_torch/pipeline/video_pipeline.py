@@ -16,9 +16,10 @@ reference's `ModifiedCogVideoXPipeline`):
 The pipeline runs on one device, "cuda" unless the caller names another,
 and never falls back to the CPU. `quantize` ("w8", "w8a8" or "w4")
 quantizes the DiT's stacked blocks (`ops/quant.py`), whose linears all take
-quantized cells. The DiT runs in `dtype` (bf16 by default)
-and the VAE in f32; f32 matmuls and convolutions run in full f32 for the
-duration of `generate_video` and `decode_latents`.
+quantized cells; `lora=` merges LoRA adapters into the DiT first. The DiT
+runs in `dtype` (bf16 by default) and the VAE in f32; f32 matmuls and
+convolutions run in full f32 for the duration of `generate_video` and
+`decode_latents`.
 """
 
 from __future__ import annotations
@@ -45,6 +46,8 @@ from conceptattention_torch.ops.quant import (
 from conceptattention_torch.pipeline.concept_pipeline import _full_f32
 from conceptattention_torch.sampling.ddim import DDIMSchedule, ddim_step, make_ddim_schedule
 from conceptattention_torch.sampling.dpm import dpm_init, dpm_step
+from conceptattention_torch.weights.convert import load_safetensors
+from conceptattention_torch.weights.lora import convert_cogvideox_lora_state_dict, merge_loras
 
 SCHEDULERS = ("ddim", "dpm")  # "dpm" is DPM-Solver++ 2M
 _VAE_INIT_SEED = 7
@@ -125,8 +128,10 @@ class VideoConceptAttentionPipeline:
         lora_strength=1.0,
         device: Optional[Union[str, torch.device]] = None,
     ):
-        if lora is not None:
-            raise NotImplementedError("LoRA adapters for the video DiT are not ported yet")
+        """`lora` is a LoRA `.safetensors` path in diffusers' CogVideoX
+        naming, an adapter tree (`weights/lora.py`), or a list of either,
+        merged at `lora_strength` (one value, or one per adapter) into the
+        DiT on the device before `quantize` quantizes its blocks."""
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -138,6 +143,15 @@ class VideoConceptAttentionPipeline:
         self.params = int8_gemm_layout(params) if params is not None else init_video_dit_params(
             torch.Generator(self.device).manual_seed(init_seed), self.cfg, dtype
         )
+        if lora is not None:
+            items = lora if isinstance(lora, (list, tuple)) else [lora]
+            adapters = [convert_cogvideox_lora_state_dict(load_safetensors(it), self.cfg)
+                        if isinstance(it, str) else it for it in items]
+            strengths = (list(lora_strength) if isinstance(lora_strength, (list, tuple))
+                         else [float(lora_strength)] * len(adapters))
+            if len(strengths) != len(adapters):
+                raise ValueError(f"{len(adapters)} LoRA adapter(s) but {len(strengths)} strengths")
+            self.params = merge_loras(self.params, adapters, strengths)
         if quantize:  # False | True / "w8" | "w8a8" | "w4": the stacked blocks
             self.params = quantize_video_dit_params(self.params, mode=resolve_quant_mode(quantize))
         self.text_encoders = text_encoders or StubTextEncoders(

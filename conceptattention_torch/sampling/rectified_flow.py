@@ -104,7 +104,8 @@ def denoise(
     """Euler loop x_{t_prev} = x_t + (t_prev - t_curr) * v(x_t) over the
     descending schedule `timesteps` (S + 1 values, 1 -> 0). With `true_cfg`
     each step runs a second forward on the negative prompt (`neg_txt`,
-    `neg_vec`; no concepts) and takes neg + guidance_scale * (pos - neg);
+    `neg_vec`; no concepts; on `spec`'s attention backend) and takes
+    neg + guidance_scale * (pos - neg);
     `guidance` stays the embedded (distilled) guidance strength.
 
     Returns (final latents [B, P, C*4], saliency {tap: [S, depth, B, C, P]}).
@@ -127,7 +128,7 @@ def denoise(
             neg_pred, _ = flux_forward(
                 params, cfg, img=x, img_ids=img_ids, txt=neg_txt, txt_ids=txt_ids,
                 timesteps=t_curr.expand(b), y=neg_vec,
-                guidance=guidance_vec if cfg.guidance_embed else None,
+                guidance=guidance_vec if cfg.guidance_embed else None, spec=spec,
             )
             pred = neg_pred + guidance_scale * (pred - neg_pred)
         x = (x.float() + (t_prev - t_curr) * pred.float()).to(x.dtype)

@@ -36,6 +36,12 @@ def params_from_numpy(tree, device="cpu", dtype: Optional[torch.dtype] = None):
     return tree_map(lambda a: _to_tensor(a, device, dtype), tree)
 
 
+def lora_from_numpy(tree, device="cpu"):
+    """An adapter tree of numpy factors (`weights/lora.py`: {"a", "b"} per
+    targeted leaf) -> f32 tensors on `device`."""
+    return params_from_numpy(tree, device, torch.float32)
+
+
 # The DiT's and the VAE's trees convert the same way; so do the video trees,
 # the ViT's (`models/vit.py`) and open_clip's ({"visual", "text"},
 # `models/clip_vit.py`), whose blocks JAX stacks by depth as the port does,

@@ -745,8 +745,11 @@ def without_key_tile(args, start):
         (1, 4611, 512, 4096, 3),   # flux-dev double block: 512 txt + 4096 img + 3 concepts
         (1, 4608, 4608, 0, 0),     # flux-dev single block
         (4, 4355, 256, 4096, 3),   # flux-schnell double block in encode_images at batch 4
+        (2, 4352, 4352, 0, 0),     # flux-schnell single block, two coalesced served requests
+        (1, 4352, 256, 4096, 0),   # flux-schnell double block without concepts (true CFG)
     ],
-    ids=["dev-double", "dev-single", "schnell-double-b4"],
+    ids=["dev-double", "dev-single", "schnell-double-b4", "schnell-single-b2",
+         "schnell-double-no-concepts"],
 )
 def test_hopper_flash_kernel_at_new_pipeline_shapes(dev, b, s, t, p, c):
     """K1 at the sequence lengths and batch the new entry points give it

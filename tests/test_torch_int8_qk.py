@@ -256,7 +256,7 @@ def test_int8_qk_rejects_non_fused_backends():
                       attention_backend="sdpa", int8_qk=True)
     with pytest.raises(ValueError, match="attention_backend"):
         TorchPipeline("flux-tiny", dtype=torch.float32, device="cpu", attention_backend="xla")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(KeyError, match="unknown stack"):  # an adapter naming no DiT stack
         TorchPipeline("flux-tiny", dtype=torch.float32, device="cpu", lora={"a": 1})
 
 

@@ -260,7 +260,8 @@ def test_import_leaves_out_jax():
     """The port's modules (and the smoke script) import no JAX, nothing of
     the JAX package, neither `safetensors` nor `transformers`, and the eval
     path's modules neither `h5py`, PIL nor matplotlib (the loaders import
-    them when they read files, the sweep plots when they draw)."""
+    them when they read files, the sweep plots when they draw); the API
+    client imports `requests` only when it makes a request."""
     modules = ("conceptattention_torch, conceptattention_torch.pipeline.concept_pipeline, "
                "conceptattention_torch.weights.convert, conceptattention_torch.models.text.t5, "
                "conceptattention_torch.models.text.clip, conceptattention_torch.models.text.encoders, "
@@ -287,11 +288,15 @@ def test_import_leaves_out_jax():
                "conceptattention_torch.utils.colormaps, "
                "conceptattention_torch.experiments.perturbation, "
                "conceptattention_torch.experiments.compare_methods, "
+               "conceptattention_torch.weights.lora, conceptattention_torch.serving, "
+               "conceptattention_torch.serving.__main__, conceptattention_torch.cli, "
+               "conceptattention_torch.__main__, conceptattention_torch.api, "
+               "conceptattention_torch.utils.safety, conceptattention_torch.pipeline.diffusers_like, "
                "chip_smoke")
     code = (f"import sys, {modules}; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
             "'conceptattention_tpu', 'safetensors', 'transformers', 'h5py', 'PIL', "
-            "'matplotlib')]; "
+            "'matplotlib', 'requests')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           timeout=120, cwd=ROOT)

@@ -23,6 +23,7 @@ import torch
 
 from conceptattention_torch import VideoConceptAttentionPipeline as TorchPipeline
 from conceptattention_torch.kernels import flash_saliency as t_fs
+from conceptattention_torch.models.flux.params import tree_leaves
 from conceptattention_torch.models.video import dit as t_dit
 from conceptattention_torch.models.video import vae as t_vae
 from conceptattention_torch.ops.attention import ConceptAttentionSpec as TSpec
@@ -437,7 +438,13 @@ def test_default_device_is_cuda_and_never_falls_back():
 
 @pytest.mark.parametrize("option", [dict(lora={}), dict(lora=[{}], lora_strength=[0.5])])
 def test_unported_options_raise(option):
-    """LoRA adapters, one or a list with strengths, are not ported
-    (`quantize=` is: `tests/test_torch_quant.py`)."""
-    with pytest.raises(NotImplementedError):
-        TorchPipeline(cfg=configs(True)[0], device="cpu", **option)
+    """LoRA adapters, one or a list with strengths, are ported now
+    (`tests/test_torch_lora.py`): an adapter that targets nothing leaves
+    the DiT as it is, and strengths that do not match the adapters raise."""
+    plain = TorchPipeline(cfg=configs(True)[0], device="cpu")
+    adapted = TorchPipeline(cfg=configs(True)[0], device="cpu", **option)
+    for a, b in zip(tree_leaves(plain.params), tree_leaves(adapted.params)):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="strengths"):
+        TorchPipeline(cfg=configs(True)[0], device="cpu", lora=option["lora"],
+                      lora_strength=[0.5, 0.5])
