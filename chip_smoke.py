@@ -78,7 +78,17 @@ Run from the root of a checkout: `python3 chip_smoke.py`. In order it
    true CFG against the sdpa backend and the ControlNet residuals (zeros bit
    for bit at full width; random ones on the card in f32 against the CPU);
    the CLI (`python -m conceptattention_torch --loop`, two images) in a
-   subprocess;
+   subprocess; training: (a) every kernel entry refuses inputs that
+   require grad under autograd (no counter moves) and runs under no_grad,
+   (b) LoRA factor gradients through one full-width double and single
+   block at 256x256, card bf16 against CPU f32 (with the attention output
+   detached as the control) and a w8 base against the bf16 base, (c) LoRA
+   fine-tuning of the full-width, full-depth flux-schnell weights (rank 16,
+   AdamW, remat, 1024x1024, 4 steps; no kernel launch, the base bit for
+   bit), the adapter exported, converted and served by `generate_image`
+   through `lora=`, (d) the full-parameter loop (1 + 2 blocks, 512x512,
+   grad_accum 2, EMA, the clip acting) straight and stopped at step 3 and
+   resumed from its checkpoint, bit for bit;
    then, with every earlier pipeline released, the T5-XXL and CLIP-L text
    towers from random HF state dicts through the port's converters (bf16
    against f32 at 2 layers, timed), flux-dev `generate_image` (1024x1024,
@@ -3418,6 +3428,8 @@ def pr13_k1_plan(cfg):
     add(video)
     # cli_path: two images in one --loop
     add(gen, 2)
+    # lora_training_path: the trained adapter served by generate_image (lora=)
+    add(gen)
     # diffusers_controlnet_path: true CFG at 4 steps and at 1 (the positive
     # pass with concepts, the negative without), the sdpa runs' decodes, two
     # full-width forwards
@@ -4347,6 +4359,414 @@ def diffusers_controlnet_path(pipe, counters):
     return paths
 
 
+# ---------------------------------------------------------------------------
+# Training: the kernels' refusal of autograd, LoRA gradients on the card
+# against the CPU, LoRA fine-tuning of full-width flux-schnell served through
+# `lora=`, and the full-parameter loop with checkpoint and resume.
+
+TRAIN_RANK = 16
+TRAIN_LR = 1e-4
+TRAIN_STEPS = 4
+TRAIN_SEED = 14
+GRAD_SIZE = 256  # the gradient check's image (256 img tokens) beside 256 txt tokens
+# Card bf16 against CPU f32 on the same weights, every factor gradient as one
+# vector. Set from the first card run, between the path's reading and the
+# control's (the attention output detached, as the unguarded kernel path
+# left it); on an H100: cosine 0.99997 against 0.987, relative error 0.0079
+# against 0.159.
+GRAD_COS_LIMIT = 0.999
+GRAD_REL_LIMIT = 2.0**-5
+# A w8 base against the bf16 base, both on the card: the JAX test's limits
+# (tests/test_lora.py:311-353).
+QUANT_GRAD_COS_LIMIT = 0.95
+QUANT_GRAD_NONZERO = 0.9
+LOOP_SIZE = 512
+LOOP_SINGLE = 2
+LOOP_MAX_GRAD_NORM = 1e-3  # below every update's gradient norm: the clip acts
+
+
+def kernel_entry_counts():
+    from conceptattention_torch.kernels import conv3x3 as conv
+    from conceptattention_torch.kernels import flash_saliency as fs
+    from conceptattention_torch.kernels import ring_rdma as rr
+
+    return (fs.fused_concept_flash_attention.launches,
+            fs.fused_concept_flash_attention_hopper.launches,
+            fs.fused_concept_flash_attention_int8.launches,
+            fs.fused_concept_flash_attention_int8_hopper.launches,
+            fs.fused_concept_flash_attention_paired.launches, conv.conv3x3_same.launches,
+            conv.conv3x3_same_generic.launches, conv.conv3x3_same_hopper.launches,
+            rr.ring_attention_rdma.launches, rr.ring_attention_rdma.step_launches,
+            rr.ring_attention_rdma.hopper_step_launches)
+
+
+def guarded_entries():
+    """(name, call(requires_grad)) of every kernel entry, on card inputs of
+    its contract, q (or x) requiring grad when asked."""
+    from conceptattention_torch.kernels import conv3x3 as conv
+    from conceptattention_torch.kernels import flash_saliency as fs
+    from conceptattention_torch.kernels import ring_rdma as rr
+
+    dev = torch.device("cuda")
+
+    def attn(d, rg, s=130):
+        gen = torch.Generator(dev).manual_seed(20)
+        q, k, v = (torch.randn(1, 2, s, d, generator=gen, device=dev).bfloat16() for _ in range(3))
+        ang = torch.rand(1, s, d // 2, generator=gen, device=dev) * 6.28
+        cos = torch.cos(ang).repeat_interleave(2, -1).contiguous()
+        sin = torch.stack([-torch.sin(ang), torch.sin(ang)], -1).reshape(1, s, d).contiguous()
+        return q.requires_grad_(rg), k, v, cos, sin
+
+    def flash(name, d):
+        def call(rg):
+            q, k, v, cos, sin = attn(d, rg)
+            return getattr(fs, name)(q, k, v, 40, 80, 5, rope_cos=cos, rope_sin=sin)
+        return name, call
+
+    def paired(rg):
+        q, k, v, cos, sin = attn(64, rg)
+        return fs.fused_concept_flash_attention_paired(q, k, v, cos, sin, 40, 80, 5)
+
+    def conv_call(name, dtype, cin):
+        def call(rg):
+            gen = torch.Generator(dev).manual_seed(21)
+            x = torch.randn(1, 16, 16, cin, generator=gen, device=dev).to(dtype)
+            w = (torch.randn(3, 3, cin, 64, generator=gen, device=dev) * 0.05).to(dtype)
+            return getattr(conv, name)(x.requires_grad_(rg), w, torch.zeros(64, device=dev,
+                                                                             dtype=dtype))
+        return name, call
+
+    def ring(rg):
+        q, k, v, _, _ = attn(128, rg, s=128)
+        return rr.ring_attention_rdma(*([c.contiguous() for c in x.chunk(2, 2)] for x in (q, k, v)))
+
+    def ring_step(rg):
+        q, k, v, _, _ = attn(128, rg, s=128)
+        out = torch.empty(q.shape, dtype=torch.bfloat16, device=dev)
+        return rr.ring_step([q], [k], [v], [None], [None], [out], [0], 1, 0)
+
+    return [flash("fused_concept_flash_attention", 32),
+            flash("fused_concept_flash_attention_hopper", 128),
+            flash("fused_concept_flash_attention_int8", 64),
+            flash("fused_concept_flash_attention_int8_hopper", 128),
+            ("fused_concept_flash_attention_paired", paired),
+            conv_call("conv3x3_same", torch.bfloat16, 64),
+            conv_call("conv3x3_same_generic", torch.float32, 32),
+            conv_call("conv3x3_same_hopper", torch.bfloat16, 64),
+            ("ring_attention_rdma", ring), ("ring_step", ring_step)]
+
+
+def guard_phase():
+    """(a) Every kernel entry, given an input that requires grad with
+    autograd on, raises (its output would carry no gradient) and no launch
+    counter moves; the same call under torch.no_grad() launches."""
+    readings = {}
+    for name, call in guarded_entries():
+        before = kernel_entry_counts()
+        try:
+            call(True)
+            raised = False
+        except RuntimeError as err:
+            raised = f"{name} has no backward" in str(err)
+        torch.cuda.synchronize()
+        unmoved = kernel_entry_counts() == before
+        with torch.no_grad():
+            call(True)
+        torch.cuda.synchronize()
+        readings[name] = {"raised": raised, "counters unmoved": unmoved,
+                          "launched under no_grad": kernel_entry_counts() != before}
+    ok = all(all(r.values()) for r in readings.values())
+    print(f"training (a) guard on {gpu_line()}: {json.dumps(readings)}: ok={ok}", flush=True)
+    if not ok:
+        raise AssertionError("a kernel entry did not refuse autograd")
+
+
+def train_batch(cfg, size, gen, dtype=torch.bfloat16, txt=None, y=None):
+    """A batch of B = 1 packed latents at size x size (size / 16 tokens a
+    side, 4 x in_channels / 4 channels) with 256 txt tokens, on the card;
+    txt and y default to normal draws."""
+    from conceptattention_torch.ops.packing import make_img_ids
+
+    side = size // 16
+    dev = torch.device("cuda")
+    if txt is None:
+        txt = torch.randn(1, 256, cfg.context_in_dim, generator=gen, device=dev)
+    if y is None:
+        y = torch.randn(1, cfg.vec_in_dim, generator=gen, device=dev)
+    return {
+        "img": torch.randn(1, side * side, cfg.in_channels, generator=gen, device=dev).to(dtype),
+        "img_ids": make_img_ids(side, side, 1, device=dev),
+        "txt": txt.to(dev, dtype), "txt_ids": torch.zeros(1, txt.shape[1], 3, device=dev),
+        "y": y.to(dev, dtype),
+    }
+
+
+def lora_gradient(base, lora, cfg, batch, t, eps, detach_attention=False):
+    """(loss, every factor gradient as one f64 host vector) of the LoRA
+    flow-matching loss; `detach_attention` plants the control: the plain
+    attention's output detached."""
+    from conceptattention_torch.models.flux import blocks
+    from conceptattention_torch.models.flux.params import tree_leaves, tree_map
+    from conceptattention_torch.ops import attention
+    from conceptattention_torch.training.lora import lora_flow_matching_loss
+
+    factors = tree_map(lambda x: x.detach().clone().requires_grad_(True), lora)
+    plain = attention.sdpa
+    if detach_attention:
+        attention.sdpa = blocks.sdpa = lambda q, k, v: plain(q, k, v).detach()
+    try:
+        loss = lora_flow_matching_loss(factors, base, cfg, batch, t=t, eps=eps)
+        # detached, the qkv factors have no path to the loss: zero gradients
+        grads = torch.autograd.grad(loss, tree_leaves(factors), allow_unused=True,
+                                    materialize_grads=True)
+    finally:
+        attention.sdpa = blocks.sdpa = plain
+    return loss.item(), torch.cat([g.detach().double().flatten().cpu() for g in grads])
+
+
+def grad_readings(got, want):
+    cos = float(got @ want / (got.norm() * want.norm() + 1e-30))
+    return {"cosine": cos, "relative error": float((got - want).norm() / want.norm())}
+
+
+def gradient_phase():
+    """(b) LoRA gradients through 1 double and 1 single block of full width
+    at GRAD_SIZE^2 (256 txt + 256 img tokens), rank-16 adapters moved off
+    b = 0 (+0.02 on every factor, the JAX test's step): the card in bf16
+    against the CPU in f32 on the same weights, draws and batch, with the
+    attention-detached control outside the limits; then a w8 base against
+    the bf16 base on the card."""
+    from conceptattention_torch.config import configs
+    from conceptattention_torch.models.flux.params import init_flux_params, tree_map
+    from conceptattention_torch.ops.quant import quantize_flux_params
+    from conceptattention_torch.training.lora import init_lora_params
+
+    cfg = dataclasses.replace(configs["flux-schnell"].params, depth=1, depth_single_blocks=1)
+    base = init_flux_params(torch.Generator("cuda").manual_seed(141), cfg, torch.bfloat16)
+    lora = init_lora_params(torch.Generator("cuda").manual_seed(142), base, rank=TRAIN_RANK)
+    lora = tree_map(lambda x: x + 0.02, lora)
+    gen = torch.Generator("cuda").manual_seed(143)
+    batch = train_batch(cfg, GRAD_SIZE, gen)
+    t = torch.sigmoid(torch.randn(1, generator=gen, device="cuda"))
+    eps = torch.randn(batch["img"].shape, generator=gen, device="cuda")
+    (card_loss, card), secs = card_seconds(lambda: lora_gradient(base, lora, cfg, batch, t, eps))
+    t0 = time.perf_counter()
+    cpu = {"base": tree_map(lambda x: x.float().cpu(), base),
+           "lora": tree_map(lambda x: x.cpu(), lora),
+           "batch": tree_map(lambda x: x.float().cpu(), batch)}
+    ref_loss, ref = lora_gradient(cpu["base"], cpu["lora"], cfg, cpu["batch"], t.cpu(), eps.cpu())
+    cpu_secs = time.perf_counter() - t0
+    del cpu
+    _, control = lora_gradient(base, lora, cfg, batch, t, eps, detach_attention=True)
+    _, w8 = lora_gradient(quantize_flux_params(base, mode="w8"), lora, cfg, batch, t, eps)
+    readings = {"card bf16 against CPU f32": grad_readings(card, ref),
+                "control (attention output detached) against CPU f32":
+                    grad_readings(control, ref)}
+    quant = {**grad_readings(w8, card), "non-zero fraction": float((w8 != 0).double().mean())}
+    sound, planted = readings.values()
+    ok = (sound["cosine"] > GRAD_COS_LIMIT and sound["relative error"] < GRAD_REL_LIMIT
+          and planted["cosine"] <= GRAD_COS_LIMIT and planted["relative error"] >= GRAD_REL_LIMIT)
+    quant_ok = (quant["cosine"] > QUANT_GRAD_COS_LIMIT
+                and quant["non-zero fraction"] > QUANT_GRAD_NONZERO)
+    print(f"training (b) LoRA gradients on {gpu_line()}: flux-schnell widths, 1 + 1 blocks, "
+          f"{GRAD_SIZE}x{GRAD_SIZE}, rank {TRAIN_RANK}, {card.numel()} factor values; loss card "
+          f"{card_loss:.6f}, CPU {ref_loss:.6f}; card seconds {secs:.3f}, CPU seconds "
+          f"{cpu_secs:.3f}; {json.dumps(readings)}, limits cosine > {GRAD_COS_LIMIT} and "
+          f"relative error < {GRAD_REL_LIMIT}: ok={ok}; w8 base against the bf16 base "
+          f"{json.dumps(quant)}, limits cosine > {QUANT_GRAD_COS_LIMIT}, non-zero > "
+          f"{QUANT_GRAD_NONZERO}: ok={quant_ok}", flush=True)
+    if not (ok and quant_ok):
+        raise AssertionError("the LoRA gradients on the card fail their limits or the control")
+
+
+def lora_training_path(pipe, bf16_out, counters):
+    """(c) LoRA fine-tuning of the pipeline's full-width flux-schnell (bf16
+    base, 19 + 38 blocks): rank-16 f32 adapters over the default targets,
+    AdamW lr 1e-4, TRAIN_STEPS steps on one fixed batch (B = 1 at SIZE^2:
+    4096 packed latent tokens, the stub encoders' 256 txt tokens and pooled
+    vector) with the loss's remat. The base must stay bit for bit, b must
+    move, and neither K1 nor K2 may launch. The adapter is then exported,
+    converted back and served by `generate_image` through `lora=`, with the
+    bf16 image's launches. Counters are [K1, K2, K1 hopper, K2 hopper].
+    Returns {path: (launches, seconds)}."""
+    from conceptattention_torch import ConceptAttentionFluxPipeline
+    from conceptattention_torch.models.flux.params import tree_leaves
+    from conceptattention_torch.training import init_train_state
+    from conceptattention_torch.training.lora import (
+        export_lora_state_dict,
+        init_lora_params,
+        make_lora_train_step,
+    )
+    from conceptattention_torch.weights.lora import convert_lora_state_dict
+
+    cfg, base = pipe.cfg, pipe.params
+    check = [x.clone() for x in tree_leaves(base)]  # held on the card to compare bit for bit
+    check_gib = sum(x.numel() * x.element_size() for x in check) / 2**30
+    lora = init_lora_params(torch.Generator("cuda").manual_seed(TRAIN_SEED), base, rank=TRAIN_RANK)
+    n_factors = sum(x.numel() for x in tree_leaves(lora))
+    opt = init_train_state(lora, learning_rate=TRAIN_LR)
+    step = make_lora_train_step(cfg, opt)
+    enc = pipe.text_encoders
+    batch = train_batch(cfg, SIZE, torch.Generator("cuda").manual_seed(TRAIN_SEED),
+                        txt=enc.encode_t5([PROMPT]), y=enc.encode_clip([PROMPT]))
+    for fn in counters:
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs = [], []
+    for _ in range(TRAIN_STEPS):
+        loss, s = card_seconds(lambda: step(lora, base, batch,
+                                            torch.Generator("cuda").manual_seed(TRAIN_SEED + 1)))
+        losses.append(loss.item())
+        secs.append(s)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    train_launches = [fn.launches for fn in counters]
+    base_same = all(torch.equal(a, b) for a, b in zip(tree_leaves(base), check))
+    del check, opt, step
+    b_moved = all(f["b"].abs().max().item() > 0 for stack in lora.values() for f in stack.values())
+    t0 = time.perf_counter()
+    adapter = convert_lora_state_dict(export_lora_state_dict(lora), cfg)
+    export_s = time.perf_counter() - t0
+    del lora
+    gc.collect()
+    torch.cuda.empty_cache()
+    lp = ConceptAttentionFluxPipeline("flux-schnell", params=base, lora=adapter,
+                                      ae_params=pipe.ae_params, text_encoders=enc,
+                                      device=pipe.device)
+    per_image = STEPS * (cfg.depth + cfg.depth_single_blocks) + 1
+    conv = sum(decoder_conv_shapes(pipe.spec.ae_params, SIZE // 8).values())
+    want = [per_image, conv, per_image, conv]
+    out, gen_s, launches = counted(lambda: lp.generate_image(
+        PROMPT, CONCEPTS, width=SIZE, height=SIZE, num_inference_steps=STEPS,
+        return_pil_heatmaps=False, return_image_array=True), counters)
+    del lp
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_image_output(out, "generate_image (lora= trained adapter)")
+    differs = not np.array_equal(out.image, bf16_out.image)
+    readings = {"base bit for bit after the steps": base_same, "b moved from zero": b_moved,
+                "K1, K2 launches while training": train_launches,
+                "served launches [K1, K2, K1 hopper, K2 hopper]": launches,
+                "image differs from the base's": differs,
+                "heatmaps against the base's, relative RMS": heatmaps_rms(out, bf16_out)}
+    ok = (base_same and b_moved and not any(train_launches) and launches == want and differs
+          and all(math.isfinite(x) for x in losses))
+    print(f"training (c) LoRA flux-schnell on {gpu_line()}: {SIZE}x{SIZE} B=1, rank "
+          f"{TRAIN_RANK} ({n_factors} f32 factor values), AdamW lr {TRAIN_LR}, remat, sdpa; "
+          f"{TRAIN_STEPS} steps on one batch: losses {losses}, cold seconds {secs[0]:.4f}, warm "
+          f"seconds {statistics.median(secs[1:]):.4f} ({[round(s, 4) for s in secs]}); device "
+          f"peak GiB {peak:.3f} ({peak - check_gib:.3f} without the {check_gib:.3f} GiB copy of "
+          f"the base held for the check); export and convert seconds {export_s:.3f}; served "
+          f"generate_image (lora=) seconds {gen_s:.4f}; {json.dumps(readings)}: ok={ok}",
+          flush=True)
+    if not ok:
+        raise AssertionError("the LoRA training path failed a check")
+    return {"training: LoRA steps": (train_launches, sum(secs)),
+            "generate_image (lora= trained adapter)": (launches, gen_s)}
+
+
+def first_difference(a_leaves, b_leaves):
+    for i, (a, b) in enumerate(zip(a_leaves, b_leaves)):
+        if not torch.equal(a, b):
+            j = int((a != b).flatten().nonzero()[0])
+            return {"leaf": i, "element": j, "straight": a.flatten()[j].item(),
+                    "resumed": b.flatten()[j].item()}
+    return None
+
+
+def loop_path():
+    """(d) The full-parameter loop at full widths, 1 double + LOOP_SINGLE
+    single blocks, bf16, B = 1 at LOOP_SIZE^2: TrainConfig(total_steps=6,
+    warmup_steps=2, grad_accum=2, ema_decay=0.999, checkpoint_every=3) with
+    the clip acting; one straight run, then one stopped at step 3 (saved in
+    the middle of an accumulation) and resumed to 6, whose parameters and
+    EMA must equal the straight run's bit for bit. Checkpoints go under the
+    git-ignored build/ and are removed."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from conceptattention_torch.config import configs
+    from conceptattention_torch.models.flux.params import init_flux_params, tree_leaves, tree_map
+    from conceptattention_torch.training import TrainConfig, train_loop
+    from conceptattention_torch.utils.checkpoint import load_params, save_params
+
+    cfg = dataclasses.replace(configs["flux-schnell"].params, depth=1,
+                              depth_single_blocks=LOOP_SINGLE)
+    params = init_flux_params(torch.Generator("cuda").manual_seed(16), cfg, torch.bfloat16)
+
+    def stream():
+        i = 0
+        while True:
+            yield train_batch(cfg, LOOP_SIZE, torch.Generator("cuda").manual_seed(1000 + i))
+            i += 1
+
+    tc = TrainConfig(total_steps=6, learning_rate=1e-4, warmup_steps=2, grad_accum=2,
+                     ema_decay=0.999, checkpoint_every=3, max_grad_norm=LOOP_MAX_GRAD_NORM,
+                     log_every=1)
+    marks = []
+
+    def log(msg):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    root = Path(tempfile.mkdtemp(prefix="smoke_train_", dir=Path(__file__).resolve().parent / "build"))
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 2**30  # the parameters and what earlier paths hold
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        straight = train_loop(params, cfg, stream(), tc, log=log)
+        peak = torch.cuda.max_memory_allocated() / 2**30 - held
+        step_s = [b - a for a, b in zip(marks, marks[1:])]
+        ckpt = dataclasses.replace(tc, checkpoint_dir=str(root / "ckpts"))
+        train_loop(params, cfg, stream(), dataclasses.replace(ckpt, total_steps=3), log=lambda _: None)
+        resumed_logs = []
+        resumed = train_loop(params, cfg, stream(), ckpt, log=resumed_logs.append)
+        diff = (first_difference(tree_leaves(straight["params"]), tree_leaves(resumed["params"]))
+                or first_difference(tree_leaves(straight["ema"]), tree_leaves(resumed["ema"])))
+        step3 = root / "ckpts" / "step_00000003"
+        ckpt_bytes = sum(f.stat().st_size for f in step3.iterdir())
+        host, load_host_s = card_seconds(lambda: load_params(str(step3)))
+        dev = tree_map(lambda x: x.cuda() if isinstance(x, torch.Tensor) else x, host)
+        _, save_s = card_seconds(lambda: save_params(str(root / "timed"), dev))
+        _, load_dev_s = card_seconds(lambda: load_params(str(root / "timed"), like=dev))
+        del host, dev
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    norms = straight["grad_norms"]
+    readings = {"losses": straight["losses"], "gradient norms (before the clip)": norms,
+                "resumed losses (steps 4-6)": resumed["losses"],
+                "resumed from": [m for m in resumed_logs if "resumed" in m],
+                "resumed parameters and EMA equal the straight run's": diff is None}
+    if diff is not None:
+        readings["first difference"] = diff
+    ok = (diff is None and len(norms) == 3 and all(n > LOOP_MAX_GRAD_NORM for n in norms)
+          and resumed["losses"] == straight["losses"][3:] and len(readings["resumed from"]) == 1)
+    print(f"training (d) full-parameter loop on {gpu_line()}: flux-schnell widths, 1 + "
+          f"{LOOP_SINGLE} blocks, bf16, {LOOP_SIZE}x{LOOP_SIZE} B=1, "
+          f"{sum(x.numel() for x in tree_leaves(params))} parameters, {tc}; step seconds "
+          f"{[round(s, 4) for s in step_s]}, device peak GiB above the {held:.3f} held before "
+          f"the run {peak:.3f}; checkpoint bytes "
+          f"{ckpt_bytes}, save seconds (from the card) {save_s:.3f}, load seconds (to the host) "
+          f"{load_host_s:.3f}, (to the card, like=) {load_dev_s:.3f}; {json.dumps(readings)}: "
+          f"ok={ok}", flush=True)
+    if not ok:
+        raise AssertionError("the training loop failed a check (resume, clip or losses)")
+
+
+def training_paths(pipe, bf16_out, counters):
+    """The training phases (a)-(d), each printed on its own line."""
+    guard_phase()
+    gradient_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths = lora_training_path(pipe, bf16_out, counters)
+    loop_path()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths
+
+
 def sass_summary(lib_path) -> dict:
     """Per kernel function of a built library, from `cuobjdump -sass`: its
     instruction count, its I2F (integer to float conversion) count, and a
@@ -4548,6 +4968,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     new_paths.update(cli_path())
+    new_paths.update(training_paths(pipe, bf16_out, counters))
     names = ["flash_saliency", "conv3x3", "flash_saliency (Hopper instance)", "conv3x3 (Hopper instance)"]
     print("launches per kernel instance: " + json.dumps({
         "generate_image": dict(zip(names, want_gen)),

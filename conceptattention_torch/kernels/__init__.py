@@ -1,4 +1,8 @@
-"""Hand-written Hopper kernels of the port, each beside its plain PyTorch version."""
+"""Hand-written Hopper kernels of the port, each beside its plain PyTorch version.
+
+No kernel has a backward: every entry refuses an input that requires grad
+while autograd is on (`_autograd.refuse_autograd`), on the CPU as on the
+card."""
 
 
 def launch_counts() -> dict:

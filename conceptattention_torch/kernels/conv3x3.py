@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from conceptattention_torch.kernels import _build
+from conceptattention_torch.kernels._autograd import refuse_autograd
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -93,6 +94,7 @@ def conv3x3_same_generic(
 ) -> torch.Tensor:
     """`conv3x3_same` through `csrc/conv3x3.cu`: f32 or bf16, Cin % 32 == 0,
     Cout % 8 == 0."""
+    refuse_autograd("conv3x3_same_generic", x, w, b)
     if x.device.type == "cpu":
         return conv3x3_same_plain(x, w, b, fuse_swish)
     _check_inputs(x, w, b)
@@ -120,6 +122,7 @@ def conv3x3_same_hopper(
 ) -> torch.Tensor:
     """`conv3x3_same` through `csrc/conv3x3_sm90.cu`: bf16, Cin % 64 == 0,
     Cout % 8 == 0, every tensor 16-byte aligned (TMA's rule)."""
+    refuse_autograd("conv3x3_same_hopper", x, w, b)
     if x.device.type == "cpu":
         return conv3x3_same_plain(x, w, b, fuse_swish)
     _check_inputs(x, w, b)
@@ -152,6 +155,7 @@ def conv3x3_same(
 ) -> torch.Tensor:
     """3x3 stride-1 SAME NHWC convolution: x [B, H, W, Cin] * w [3, 3, Cin,
     Cout] + b [Cout] -> [B, H, W, Cout] in x's dtype."""
+    refuse_autograd("conv3x3_same", x, w, b)
     if x.device.type == "cpu":
         return conv3x3_same_plain(x, w, b, fuse_swish)
     instance = conv3x3_instance(x.dtype, x.shape[-1], w.shape[-1])

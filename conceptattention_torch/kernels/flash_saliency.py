@@ -47,6 +47,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from conceptattention_torch.kernels import _build
+from conceptattention_torch.kernels._autograd import refuse_autograd
 from conceptattention_torch.ops.attention import merge_heads
 from conceptattention_torch.ops.quant import INV127
 
@@ -238,6 +239,7 @@ def fused_concept_flash_attention(
     tables. `int8_qk` takes K1b (`fused_concept_flash_attention_int8`).
     Returns [B, H, S, D] in v's dtype.
     """
+    refuse_autograd("fused_concept_flash_attention", q, k, v, rope_cos, rope_sin)
     if int8_qk:
         return fused_concept_flash_attention_int8(
             q, k, v, txt_len, img_len, concept_len, cross, self_attention, rope_cos, rope_sin)
@@ -312,6 +314,7 @@ def fused_concept_flash_attention_hopper(
     every q and k row once (`rope_qk_rows_cuda`) and the main kernel scores
     them at scale 1; without, it scores q and k as given at
     log2(e)/sqrt(D)."""
+    refuse_autograd("fused_concept_flash_attention_hopper", q, k, v, rope_cos, rope_sin)
     if q.device.type == "cpu":
         return fused_concept_flash_attention_plain(
             q, k, v, txt_len, img_len, concept_len, cross, self_attention, rope_cos, rope_sin)
@@ -446,6 +449,7 @@ def fused_concept_flash_attention_int8(
     card, the pre-pass kernel quantizes every row once, then the instance
     that `int8_instance` names runs the masked online softmax: the Hopper
     kernel at head dim 128, the mma.sync kernel at 32 and 64."""
+    refuse_autograd("fused_concept_flash_attention_int8", q, k, v, rope_cos, rope_sin)
     if q.device.type == "cpu":
         return fused_concept_flash_attention_plain(
             q, k, v, txt_len, img_len, concept_len, cross, self_attention,
@@ -480,6 +484,7 @@ def fused_concept_flash_attention_int8_hopper(
     """K1b through `csrc/flash_saliency_int8_sm90.cu`, head dim 128: the
     pre-pass (`quantize_qk_rows_cuda`), then the Hopper kernel on the int8
     rows and their scales."""
+    refuse_autograd("fused_concept_flash_attention_int8_hopper", q, k, v, rope_cos, rope_sin)
     if q.device.type == "cpu":
         return fused_concept_flash_attention_plain(
             q, k, v, txt_len, img_len, concept_len, cross, self_attention,
@@ -565,6 +570,7 @@ def fused_concept_flash_attention_paired(
     the JAX package's `fused_concept_flash_attention_paired`): on the card the
     RoPE pre-pass, then the Hopper kernel's paired instance. Returns [B, H,
     S, 64] with rows that see nothing zero."""
+    refuse_autograd("fused_concept_flash_attention_paired", q, k, v, rope_cos, rope_sin)
     if q.device.type == "cpu":
         return fused_concept_flash_attention_paired_plain(
             q, k, v, rope_cos, rope_sin, txt_len, img_len, concept_len, cross, self_attention

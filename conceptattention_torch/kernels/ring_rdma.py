@@ -49,6 +49,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from conceptattention_torch.kernels import _build
+from conceptattention_torch.kernels._autograd import refuse_autograd
 from conceptattention_torch.parallel.mesh import Mesh
 from conceptattention_torch.parallel.ring_attention import (
     LOG2E,
@@ -261,6 +262,7 @@ def ring_step(
     (`ring_step_plain`'s contract). On CUDA tensors one launch of the step
     kernel `ring_instance` names, counted; on CPU tensors
     `ring_step_plain` into the same buffers."""
+    refuse_autograd("ring_step", qs, ks, vs, accs, mls, outs)
     segments = dict(masked=masked, txt_len=txt_len, img_len=img_len, concept_len=concept_len,
                     cross=cross, self_attention=self_attention)
     if all(q.device.type == "cpu" for q in qs):
@@ -395,6 +397,7 @@ def ring_attention_rdma(
     `ring_attention` (masked=False) or `ring_concept_attention` (masked=True,
     segment lengths in positions of the whole sequence). Returns one output
     shard per rank, in bf16 for the kernel."""
+    refuse_autograd("ring_attention_rdma", qs, ks, vs)
     if all(q.device.type == "cpu" for q in qs):
         return ring_attention_rdma_plain(qs, ks, vs, masked, txt_len, img_len, concept_len,
                                          cross, self_attention)

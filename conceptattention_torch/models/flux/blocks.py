@@ -48,6 +48,18 @@ def _int8_product(x: torch.Tensor, qa: torch.Tensor) -> torch.Tensor:
     return (y32.float() * xs).to(x.dtype)
 
 
+def _dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w for a dense weight. Operands of two dtypes are both cast to
+    `torch.promote_types` of the pair, as JAX promotes bf16 @ f32 to f32:
+    the training form of a LoRA over a quantized base is a dense f32 merge
+    (`weights/lora.merge_lora(..., requantize=False)`) met by bf16
+    activations."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    return x @ w
+
+
 def _linear(x: torch.Tensor, p: Dict[str, Any]) -> torch.Tensor:
     """x @ w + b with w dense or a quantized cell: {"qa", "scale"} (w8a8,
     both scales fold into the output), {"q4p", "gscale"} (w4, dequantized)
@@ -60,7 +72,7 @@ def _linear(x: torch.Tensor, p: Dict[str, Any]) -> torch.Tensor:
     elif isinstance(w, dict):
         y = (x @ w["q"].to(x.dtype)) * w["scale"][0]
     else:
-        y = x @ w
+        y = _dense(x, w)
     if "b" in p:
         y = y + p["b"]
     return y
@@ -80,7 +92,7 @@ def _qkv_heads(x_mod, qkv_p, qnorm, knorm, num_heads: int):
         q = w["q"]
         qkv = (x_mod @ q.reshape(q.shape[0], -1).to(x_mod.dtype)) * w["scale"][0].reshape(-1)
     else:
-        qkv = x_mod @ w.reshape(w.shape[0], -1)
+        qkv = _dense(x_mod, w.reshape(w.shape[0], -1))
     if "b" in qkv_p:
         qkv = qkv + qkv_p["b"].reshape(-1)
     b, l, _ = qkv.shape

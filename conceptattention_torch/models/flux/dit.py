@@ -1,11 +1,15 @@
 """Flux DiT forward pass with the optional concept stream.
 
-Counterpart of the JAX package's `models/flux/dit.py` (no remat): Python
-loops over the 19 double and 38 single blocks of the stacked parameters.
-With `concepts=None` this is the vanilla Flux forward; with concepts it adds
-the third token stream and emits per-layer saliency maps.
+Counterpart of the JAX package's `models/flux/dit.py`: Python loops over
+the 19 double and 38 single blocks of the stacked parameters. With
+`concepts=None` this is the vanilla Flux forward; with concepts it adds the
+third token stream and emits per-layer saliency maps.
 `stop_after_multimodal_attentions` returns after the double blocks.
-ControlNet residuals are added to the image stream after each block.
+ControlNet residuals are added to the image stream after each block. With
+`remat`, each block (its residual included) runs under
+`torch.utils.checkpoint`: its backward recomputes the block from its inputs
+instead of keeping every activation of every layer (the JAX package's
+`jax.checkpoint` over the scan body; the training path sets it).
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from conceptattention_torch.config import FluxConfig
 from conceptattention_torch.models.flux.blocks import double_block, last_layer, single_block
@@ -44,6 +49,15 @@ def _controlnet_per_layer(samples: Optional[torch.Tensor], depth: int, repeat: b
     return [samples[min(i // interval, n - 1)] for i in range(depth)]
 
 
+def _step(fn, remat: bool, *args):
+    """fn(*args), under a non-reentrant checkpoint with `remat`. The layer's
+    parameters are taken inside `fn`, so a derived view of them (a LoRA
+    merge) is recomputed with the block rather than kept."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def flux_forward(
     params: Dict[str, Any],
     cfg: FluxConfig,
@@ -62,6 +76,7 @@ def flux_forward(
     controlnet_block_samples: Optional[torch.Tensor] = None,
     controlnet_single_block_samples: Optional[torch.Tensor] = None,
     controlnet_blocks_repeat: bool = False,
+    remat: bool = False,
 ) -> Tuple[Optional[torch.Tensor], Dict[str, torch.Tensor]]:
     """Run the DiT.
 
@@ -76,6 +91,8 @@ def flux_forward(
         `controlnet_blocks_repeat` (`_controlnet_per_layer`).
       controlnet_single_block_samples: [m, B, P, hidden] residuals added to
         the image slice after each single block (interval layout).
+      remat: rematerialize each block in the backward
+        (`torch.utils.checkpoint`, non-reentrant).
 
     Returns (pred, saliency): pred [B, P, in_channels] (None when stopping
     after the double blocks), saliency {tap: [depth, B, C, P] f32} (empty
@@ -99,14 +116,19 @@ def flux_forward(
 
     cn_double = _controlnet_per_layer(controlnet_block_samples, cfg.depth,
                                       controlnet_blocks_repeat)
-    per_layer = []
-    for i in range(cfg.depth):
+
+    def double_step(i, img, txt, concepts):
         img, txt, concepts, saliency = double_block(
             layer(params["double"], i), img, txt, vec, pe, cfg.num_heads,
             concepts=concepts, concept_vec=cvec, concept_pe=concept_pe, spec=spec,
         )
         if cn_double is not None:
             img = img + cn_double[i].to(img.dtype)
+        return img, txt, concepts, saliency
+
+    per_layer = []
+    for i in range(cfg.depth):
+        img, txt, concepts, saliency = _step(double_step, remat, i, img, txt, concepts)
         per_layer.append(saliency)
     saliency = {k: torch.stack([s[k] for s in per_layer]) for k in per_layer[0]}
 
@@ -117,12 +139,17 @@ def flux_forward(
     x = torch.cat([txt, img], dim=1)
     cn_single = _controlnet_per_layer(controlnet_single_block_samples,
                                       cfg.depth_single_blocks, False)
-    for i in range(cfg.depth_single_blocks):
+
+    def single_step(i, x):
         x = single_block(
             layer(params["single"], i), x, vec, pe, cfg.num_heads, cfg.mlp_hidden_dim,
             backend=spec.backend, int8_qk=spec.int8_qk,
         )
         if cn_single is not None:  # the residual lands on the image slice only
             x = torch.cat([x[:, :t_len], x[:, t_len:] + cn_single[i].to(x.dtype)], dim=1)
+        return x
+
+    for i in range(cfg.depth_single_blocks):
+        x = _step(single_step, remat, i, x)
     pred = last_layer(params["final"], x[:, t_len:], vec)
     return pred, saliency

@@ -830,3 +830,69 @@ def test_hopper_flash_kernel_at_eval_shape(dev, b, cross, self_attention):
     keep, dropped = without_key_tile(args, t + 64 * 8)
     control = (dropped[:, :, :t + p - 64].float() - want[:, :, keep[:t + p - 64]].float())
     assert control.abs().max().item() > bf16_limit(want[:, :, joint])
+
+
+def kernel_counts():
+    """Every launch counter of the kernel wrappers."""
+    return (fs.fused_concept_flash_attention.launches,
+            fs.fused_concept_flash_attention_hopper.launches,
+            fs.fused_concept_flash_attention_int8.launches,
+            fs.fused_concept_flash_attention_int8_hopper.launches,
+            fs.fused_concept_flash_attention_paired.launches, conv.conv3x3_same.launches,
+            conv.conv3x3_same_generic.launches, conv.conv3x3_same_hopper.launches,
+            rr.ring_attention_rdma.launches, rr.ring_attention_rdma.step_launches,
+            rr.ring_attention_rdma.hopper_step_launches)
+
+
+def guarded_call(name, dev, requires_grad):
+    """One call of the kernel entry `name` on card inputs of its contract,
+    q (or x) requiring grad when asked."""
+    gen = torch.Generator(dev).manual_seed(20)
+
+    def attn(d, h=2, s=130):
+        q, k, v = (torch.randn(1, h, s, d, generator=gen, device=dev).bfloat16() for _ in range(3))
+        return (q.requires_grad_(requires_grad), k, v, *rope_tables(gen, 1, s, d, dev))
+
+    if name.startswith("fused_concept_flash_attention"):
+        d = {"fused_concept_flash_attention": 32, "fused_concept_flash_attention_hopper": 128,
+             "fused_concept_flash_attention_int8": 64,
+             "fused_concept_flash_attention_int8_hopper": 128,
+             "fused_concept_flash_attention_paired": 64}[name]
+        q, k, v, cos, sin = attn(d)
+        if name.endswith("paired"):
+            return fs.fused_concept_flash_attention_paired(q, k, v, cos, sin, 40, 80, 5)
+        return getattr(fs, name)(q, k, v, 40, 80, 5, rope_cos=cos, rope_sin=sin)
+    if name.startswith("conv3x3"):
+        dtype, cin = (torch.float32, 32) if name.endswith("generic") else (torch.bfloat16, 64)
+        x = torch.randn(1, 16, 16, cin, generator=gen, device=dev).to(dtype)
+        w = (torch.randn(3, 3, cin, 64, generator=gen, device=dev) * 0.05).to(dtype)
+        return getattr(conv, name)(x.requires_grad_(requires_grad), w,
+                                   torch.zeros(64, device=dev, dtype=dtype))
+    q, k, v, _, _ = attn(128, s=128)
+    if name == "ring_attention_rdma":
+        return rr.ring_attention_rdma(*([c.contiguous() for c in x.chunk(2, 2)] for x in (q, k, v)))
+    out = torch.empty(q.shape, dtype=torch.bfloat16, device=dev)
+    return rr.ring_step([q], [k], [v], [None], [None], [out], [0], 1, 0)
+
+
+GUARDED = ["fused_concept_flash_attention", "fused_concept_flash_attention_hopper",
+           "fused_concept_flash_attention_int8", "fused_concept_flash_attention_int8_hopper",
+           "fused_concept_flash_attention_paired", "conv3x3_same", "conv3x3_same_generic",
+           "conv3x3_same_hopper", "ring_attention_rdma", "ring_step"]
+
+
+@pytest.mark.parametrize("name", GUARDED)
+def test_kernel_entries_refuse_autograd(dev, name):
+    """An input that requires grad, with autograd on, makes every kernel
+    entry raise before anything launches (its output would carry no
+    gradient; no quiet switch to the plain version); the same call under
+    no_grad launches and counts."""
+    before = kernel_counts()
+    with pytest.raises(RuntimeError, match=f"{name} has no backward"):
+        guarded_call(name, dev, True)
+    torch.cuda.synchronize()
+    assert kernel_counts() == before
+    with torch.no_grad():
+        guarded_call(name, dev, True)
+    torch.cuda.synchronize()
+    assert kernel_counts() != before

@@ -261,7 +261,8 @@ def test_import_leaves_out_jax():
     the JAX package, neither `safetensors` nor `transformers`, and the eval
     path's modules neither `h5py`, PIL nor matplotlib (the loaders import
     them when they read files, the sweep plots when they draw); the API
-    client imports `requests` only when it makes a request."""
+    client imports `requests` only when it makes a request. The training
+    modules and checkpoints are held to the same."""
     modules = ("conceptattention_torch, conceptattention_torch.pipeline.concept_pipeline, "
                "conceptattention_torch.weights.convert, conceptattention_torch.models.text.t5, "
                "conceptattention_torch.models.text.clip, conceptattention_torch.models.text.encoders, "
@@ -292,6 +293,9 @@ def test_import_leaves_out_jax():
                "conceptattention_torch.serving.__main__, conceptattention_torch.cli, "
                "conceptattention_torch.__main__, conceptattention_torch.api, "
                "conceptattention_torch.utils.safety, conceptattention_torch.pipeline.diffusers_like, "
+               "conceptattention_torch.training, conceptattention_torch.training.train_step, "
+               "conceptattention_torch.training.train_loop, conceptattention_torch.training.lora, "
+               "conceptattention_torch.utils.checkpoint, "
                "chip_smoke")
     code = (f"import sys, {modules}; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
