@@ -89,6 +89,24 @@ Run from the root of a checkout: `python3 chip_smoke.py`. In order it
    through `lora=`, (d) the full-parameter loop (1 + 2 blocks, 512x512,
    grad_accum 2, EMA, the clip acting) straight and stopped at step 3 and
    resumed from its checkpoint, bit for bit;
+   parallelism over virtual meshes on card 0: (a) tensor-parallel
+   serving, `generate_image` over make_mesh(model=2) on the same weights
+   (K1 once per rank and block, at H12) against the one-device image, the
+   2 + 2-block DiT tensor-parallel against dense in bf16, w8 and w8a8 with
+   the row-parallel bias added on both ranks as the control (across cards
+   0 and 1 too where there are two); (b) the dp x sp x tp ring_rdma DiT
+   over make_mesh(data=2, seq=2, model=2) against the dense fused forward,
+   and `generate_image` with ring_rdma over make_mesh(seq=2, model=2) (K4
+   once per block and model rank, at B1 H12); (c) the full-parameter
+   loop of (d) above at B=2 over make_mesh(data=2, model=2) (FSDP x TP) against the
+   one-device loop; (d) GPipe over the 38 single blocks (pipe=2, 4
+   microbatches) against the sequential stack; (e) expert-parallel MoE
+   (d=3072, 8 experts, top-2, 4096 tokens, expert=4) against the dense
+   MoE, both timed; (g) `loop_rate`, `device_trace` and `compiled_cost`;
+   and, in the video path, (f) the video experiment
+   (`run_video_concept_attention.main`, its default 13 latent frames,
+   --decode of 49 frames at 480x720, the decode's own device peak) against
+   the direct `generate_video`;
    then, with every earlier pipeline released, the T5-XXL and CLIP-L text
    towers from random HF state dicts through the port's converters (bf16
    against f32 at 2 layers, timed), flux-dev `generate_image` (1024x1024,
@@ -115,6 +133,7 @@ Any failed check raises, so the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -520,12 +539,15 @@ def masked_sdpa(q, k, v, mask):
         return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
 
 
-def video_flash_phases(vcfg, launches_k1, launches_k3, dev="cuda"):
+def video_flash_phases(vcfg, launches_k1, launches_k3, dev="cuda", frames=VIDEO_FRAMES,
+                       modes=None, paired=True):
     """K1 at head dim 64 and K3 at the CogVideoX-5b shape: B = 2 (CFG),
-    48 heads, S = 226 txt + 17550 video + 226 concept slots, RoPE. Each
-    kernel runs on the full shape; the plain version (whose [B, H, S, S]
-    scores would not fit) runs on batch row 1, heads (0, 1) and (46, 47),
-    whole pairs, and is held against the same slice of the kernel's output."""
+    48 heads, S = 226 txt + 17550 video + 226 concept slots, RoPE (`frames`
+    latent frames of 60x90; the cross / self `modes`; K3 unless not
+    `paired`). Each kernel runs on the full shape; the plain version (whose
+    [B, H, S, S] scores would not fit) runs on batch row 1, heads (0, 1)
+    and (46, 47), whole pairs, and is held against the same slice of the
+    kernel's output."""
     from conceptattention_torch.kernels import flash_saliency as fs
     from conceptattention_torch.models.video.dit import make_video_ids
     from conceptattention_torch.ops.rope import embed_nd
@@ -534,9 +556,9 @@ def video_flash_phases(vcfg, launches_k1, launches_k3, dev="cuda"):
     b, h, d = 2, vcfg.num_attention_heads, vcfg.attention_head_dim
     gh, gw = VIDEO_H // vcfg.patch_size, VIDEO_W // vcfg.patch_size
     t = c = vcfg.max_text_seq_length
-    p = VIDEO_FRAMES * gh * gw
+    p = frames * gh * gw
     s = t + p + c
-    ids = make_video_ids(VIDEO_FRAMES, gh, gw, b, device=dev)
+    ids = make_video_ids(frames, gh, gw, b, device=dev)
     pe, cpe = (embed_nd(torch.cat([torch.zeros(b, n, 3, device=dev), ids], 1),
                         vcfg.rope_axes_dim, 10_000) for n in (t, c))
     cos, sin = fs.expand_rope_tables([pe, (cpe[0][:, :, :c], cpe[1][:, :, :c])], s)
@@ -561,7 +583,7 @@ def video_flash_phases(vcfg, launches_k1, launches_k3, dev="cuda"):
     qs, ks, vs, cs, ss = sub(q), sub(k), sub(v), cos[1:2], sin[1:2]
     segments = {"joint rows": slice(0, t + p), "concept rows": slice(t + p, s)}
     results = {"k1": [], "k3": []}
-    for cross, self_attention in [(True, True), (True, False), (False, True), (False, False)]:
+    for cross, self_attention in modes or [(True, True), (True, False), (False, True), (False, False)]:
         mask = fs.segment_mask(s, t, p, c, cross, self_attention, dev)
         n_pairs = mask.sum().item()
         sub_args = (qs, ks, vs, t, p, c, cross, self_attention, cs, ss)
@@ -587,6 +609,9 @@ def video_flash_phases(vcfg, launches_k1, launches_k3, dev="cuda"):
             library, *cost, launches_k1 if on_path else 0, **common,
             extra=mma_sync_reading(full_args),
         ))
+        if not paired:
+            del mask
+            continue
         results["k3"].append(phase_result(
             f"flash_saliency_paired (hopper) video {tag}",
             lambda a=(q, k, v, cos, sin, t, p, c, cross, self_attention):
@@ -713,6 +738,24 @@ def ring_state_check(qs, ks, vs, segments, masked_kw):
                             "ok": ok}}
 
 
+def ring_steps_only(instance, qs, ks, vs, segments):
+    """The N step launches of one ring on pre-placed chunks (rank r's query
+    shard and, at each step, the chunk it holds), no hops: a callable."""
+    from conceptattention_torch.kernels import ring_rdma as rr
+
+    n = len(qs)
+    accs = [torch.empty(q.shape, device=q.device) for q in qs]
+    mls = [torch.empty((*q.shape[:3], 2), device=q.device) for q in qs]
+    outs = [torch.empty_like(q) for q in qs]
+
+    def run():
+        for step in range(n):
+            held = [(r - step) % n for r in range(n)]
+            rr._launch_step(instance, qs, [ks[i] for i in held], [vs[i] for i in held], accs,
+                            mls, outs, list(range(n)), n, step, segments)
+    return run
+
+
 def ring_phases(cfg, vcfg, launches, n=4):
     """K4 on a virtual ring of `n` ranks on card 0, against its plain
     version (the "ring" backend's ring on the same mesh): the flux double
@@ -753,19 +796,6 @@ def ring_phases(cfg, vcfg, launches, n=4):
         lc = x.shape[2] // n
         return [x[:, :, r * lc:(r + 1) * lc].contiguous() for r in range(n)]
 
-    def steps_only(instance, qs, ks, vs, segments):
-        """The N step launches of one ring on pre-placed chunks, no hops."""
-        accs = [torch.empty(q.shape, device=q.device) for q in qs]
-        mls = [torch.empty((*q.shape[:3], 2), device=q.device) for q in qs]
-        outs = [torch.empty_like(q) for q in qs]
-
-        def run():
-            for step in range(n):
-                held = [(r - step) % n for r in range(n)]
-                rr._launch_step(instance, qs, [ks[i] for i in held], [vs[i] for i in held], accs,
-                                mls, outs, list(range(n)), n, step, segments)
-        return run
-
     def readings(fused, padded, state_shards, t, p, c, cross, self_attention):
         segments = (t, p, c, cross, self_attention)
         masked_kw = dict(masked=True, txt_len=t, img_len=p, concept_len=c, cross=cross,
@@ -782,9 +812,9 @@ def ring_phases(cfg, vcfg, launches, n=4):
             qs, ks, vs = (shards(x) for x in padded)
             b, h, s_pad, d = padded[0].shape
             out = {"call_host_ms": host_ms(lambda: call(*padded)),
-                   "steps_ms": time_ms(steps_only("hopper", qs, ks, vs, segments)),
+                   "steps_ms": time_ms(ring_steps_only("hopper", qs, ks, vs, segments)),
                    "mma_sync_ms": time_ms(lambda: old_call(*padded)),
-                   "mma_sync_steps_ms": time_ms(steps_only("mma_sync", qs, ks, vs, segments)),
+                   "mma_sync_steps_ms": time_ms(ring_steps_only("mma_sync", qs, ks, vs, segments)),
                    "k1_ms": time_ms(lambda: fs.fused_concept_flash_attention(
                        *fused, t, p, c, cross, self_attention)),
                    # N - 1 hops of every rank's bf16 K and V chunk
@@ -1027,26 +1057,29 @@ def conv_phases(launch_counts: Counter):
     return results
 
 
-def flux_dit_outputs(pipe, make_runs, gen):
+def flux_dit_outputs(pipe, make_runs, gen, batch=1):
     """Two full-width flux double and two single blocks on a 256px input
-    drawn from `gen`, once per run of `make_runs(txt, txt_ids)` ({name:
-    (spec, txt, txt_ids)}). Returns {name: (pred, saliency)}."""
+    drawn from `gen` (`batch` rows, each its own latents), once per run of
+    `make_runs(txt, txt_ids)` ({name: (spec, txt, txt_ids[, params])}: the
+    pipeline's parameters unless the run names its own). Returns {name:
+    (pred, saliency)}."""
     from conceptattention_torch.models.flux.dit import flux_forward
     from conceptattention_torch.ops.packing import make_img_ids
 
     cfg, dev, size = pipe.cfg, pipe.device, 256
     grid = size // 16
-    txt, txt_ids, vec = pipe._prepare_text(PROMPT)
-    c_emb, c_ids, c_vec = pipe._prepare_concepts(CONCEPTS)
-    img = torch.randn(1, grid * grid, cfg.in_channels, generator=gen, device=dev).bfloat16()
+    txt, txt_ids, vec = pipe._prepare_text(PROMPT, batch)
+    c_emb, c_ids, c_vec = pipe._prepare_concepts(CONCEPTS, batch)
+    img = torch.randn(batch, grid * grid, cfg.in_channels, generator=gen, device=dev).bfloat16()
     small = dataclasses.replace(cfg, depth=2, depth_single_blocks=2)
     return {
         name: flux_forward(
-            pipe.params, small, img, make_img_ids(grid, grid, 1, device=dev), run_txt, run_ids,
-            torch.full((1,), 0.5, device=dev), vec, concepts=c_emb, concept_ids=c_ids,
-            concept_vec=c_vec, spec=spec,
+            run[3] if len(run) > 3 else pipe.params, small, img,
+            make_img_ids(grid, grid, batch, device=dev), run[1], run[2],
+            torch.full((batch,), 0.5, device=dev), vec, concepts=c_emb, concept_ids=c_ids,
+            concept_vec=c_vec, spec=run[0],
         )
-        for name, (spec, run_txt, run_ids) in make_runs(txt, txt_ids).items()
+        for name, run in make_runs(txt, txt_ids).items()
     }
 
 
@@ -1284,6 +1317,10 @@ def video_path(counters):
     }
     print(f"generate_video heads paired vs K1: {json.dumps(paired_vs_k1)}", flush=True)
     summary["decode seconds"] = video_decode_checks(pipe, outs["ddim warm"].video_latents)
+    del outs, a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary["experiment"] = video_experiment_path(pipe, counters)
     summary["peak device memory GiB"] = torch.cuda.max_memory_allocated() / 2**30
     print(f"video peak device memory GiB {summary['peak device memory GiB']:.3f}", flush=True)
     return summary
@@ -4767,6 +4804,702 @@ def training_paths(pipe, bf16_out, counters):
     return paths
 
 
+# ----------------------------------------------------------------------------
+# Parallelism: tensor-parallel serving, the dp x sp x tp ring, FSDP x
+# TP training, GPipe, expert-parallel MoE, the video experiment, profiling.
+# Every mesh is virtual: its ranks share card 0.
+# ----------------------------------------------------------------------------
+
+TP = 2  # the `model` axis of tensor-parallel serving
+# The tensor-parallel image's heatmaps against the one-device image of the
+# same weights, prompt and seed: relative RMS per map. Any other bf16 order
+# of the same function moves them as far: the one-device sdpa image, the
+# noise floor, reads 0.078 / 0.018 (concept / cross-attention maps; the
+# tensor-parallel image 0.078 / 0.019), since rounding grows through the 19
+# double blocks on random weights (one step reads 0.15 / 0.03 both ways,
+# where the 2 + 2-block DiT check reads 0.007); the one-device fused path
+# is deterministic (a second run reads 0.0). The controls, the saliency
+# left unsummed over the ranks (0.20 / 0.37) and another seed (0.18 /
+# 0.48), must land above; each limit sits between the floor and the
+# controls (`probe_parallel.py heatmaps`).
+TP_HEATMAP_RMS_LIMIT = {"concept_heatmaps": 2.0**-3, "cross_attention_maps": 2.0**-4}
+
+
+def within_heatmap_limits(readings) -> bool:
+    return all(readings[tap] <= limit for tap, limit in TP_HEATMAP_RMS_LIMIT.items())
+
+
+def beyond_heatmap_limits(readings) -> bool:
+    return all(readings[tap] > limit for tap, limit in TP_HEATMAP_RMS_LIMIT.items())
+# The tensor-parallel DiT (2 + 2 full-width blocks) against the dense one,
+# max |d| over the largest value for pred and saliency: each row-parallel
+# product is rounded to bf16 on its rank and again after the sum, where the
+# dense product is rounded once, so twice the dense paths' limit. The
+# control (row-parallel biases added on both ranks) lands tens of times
+# above it.
+TP_DIT_LIMIT = 2.0**-6
+# The FSDP x TP loop against the one-device loop on the same batches (bf16):
+# the losses' largest relative difference, and the parameters' difference
+# as a relative RMS of the one-device run's whole update; the control, the
+# one-device loop on other batches, must break the latter.
+FSDP_LOSS_LIMIT = 2.0**-6
+FSDP_PARAM_LIMIT = 2.0**-2
+FSDP_STEPS = 4
+# GPipe and expert-parallel MoE against their sequential / dense runs (bf16,
+# relative RMS): cuBLAS takes other row counts there, so sums run in
+# another order; in the MoE a token whose two best experts' router logits
+# nearly tie may route apart, which costs 1/sqrt(4096) of relative RMS per
+# such token.
+GPIPE_LIMIT = 2.0**-6
+MOE_LIMIT = 2.0**-5
+MOE_TOKENS, MOE_D, MOE_HIDDEN, MOE_EXPERTS, MOE_EP = 4096, 3072, 12288, 8, 4
+# loop_rate of K1's single block against time_ms of the same call.
+LOOP_RATE_MARGIN = 0.25
+
+
+def h12(cfg):
+    """A stand-in config with one rank's heads at model=2: 12 of 128."""
+    return types.SimpleNamespace(num_heads=cfg.num_heads // TP, head_dim=cfg.head_dim,
+                                 axes_dim=cfg.axes_dim, theta=cfg.theta)
+
+
+def tp_flash_phases(cfg, launches_double, launches_single):
+    """K1 as one tensor-parallel rank runs it at model=2: H12 of the double
+    block (S=4355, with its concept rows) and of the single block (S=4352),
+    against its plain version and SDPA; the bound is half of H24's."""
+    from conceptattention_torch.kernels import flash_saliency as fs
+
+    gen = torch.Generator("cuda").manual_seed(15)
+    rank_cfg = h12(cfg)
+    h, d = rank_cfg.num_heads, rank_cfg.head_dim
+    args, qr, kr = joint_rows_inputs(rank_cfg, gen, 1, 256)
+    _, _, v, t, p, c, *_ = args
+    s = t + p + c
+    mask = fs.segment_mask(s, t, p, c, True, True, "cuda")
+    results = [phase_result(
+        f"flash_saliency double_block H={h} (one rank of model={TP}) S={s}",
+        lambda: fs.fused_concept_flash_attention(*args),
+        lambda: fs.fused_concept_flash_attention_plain(*args),
+        lambda: F.scaled_dot_product_attention(qr, kr, v, attn_mask=mask),
+        4 * d * mask.sum().item() * h, 4 * h * s * d * 2 + 2 * s * d * 4, launches_double,
+        {"joint rows": slice(0, t + p), "concept rows": slice(t + p, s)},
+        [("cross flipped", "concept rows",
+          lambda _: fs.fused_concept_flash_attention_plain(*args[:6], False, *args[7:])),
+         ("one img key tile dropped", "joint rows", lambda want: drop_key_tile(want, args, t + 64 * 32))],
+    )]
+    del args, qr, kr, mask
+    args, qs, ks = single_rows_inputs(rank_cfg, gen, 256)
+    s = args[3]
+    results.append(phase_result(
+        f"flash_saliency single_block H={h} (one rank of model={TP}) S={s}",
+        lambda: fs.fused_concept_flash_attention(*args),
+        lambda: fs.fused_concept_flash_attention_plain(*args),
+        lambda: F.scaled_dot_product_attention(qs, ks, args[2]),
+        4 * d * s * s * h, 4 * h * s * d * 2 + 2 * s * d * 4, launches_single,
+        controls=[("one key tile dropped", "all", lambda want: drop_key_tile(want, args, 256 + 64 * 32))],
+    ))
+    torch.cuda.empty_cache()
+    return results
+
+
+def tp_ring_phase(cfg, launches):
+    """K4 as the dp x sp x tp ring runs it in a ring generate over
+    make_mesh(seq=2, model=2): one (data, model) slice's ring of 2 at B1
+    H12 (S = 4355 padded to 4356), against the plain ring on the same
+    slice and masked SDPA; controls and readings as `ring_phases`."""
+    from functools import partial
+
+    from conceptattention_torch.kernels import flash_saliency as fs
+    from conceptattention_torch.kernels import ring_rdma as rr
+    from conceptattention_torch.ops.packing import make_img_ids
+    from conceptattention_torch.ops.rope import embed_nd
+    from conceptattention_torch.parallel import make_mesh
+    from conceptattention_torch.parallel.ring_attention import (
+        make_ring_concept_attention,
+        shard_over_ring,
+    )
+
+    n = 2
+    mesh = make_mesh(seq=n, model=TP, devices=[torch.device("cuda", 0)] * (n * TP)).sub(model=0)
+    gen = torch.Generator("cuda").manual_seed(17)
+    h, d, t, grid, c = cfg.num_heads // TP, cfg.head_dim, 256, SIZE // 16, len(CONCEPTS)
+    p = grid * grid
+    img_ids = make_img_ids(grid, grid, 1, device="cuda")
+    pe, cpe = (embed_nd(torch.cat([torch.zeros(1, m, 3, device="cuda"), img_ids], 1),
+                        cfg.axes_dim, cfg.theta) for m in (t, c))
+    fused, padded = fused_ring_inputs(gen, 1, h, d, t, p, c, pe, cpe, n)
+    s, s_pad = t + p + c, padded[0].shape[2]
+    lc = s_pad // n
+    split = [[x[:, :, r * lc:(r + 1) * lc].contiguous() for r in range(n)] for x in padded]
+    mask = fs.segment_mask(s, t, p, c, True, True, "cuda")
+    call = rr.make_ring_concept_attention_rdma(mesh, "seq", t, p, c)
+
+    segments = (t, p, c, True, True)
+    old_call = shard_over_ring(mesh, "seq", lambda qs, ks, vs: rr._run_ring(
+        qs, ks, vs, segments, partial(rr._launch_step, "mma_sync")))
+
+    def extra(got):
+        before = (rr.ring_attention_rdma.step_launches, rr.ring_attention_rdma.hopper_step_launches)
+        call(*padded)
+        steps = rr.ring_attention_rdma.step_launches - before[0]
+        hopper = rr.ring_attention_rdma.hopper_step_launches - before[1]
+        return {"call_host_ms": host_ms(lambda: call(*padded)),
+                "steps_ms": time_ms(ring_steps_only("hopper", *split, segments)),
+                "mma_sync_ms": time_ms(lambda: old_call(*padded)),
+                "mma_sync_steps_ms": time_ms(ring_steps_only("mma_sync", *split, segments)),
+                "step_launches_per_call": steps, "hopper_step_launches_per_call": hopper,
+                "ok": steps == hopper == n}
+
+    result = phase_result(
+        f"ring_attention (hopper) double_block B=1 H={h} D={d} S={s}->{s_pad} N={n}, one "
+        f"(data, model) slice of the dp x sp x tp ring",
+        lambda: call(*padded),
+        lambda: make_ring_concept_attention(mesh, "seq", t, p, c)(*padded),
+        lambda: F.scaled_dot_product_attention(fused[0], fused[1], fused[2], attn_mask=mask),
+        4 * d * mask.sum().item() * h, 4 * h * s * d * 2, launches,
+        {"joint rows": slice(0, t + p), "concept rows": slice(t + p, s), "pad rows": slice(s, s_pad)},
+        [("self_attention flipped", "concept rows",
+          lambda _: make_ring_concept_attention(mesh, "seq", t, p, c, True, False)(*padded)),
+         ("chunk origin off by one step", "joint rows",
+          lambda _: faulty_ring(*split, t, p, c, origin_shift=1))],
+        extra=extra,
+    )
+    del fused, padded, split, mask
+    torch.cuda.empty_cache()
+    return result
+
+
+def first_layers(params, n):
+    """The tree with its block stacks cut to their first n layers (views)."""
+    from conceptattention_torch.models.flux.params import tree_map
+
+    out = {k: v for k, v in params.items() if k not in ("double", "single")}
+    for key in ("double", "single"):
+        out[key] = tree_map(lambda x: x[:n], params[key])
+    return out
+
+
+def biased_small_tree(pipe, gen):
+    """The first 2 double and 2 single blocks of the pipeline's weights,
+    with normal draws (std 0.5) for the row-parallel biases (proj,
+    mlp_out), which the random init leaves at zero: a bias the ranks add
+    more than once must show."""
+    tree = first_layers(pipe.params, 2)
+    for layer_key, names in (("double", ("img_proj", "txt_proj", "img_mlp_out", "txt_mlp_out")),
+                             ("single", ("proj",))):
+        for name in names:
+            cell = dict(tree[layer_key][name])
+            b_shape = (2, pipe.cfg.hidden_size)
+            cell["b"] = (0.5 * torch.randn(b_shape, generator=gen, device="cuda")).bfloat16()
+            tree[layer_key][name] = cell
+    return tree
+
+
+def doubled_row_biases(tree):
+    """The tree with every row-parallel bias doubled: what a tensor-parallel
+    block computes that adds the bias on each of its 2 ranks, before the sum."""
+    out = dict(tree)
+    for layer_key, names in (("double", ("img_proj", "txt_proj", "img_mlp_out", "txt_mlp_out")),
+                             ("single", ("proj",))):
+        out[layer_key] = dict(tree[layer_key])
+        for name in names:
+            out[layer_key][name] = {**tree[layer_key][name], "b": 2 * tree[layer_key][name]["b"]}
+    return out
+
+
+def tp_reference_checks(pipe, devices=None, modes=(None, "w8", "w8a8")):
+    """The full-width DiT (2 + 2 blocks, 256px, biases drawn) dense against
+    tensor-parallel over make_mesh(model=2) on the fused backend, in bf16,
+    w8 and w8a8, to TP_DIT_LIMIT; the control, the TP tree with every
+    row-parallel bias added on both ranks, must break it. `devices`: the
+    ranks' cards (card 0 for both by default)."""
+    from conceptattention_torch.ops.attention import ConceptAttentionSpec
+    from conceptattention_torch.ops.quant import int8_gemm_layout, quantize_flux_params
+    from conceptattention_torch.parallel import make_mesh
+    from conceptattention_torch.parallel.sharding import shard_params
+
+    devices = devices or [torch.device("cuda", 0)] * TP
+    mesh = make_mesh(model=TP, devices=devices)
+    where = "on card 0" if len(set(devices)) == 1 else "across cards " + ", ".join(
+        str(d.index) for d in devices)
+    base = biased_small_tree(pipe, torch.Generator("cuda").manual_seed(18))
+    fused = ConceptAttentionSpec(backend="fused")
+    ok = True
+    for mode in modes:
+        tree = base if mode is None else int8_gemm_layout(quantize_flux_params(base, mode=mode))
+        runs = {"dense": (fused, None, None, tree), "tp": (fused, None, None, shard_params(tree, mesh))}
+        if mode is None:
+            runs["control: row-parallel biases added on both ranks"] = (
+                fused, None, None, shard_params(doubled_row_biases(tree), mesh))
+        outs = flux_dit_outputs(pipe, lambda txt, ids, runs=runs: {
+            k: (v[0], txt, ids, v[3]) for k, v in runs.items()}, torch.Generator("cuda").manual_seed(3))
+        readings = flux_dit_readings(outs, "dense", f"reference DiT tensor-parallel model={TP} {where} "
+                                     f"({mode or 'bf16'}, 2+2 full-width blocks, 256px)")
+        mode_ok = max(readings["tp"]) <= TP_DIT_LIMIT
+        if mode is None:
+            mode_ok = mode_ok and readings["control: row-parallel biases added on both ranks"][0] > TP_DIT_LIMIT
+        print(f"reference DiT tensor-parallel ({mode or 'bf16'}) limit (pred and saliency) "
+              f"{TP_DIT_LIMIT}: ok={mode_ok}", flush=True)
+        ok = ok and mode_ok
+        del outs, runs, tree
+    if not ok:
+        raise AssertionError("tensor-parallel DiT against the dense one: a reading or a control is "
+                             "on the wrong side of its limit")
+
+
+@contextlib.contextmanager
+def saliency_sum_left_out():
+    """Planted fault in tensor-parallel serving: the double blocks' saliency
+    maps are not summed over the model ranks, so each rank keeps the head
+    sum over its own heads (the first rank's half reaches the output)."""
+    from conceptattention_torch.models.flux import blocks
+    from conceptattention_torch.parallel import collectives
+
+    real = blocks.lax
+
+    class faulty(real):
+        @staticmethod
+        def psum(x, axis_name):
+            if isinstance(x, dict):  # the saliency taps; the row-parallel sums are tensors
+                return collectives.Collective("own", axis_name, x, {})
+            return real.psum(x, axis_name)
+
+    collectives._OPS["own"] = list
+    blocks.lax = faulty
+    try:
+        yield
+    finally:
+        blocks.lax = real
+        del collectives._OPS["own"]
+
+
+def heatmap_rms(got, want) -> float:
+    return float(np.sqrt(np.mean((got - want) ** 2) / np.mean(want**2)))
+
+
+def tp_serving_path(pipe, bf16_out, counters, conv_per_decode):
+    """(a) flux-schnell bf16 `generate_image` (1024², STEPS steps) with
+    mesh=make_mesh(model=2) over card 0, on the one-device pipeline's
+    weights, cold and warm: K1 once per rank and block (every block at H12)
+    and once for the VAE; the heatmaps against the one-device image's.
+    Returns {path: (launches [K1, K2, K1 hopper, K2 hopper], seconds)}."""
+    from conceptattention_torch import ConceptAttentionFluxPipeline
+    from conceptattention_torch.parallel import make_mesh
+    from conceptattention_torch.parallel.sharding import bytes_per_rank
+
+    tp_reference_checks(pipe)
+    if torch.cuda.device_count() >= 2:
+        tp_reference_checks(pipe, [torch.device("cuda", 0), torch.device("cuda", 1)], modes=(None,))
+    else:
+        print("tensor parallelism across cards: not run: this machine has "
+              f"{torch.cuda.device_count()} CUDA card; model=2 across cards 0 and 1 needs two",
+              flush=True)
+    cfg = pipe.cfg
+    mesh = make_mesh(model=TP, devices=[torch.device("cuda", 0)] * TP)
+    t0 = time.perf_counter()
+    tp_pipe = ConceptAttentionFluxPipeline("flux-schnell", params=pipe.params,
+                                           ae_params=pipe.ae_params, mesh=mesh)
+    torch.cuda.synchronize()
+    rank_bytes = [bytes_per_rank(tp_pipe.params, (0, 0, 0, 0, r)) for r in range(TP)]
+    print(f"tensor-parallel pipeline (model={TP} on card 0) init seconds "
+          f"{time.perf_counter() - t0:.3f}, DiT bytes per rank {rank_bytes}", flush=True)
+    per_image = TP * STEPS * (cfg.depth + cfg.depth_single_blocks) + 1
+    want = [per_image, conv_per_decode, per_image, conv_per_decode]
+    seconds = []
+    for _ in range(2):
+        out, secs, launches = counted(lambda: tp_pipe.generate_image(
+            PROMPT, CONCEPTS, width=SIZE, height=SIZE, num_inference_steps=STEPS,
+            return_pil_heatmaps=False, return_image_array=True), counters)
+        if launches != want:
+            raise AssertionError(f"tensor-parallel generate_image launches {launches} != {want}")
+        check_image_output(out, "tensor-parallel generate_image")
+        seconds.append(secs)
+    def image(p, seed=0):
+        return p.generate_image(PROMPT, CONCEPTS, width=SIZE, height=SIZE, seed=seed,
+                                num_inference_steps=STEPS, return_pil_heatmaps=False,
+                                return_image_array=True)
+
+    sdpa_pipe = ConceptAttentionFluxPipeline("flux-schnell", params=pipe.params,
+                                             ae_params=pipe.ae_params, attention_backend="sdpa")
+    # the noise floor: the same function by another bf16 route on one device
+    compared = {"noise floor: the one-device sdpa image": image(sdpa_pipe)}
+    del sdpa_pipe
+    with saliency_sum_left_out():
+        compared["control: saliency not summed over the model ranks"] = image(tp_pipe)
+    compared["control: the one-device image of seed 1"] = image(pipe, seed=1)
+    taps = ("concept_heatmaps", "cross_attention_maps")
+    readings = {tap: heatmap_rms(getattr(out, tap), getattr(bf16_out, tap)) for tap in taps}
+    others = {name: {tap: heatmap_rms(getattr(o, tap), getattr(bf16_out, tap)) for tap in taps}
+              for name, o in compared.items()}
+    floor = others["noise floor: the one-device sdpa image"]
+    ok = (within_heatmap_limits(readings) and within_heatmap_limits(floor)
+          and all(beyond_heatmap_limits(v) for k, v in others.items() if k.startswith("control")))
+    print(f"generate_image tensor-parallel model={TP} {SIZE}x{SIZE}: launches [K1, K2, K1 hopper, "
+          f"K2 hopper] {launches}, cold seconds {seconds[0]:.4f}, warm seconds {seconds[1]:.4f}; "
+          f"heatmaps' relative RMS against the one-device image {json.dumps(readings)}, "
+          f"{json.dumps(others)}, limits {json.dumps(TP_HEATMAP_RMS_LIMIT)}: ok={ok}; image max |d| "
+          f"{int(np.abs(out.image.astype(int) - bf16_out.image.astype(int)).max())}", flush=True)
+    if not ok:
+        raise AssertionError("tensor-parallel heatmaps against the one-device image's: a reading, "
+                             "the noise floor or a control is on the wrong side of the limit")
+    del tp_pipe, out, compared
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {f"generate_image (model={TP})": (launches, seconds[1])}
+
+
+def dp_sp_tp_path(pipe, bf16_out, counters, conv_per_decode):
+    """(b) The dp x sp x tp ring: the full-width DiT (2 + 2 blocks, 256px,
+    B=2) with "ring_rdma" over make_mesh(data=2, seq=2, model=2) on card 0
+    against the dense fused forward (controls: 64 txt keys dropped, the
+    concept self-attention off); then `generate_image` with "ring_rdma"
+    over make_mesh(seq=2, model=2), K4 once per block and model rank at
+    B1 H12. Returns ({path: (launches [K1, K2, K1 hopper, K2 hopper],
+    seconds)}, {path: ([K4, ...], seconds, K4 Hopper step launches)})."""
+    from conceptattention_torch import ConceptAttentionFluxPipeline
+    from conceptattention_torch.kernels.ring_rdma import ring_attention_rdma
+    from conceptattention_torch.ops.attention import ConceptAttentionSpec
+    from conceptattention_torch.parallel import make_mesh
+    from conceptattention_torch.parallel.sharding import shard_params
+
+    card = torch.device("cuda", 0)
+    mesh3 = make_mesh(data=2, seq=2, model=TP, devices=[card] * (4 * TP))
+    ring = dict(backend="ring_rdma", mesh=mesh3, batch_axis="data", head_axis="model")
+    tp_params = shard_params(first_layers(pipe.params, 2), mesh3)
+    counts = (ring_attention_rdma.launches, ring_attention_rdma.hopper_step_launches)
+    outs = flux_dit_outputs(pipe, lambda txt, ids: {
+        "fused": (ConceptAttentionSpec(backend="fused"), txt, ids),
+        "dp x sp x tp ring_rdma": (ConceptAttentionSpec(**ring), txt, ids, tp_params),
+        "control: 64 txt keys dropped": (ConceptAttentionSpec(**ring), txt[:, :-64], ids[:, :-64],
+                                         tp_params),
+        "control: concept self_attention off": (ConceptAttentionSpec(self_attention=False, **ring),
+                                                txt, ids, tp_params),
+    }, torch.Generator("cuda").manual_seed(3), batch=2)
+    calls = ring_attention_rdma.launches - counts[0]
+    steps = ring_attention_rdma.hopper_step_launches - counts[1]
+    readings = flux_dit_readings(outs, "fused", "reference DiT dp x sp x tp (data=2, seq=2, model=2; "
+                                 "2+2 full-width blocks, 256px, B=2)")
+    # 3 ring runs x 2 double blocks x 4 (data, model) slices, 2 Hopper steps each
+    ok = (readings["dp x sp x tp ring_rdma"][0] <= TP_DIT_LIMIT
+          < readings["control: 64 txt keys dropped"][0]
+          and readings["dp x sp x tp ring_rdma"][1] <= DIT_SALIENCY_LIMIT
+          < readings["control: concept self_attention off"][1]
+          and calls == 3 * 2 * 2 * TP and steps == 2 * calls)
+    print(f"reference DiT dp x sp x tp: K4 calls {calls} (one per block and (data, model) slice), "
+          f"Hopper step launches {steps}; limits pred {TP_DIT_LIMIT} (the ranks' sums round "
+          f"twice), saliency {DIT_SALIENCY_LIMIT} (its control sits at 2^-6): ok={ok}", flush=True)
+    if not ok:
+        raise AssertionError("dp x sp x tp ring against the dense fused forward: a reading, a "
+                             "control or a launch count is off")
+    del outs, tp_params
+
+    mesh = make_mesh(seq=2, model=TP, devices=[card] * (2 * TP))
+    ring_pipe = ConceptAttentionFluxPipeline("flux-schnell", params=pipe.params,
+                                             ae_params=pipe.ae_params, mesh=mesh,
+                                             attention_backend="ring_rdma")
+    cfg = pipe.cfg
+    want = [TP * STEPS * cfg.depth, 1, conv_per_decode, 1, conv_per_decode]
+    before = ring_attention_rdma.hopper_step_launches
+    out, secs, launches = counted(lambda: ring_pipe.generate_image(
+        PROMPT, CONCEPTS, width=SIZE, height=SIZE, num_inference_steps=STEPS,
+        return_pil_heatmaps=False, return_image_array=True), [ring_attention_rdma, *counters])
+    hopper_steps = ring_attention_rdma.hopper_step_launches - before
+    if launches != want or hopper_steps != 2 * want[0]:
+        raise AssertionError(f"ring generate_image (seq=2, model={TP}) launches [K4, K1, K2, K1 "
+                             f"hopper, K2 hopper] {launches} != {want}, or Hopper steps {hopper_steps}")
+    check_image_output(out, "ring generate_image (seq=2, model=2)")
+    readings = {tap: heatmap_rms(getattr(out, tap), getattr(bf16_out, tap))
+                for tap in ("concept_heatmaps", "cross_attention_maps")}
+    ok = within_heatmap_limits(readings)
+    label = f"generate_image (ring_rdma, seq=2 x model={TP})"
+    print(f"{label} {SIZE}x{SIZE}: launches [K4, K1, K2, K1 hopper, K2 hopper] {launches}, K4 Hopper "
+          f"step launches {hopper_steps}, seconds {secs:.4f}; heatmaps' relative RMS against the "
+          f"one-device fused image {json.dumps(readings)}, limits {json.dumps(TP_HEATMAP_RMS_LIMIT)}: "
+          f"ok={ok}",
+          flush=True)
+    if not ok:
+        raise AssertionError("the dp x sp x tp ring image's heatmaps are off the one-device image's")
+    del ring_pipe, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {label: (launches[1:], secs)}, {label: (launches, secs, hopper_steps)}
+
+
+def fsdp_path():
+    """(c) `loop_path`'s full-parameter loop at full widths (1 + LOOP_SINGLE
+    blocks, bf16, LOOP_SIZE², here B=2 so the batch splits) over
+    make_mesh(data=2, model=2) on card 0 (FSDP x TP: shard_params_fsdp)
+    against the one-device loop on the same batches; control: the
+    one-device loop on other batches."""
+    from conceptattention_torch.config import configs
+    from conceptattention_torch.models.flux.params import init_flux_params, tree_leaves
+    from conceptattention_torch.parallel import make_mesh, shard_params_fsdp
+    from conceptattention_torch.parallel.sharding import bytes_per_rank, gather_tree
+    from conceptattention_torch.training import TrainConfig, train_loop
+
+    cfg = dataclasses.replace(configs["flux-schnell"].params, depth=1, depth_single_blocks=LOOP_SINGLE)
+    params = init_flux_params(torch.Generator("cuda").manual_seed(16), cfg, torch.bfloat16)
+
+    def stream(offset=0):
+        i = 0
+        while True:
+            rows = [train_batch(cfg, LOOP_SIZE, torch.Generator("cuda").manual_seed(2000 + offset + 2 * i + r))
+                    for r in range(2)]
+            yield {k: torch.cat([row[k] for row in rows]) for k in rows[0]}
+            i += 1
+
+    tc = TrainConfig(total_steps=FSDP_STEPS, learning_rate=1e-4, warmup_steps=1, grad_accum=1,
+                     ema_decay=0.999, max_grad_norm=LOOP_MAX_GRAD_NORM, log_every=100)
+    one = train_loop(params, cfg, stream(), tc, log=lambda _: None)
+    other = train_loop(params, cfg, stream(offset=10_000), tc, log=lambda _: None)
+    mesh = make_mesh(data=2, model=TP, devices=[torch.device("cuda", 0)] * (2 * TP))
+    placed = shard_params_fsdp(params, mesh, cfg)
+    rank_bytes = {f"data={d}, model={m}": bytes_per_rank(placed, (d, 0, 0, 0, m))
+                  for d in range(2) for m in range(TP)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run = train_loop(placed, cfg, stream(), tc, mesh=mesh, log=lambda _: None)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30 - held
+
+    def rel_rms(a_leaves, b_leaves, ref_leaves):
+        num = sum((a.float() - b.float()).pow(2).sum().item() for a, b in zip(a_leaves, b_leaves))
+        den = sum((b.float() - r.float()).pow(2).sum().item() for b, r in zip(b_leaves, ref_leaves))
+        return math.sqrt(num / den)
+
+    start, one_p = tree_leaves(params), tree_leaves(one["params"])
+    got = tree_leaves(gather_tree(run["params"]))
+    loss_diff = max(abs(a - b) / abs(b) for a, b in zip(run["losses"], one["losses"]))
+    param_rms = rel_rms(got, one_p, start)
+    control_rms = rel_rms(tree_leaves(other["params"]), one_p, start)
+    ok = loss_diff <= FSDP_LOSS_LIMIT and param_rms <= FSDP_PARAM_LIMIT < control_rms
+    print(f"fsdp x tp loop (data=2, model={TP} on card 0) on {gpu_line()}: flux-schnell widths, 1 + "
+          f"{LOOP_SINGLE} blocks, bf16, {LOOP_SIZE}x{LOOP_SIZE} B=2, {FSDP_STEPS} steps in "
+          f"{seconds:.3f} s; losses {run['losses']} (one device {one['losses']}), largest relative "
+          f"difference {loss_diff} (limit {FSDP_LOSS_LIMIT}); parameters' difference over the "
+          f"one-device update, relative RMS {param_rms} (limit {FSDP_PARAM_LIMIT}; control, other "
+          f"batches, {control_rms}); shard bytes per rank {json.dumps(rank_bytes)} of "
+          f"{sum(x.numel() * x.element_size() for x in start)}; device peak GiB above the "
+          f"{held:.3f} held before {peak:.3f}: ok={ok}", flush=True)
+    if not ok:
+        raise AssertionError("the FSDP x TP loop is off the one-device loop (or its control is not)")
+
+
+def gpipe_path(pipe, counters):
+    """(d) GPipe: `pipeline_apply` over the 38 single blocks of the
+    pipeline's weights, pipe=2, 4 microbatches of 1 image (1024²: 4352
+    tokens), fused backend, against the sequential stack on the whole
+    batch; control: the stack's output with its microbatches' rows out of
+    order. Returns {path: (launches, seconds)}."""
+    from conceptattention_torch.models.flux.blocks import single_block
+    from conceptattention_torch.models.flux.params import layer
+    from conceptattention_torch.ops.packing import make_img_ids
+    from conceptattention_torch.ops.rope import embed_nd
+    from conceptattention_torch.parallel import make_mesh, pipeline_apply
+
+    cfg, b, t, grid = pipe.cfg, 4, 256, SIZE // 16
+    gen = torch.Generator("cuda").manual_seed(19)
+    x = torch.randn(b, t + grid * grid, cfg.hidden_size, generator=gen, device="cuda").bfloat16()
+    vec = torch.randn(b, cfg.hidden_size, generator=gen, device="cuda").bfloat16()
+    img_ids = make_img_ids(grid, grid, b, device="cuda")
+    pe = embed_nd(torch.cat([torch.zeros(b, t, 3, device="cuda"), img_ids], 1), cfg.axes_dim, cfg.theta)
+
+    def layer_fn(lp, c):
+        rows = c["x"].shape[0]
+        return {"x": single_block(lp, c["x"], c["vec"], tuple(a[:rows] for a in pe), cfg.num_heads,
+                                  cfg.mlp_hidden_dim), "vec": c["vec"]}
+
+    mesh = make_mesh(pipe=2, devices=[torch.device("cuda", 0)] * 2)
+    stack = pipe.params["single"]
+    with torch.inference_mode():
+        carry = {"x": x, "vec": vec}
+        for i in range(cfg.depth_single_blocks):
+            carry = layer_fn(layer(stack, i), carry)
+        want = carry["x"]
+        got, seconds, launches = counted(lambda: pipeline_apply(
+            layer_fn, stack, {"x": x, "vec": vec}, mesh, num_microbatches=4)["x"], counters)
+    err = float(((got.float() - want.float()).pow(2).mean() / want.float().pow(2).mean()).sqrt())
+    control = float(((got.float() - want.roll(1, 0).float()).pow(2).mean()
+                     / want.float().pow(2).mean()).sqrt())
+    expect = [4 * cfg.depth_single_blocks, 0, 4 * cfg.depth_single_blocks, 0]
+    ok = err <= GPIPE_LIMIT < control and launches == expect
+    print(f"gpipe pipeline_apply over {cfg.depth_single_blocks} single blocks, pipe=2, 4 microbatches "
+          f"(B=4, 1024²): seconds {seconds:.4f}, launches [K1, K2, K1 hopper, K2 hopper] {launches}; "
+          f"relative RMS against the sequential stack {err} (limit {GPIPE_LIMIT}; control, rows out "
+          f"of order, {control}): ok={ok}", flush=True)
+    if not ok:
+        raise AssertionError("GPipe against the sequential stack: off, or its control or launches")
+    return {"pipeline_apply (38 single blocks, pipe=2)": (launches, seconds)}
+
+
+def moe_path():
+    """(e) Expert-parallel MoE at d=3072, hidden 12288, 8 experts, top-2,
+    4096 bf16 tokens over expert=4 on card 0, against `moe_mlp` with no
+    drops (capacity top_k x tokens per rank, and all tokens for the dense
+    run); both timed."""
+    from conceptattention_torch.parallel import init_moe_params, make_mesh, moe_mlp, moe_mlp_expert_parallel
+
+    params = init_moe_params(torch.Generator("cuda").manual_seed(20), MOE_D, MOE_HIDDEN, MOE_EXPERTS,
+                             torch.bfloat16)
+    x = torch.randn(MOE_TOKENS, MOE_D, generator=torch.Generator("cuda").manual_seed(21),
+                    device="cuda").bfloat16()
+    mesh = make_mesh(expert=MOE_EP, devices=[torch.device("cuda", 0)] * MOE_EP)
+    cap = 2 * MOE_TOKENS // MOE_EP
+    with torch.inference_mode():
+        dense, dense_aux = moe_mlp(params, x, top_k=2, capacity=MOE_TOKENS)
+        got, aux = moe_mlp_expert_parallel(params, x, mesh, top_k=2, capacity=cap)
+        err = float(((got.float() - dense.float()).pow(2).mean() / dense.float().pow(2).mean()).sqrt())
+        dropped, _ = moe_mlp(params, x, top_k=2, capacity=MOE_TOKENS // MOE_EXPERTS // 2)
+        control = float(((dropped.float() - dense.float()).pow(2).mean()
+                         / dense.float().pow(2).mean()).sqrt())
+        dense_ms = time_ms(lambda: moe_mlp(params, x, top_k=2, capacity=MOE_TOKENS), reps=5)
+        ep_ms = time_ms(lambda: moe_mlp_expert_parallel(params, x, mesh, top_k=2, capacity=cap), reps=5)
+    aux_diff = abs(float(aux) - float(dense_aux))
+    ok = err <= MOE_LIMIT < control and aux_diff <= 1e-5 * abs(float(dense_aux))
+    print(f"moe expert-parallel (expert={MOE_EP} on card 0; d={MOE_D}, hidden {MOE_HIDDEN}, "
+          f"{MOE_EXPERTS} experts, top-2, {MOE_TOKENS} bf16 tokens, capacity {cap}): relative RMS "
+          f"against moe_mlp {err} (limit {MOE_LIMIT}; control, capacity "
+          f"{MOE_TOKENS // MOE_EXPERTS // 2} with drops, {control}), aux {float(aux)} vs "
+          f"{float(dense_aux)}; ms: moe_mlp {dense_ms:.4f}, expert-parallel {ep_ms:.4f}: ok={ok}",
+          flush=True)
+    if not ok:
+        raise AssertionError("expert-parallel MoE against the dense MoE: off, or its control")
+
+
+def video_experiment_path(pipe, counters):
+    """(f) `run_video_concept_attention.main` on the CogVideoX-5b pipeline
+    (its default clip, 13 x 60 x 90 latents, STEPS_VIDEO steps, --decode of
+    all 49 frames at 480x720), writing concepts.gif and
+    video.gif under build/; its heatmaps against the direct
+    `generate_video` with the same arguments (bit for bit: the same
+    kernels on the same inputs). Counters are [K1, K3, K1 hopper]."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from conceptattention_torch.experiments import run_video_concept_attention as exp
+
+    root = Path(tempfile.mkdtemp(prefix="smoke_video_", dir=Path(__file__).resolve().parent / "build"))
+    try:
+        argv = ["--num_steps", str(STEPS_VIDEO), "--decode", "--output_dir", str(root)]
+        out, seconds, launches = counted(lambda: exp.main(argv, pipeline=pipe), counters)
+        args = exp.parse_args(argv)
+        direct = pipe.generate_video(args.prompt, args.concepts, num_frames=args.num_frames,
+                                     height=args.height, width=args.width,
+                                     num_inference_steps=args.num_steps,
+                                     guidance_scale=args.guidance_scale, seed=args.seed)
+        sizes = {f.name: f.stat().st_size for f in root.iterdir()}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    # the decode alone, on the experiment's latents: its own device peak
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    frames, decode_seconds, _ = counted(lambda: pipe.decode_latents(out.video_latents), [])
+    decode_peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    per_run = pipe.cfg.num_layers * STEPS_VIDEO
+    same = bool(np.array_equal(out.concept_heatmaps, direct.concept_heatmaps))
+    same_frames = bool(np.array_equal(frames, out.video_frames))
+    ok = (same and same_frames and launches == [per_run, 0, per_run]
+          and set(sizes) == {"concepts.gif", "video.gif"}
+          and out.video_frames.shape == (1 + 4 * (args.num_frames - 1), 8 * args.height,
+                                         8 * args.width, 3))
+    print(f"video experiment (run_video_concept_attention.main, CogVideoX-5b, {args.num_frames}x"
+          f"{args.height}x{args.width} latents, {STEPS_VIDEO} steps, --decode): seconds {seconds:.4f}, "
+          f"launches [K1, K3, K1 hopper] {launches}, files "
+          f"{json.dumps(sizes)}, frames {list(out.video_frames.shape)}, heatmaps "
+          f"{list(out.concept_heatmaps.shape)} equal to the direct generate_video's: {same}; the "
+          f"decode alone {decode_seconds:.4f} s, device peak above the {held / 2**30:.3f} GiB held "
+          f"{decode_peak:.3f} GiB, frames equal to the experiment's: {same_frames}: ok={ok}",
+          flush=True)
+    if not ok:
+        raise AssertionError("the video experiment: files, launches or heatmaps off")
+    return launches, seconds
+
+
+def profiling_path(cfg):
+    """(g) `loop_rate` of K1's single block (H24, S=4352) against
+    `time_ms` of the same call; `device_trace` around it, whose trace must
+    name K1's Hopper kernel; `compiled_cost` of one full-width double block
+    on the plain backend against the formula of its products."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from conceptattention_torch.kernels import flash_saliency as fs
+    from conceptattention_torch.models.flux import blocks
+    from conceptattention_torch.models.flux.params import init_flux_params, layer
+    from conceptattention_torch.ops.attention import ConceptAttentionSpec
+    from conceptattention_torch.ops.rope import embed_nd
+    from conceptattention_torch.utils.profiling import compiled_cost, device_trace, loop_rate
+
+    gen = torch.Generator("cuda").manual_seed(22)
+    args, _, _ = single_rows_inputs(cfg, gen, 256)
+    rate_ms = 1e3 * loop_rate(fs.fused_concept_flash_attention, *args, iters=7)
+    event_ms = time_ms(lambda: fs.fused_concept_flash_attention(*args))
+    root = Path(tempfile.mkdtemp(prefix="smoke_trace_", dir=Path(__file__).resolve().parent / "build"))
+    try:
+        with device_trace(str(root)) as prof:
+            fs.fused_concept_flash_attention(*args)
+            torch.cuda.synchronize()
+        with open(root / "trace.json") as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+        k1_events = sorted(n for n in names if "flash_saliency_sm90_kernel" in n)
+        device_us = sum(e.device_time_total if hasattr(e, "device_time_total") else e.cuda_time_total
+                        for e in prof.key_averages())
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    small = dataclasses.replace(cfg, depth=1, depth_single_blocks=1)
+    p = layer(init_flux_params(torch.Generator("cuda").manual_seed(23), small, torch.bfloat16)["double"], 0)
+    t, n_img, c, d, b = 256, (SIZE // 16) ** 2, len(CONCEPTS), cfg.hidden_size, 1
+    img, txt, con = (torch.randn(b, n, d, generator=gen, device="cuda").bfloat16() for n in (n_img, t, c))
+    vec, cvec = (torch.randn(b, d, generator=gen, device="cuda").bfloat16() for _ in range(2))
+    ids = torch.arange(t + n_img, device="cuda", dtype=torch.float32)[None, :, None].repeat(b, 1, 3)
+    cids = torch.arange(c + n_img, device="cuda", dtype=torch.float32)[None, :, None].repeat(b, 1, 3)
+    pe, cpe = embed_nd(ids, cfg.axes_dim, cfg.theta), embed_nd(cids, cfg.axes_dim, cfg.theta)
+    with torch.inference_mode():
+        cost = compiled_cost(blocks.double_block, p, img, txt, vec, pe, cfg.num_heads, concepts=con,
+                             concept_vec=cvec, concept_pe=cpe, spec=ConceptAttentionSpec(backend="sdpa"))
+    m = cfg.mlp_hidden_dim
+    formula = 2 * (b * (t + n_img + c) * (3 * d + d + 2 * m) * d + 3 * b * 6 * d * d
+                   + 2 * b * (t + n_img) ** 2 * d + 2 * b * (c + n_img) ** 2 * d + 2 * b * c * n_img * d)
+    rate_ok = abs(rate_ms / event_ms - 1) <= LOOP_RATE_MARGIN
+    ok = rate_ok and bool(k1_events) and cost["flops"] == formula
+    print(f"profiling: loop_rate of K1's single block (H{cfg.num_heads} S={args[3]}) {rate_ms:.4f} ms "
+          f"against time_ms {event_ms:.4f} (margin {LOOP_RATE_MARGIN}); device_trace kernel names "
+          f"{k1_events}, device time in the trace {device_us} us; compiled_cost of one full-width "
+          f"double block (sdpa) {cost['flops']:.6e} FLOP, the formula {formula:.6e}: ok={ok}",
+          flush=True)
+    if not ok:
+        raise AssertionError("profiling utilities: loop_rate, the trace or compiled_cost off")
+
+
+def parallel_paths(pipe, bf16_out, counters, conv_per_decode):
+    """Phases (a)-(e) and (g) on the flux-schnell pipeline's weights; (f)
+    runs in `video_path`. Returns (new paths {path: (launches [K1, K2, K1
+    hopper, K2 hopper], seconds)}, ring paths {path: ([K4, ...], seconds,
+    K4 Hopper steps)})."""
+    paths = tp_serving_path(pipe, bf16_out, counters, conv_per_decode)
+    new, ring = dp_sp_tp_path(pipe, bf16_out, counters, conv_per_decode)
+    paths.update(new)
+    fsdp_path()
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths.update(gpipe_path(pipe, counters))
+    moe_path()
+    profiling_path(pipe.cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths, ring
+
+
 def sass_summary(lib_path) -> dict:
     """Per kernel function of a built library, from `cuobjdump -sass`: its
     instruction count, its I2F (integer to float conversion) count, and a
@@ -4812,6 +5545,7 @@ def main() -> int:
     print(f"torch {torch.__version__}", flush=True)
     print(f"cuda {torch.version.cuda}", flush=True)
     print(gpu_line(), flush=True)
+    smoke_t0 = time.perf_counter()
 
     from conceptattention_torch import ConceptAttentionFluxPipeline
     from conceptattention_torch.config import configs
@@ -4847,8 +5581,11 @@ def main() -> int:
     # and the ring_rdma generate_image (whose DiT blocks take K4 and the
     # plain single-block attention).
     n_double = 3 * STEPS * cfg.depth + cfg.depth
-    n_single = 3 * STEPS * cfg.depth_single_blocks
-    decodes = 7
+    # the GPipe phase runs the 38 single blocks on 4 microbatches of 1
+    n_single = 3 * STEPS * cfg.depth_single_blocks + 4 * cfg.depth_single_blocks
+    # seven decodes, and two more: the tensor-parallel image and the
+    # dp x sp x tp ring image
+    decodes = 7 + 2
     # The flux-dev paths decode four more images (generate_image, its
     # img2img, and the two checkpoint pipelines' 1-step generate_image), and
     # encode_nhwc runs the encoder's mid-attention once.
@@ -4866,6 +5603,8 @@ def main() -> int:
                        + plan["dev single"]),
         "double b2": cfg.depth + plan["double b2"], "double b4": cfg.depth})
     flash += serving_flash_phases(cfg, plan)
+    # K1 at one tensor-parallel rank's heads, every block of the model=2 image
+    flash += tp_flash_phases(cfg, TP * STEPS * cfg.depth, TP * STEPS * cfg.depth_single_blocks)
     flash += eval_flash_phases(cfg)
     flash += sweep_flash_phases(cfg)
     flash += compare_flash_phases(cfg)
@@ -4880,12 +5619,15 @@ def main() -> int:
                        + encoder_conv_shapes(spec.ae_params, SIZE))
     video_per_run = cogvideox_5b_config().num_layers * STEPS_VIDEO  # one generate_video
     video_lora_k3 = VIDEO_LORA_LAYERS * STEPS_VIDEO  # the lora= run with PAIR_HEADS on
-    # K1 in generate_video (bf16, PAIR_HEADS off), in the w8a8 run and on the
-    # cut DiT of the video LoRA and the daemon
-    video_k1, video_k3 = video_flash_phases(cogvideox_5b_config(), 2 * video_per_run + plan["video"],
+    # K1 in generate_video (bf16, PAIR_HEADS off), in the w8a8 run, in the
+    # video experiment (its default clip) and on the cut DiT of the video
+    # LoRA and the daemon
+    video_k1, video_k3 = video_flash_phases(cogvideox_5b_config(), 3 * video_per_run + plan["video"],
                                             video_per_run + video_lora_k3)
     # K4 in the ring_rdma generate_image and encode_image (every double block)
     ring = ring_phases(cfg, cogvideox_5b_config(), STEPS * cfg.depth + cfg.depth)
+    # K4 on one (data, model) slice of the ring image over seq=2 x model=2
+    ring.append(tp_ring_phase(cfg, TP * STEPS * cfg.depth))
     across = cross_card_ring_phase(cfg)
     ring += [across] if across else []
     torch.cuda.empty_cache()
@@ -4969,6 +5711,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     new_paths.update(cli_path())
     new_paths.update(training_paths(pipe, bf16_out, counters))
+    parallel_new, parallel_ring = parallel_paths(pipe, bf16_out, counters, want_gen[1])
+    new_paths.update(parallel_new)
     names = ["flash_saliency", "conv3x3", "flash_saliency (Hopper instance)", "conv3x3 (Hopper instance)"]
     print("launches per kernel instance: " + json.dumps({
         "generate_image": dict(zip(names, want_gen)),
@@ -4984,6 +5728,7 @@ def main() -> int:
     quant_paths = {k.replace(" warm", ""): v[0] for k, v in quant_paths.items() if "cold" not in k}
     ring_paths = ring_path([ring_attention_rdma, fused_concept_flash_attention, conv3x3_same] + hopper,
                            bf16_out, want_gen[1])
+    ring_paths.update(parallel_ring)
     del bf16_out
 
     video_summary = video_path(video_counters)
@@ -4991,6 +5736,9 @@ def main() -> int:
     video_k1_w8a8 = quantized_video_path(video_counters)
     video_k1_bf16 = video_summary["ddim warm"]["launches [K1, K3, K1 hopper]"][0]
     video_k3_paired = video_summary["ddim heads paired"]["launches [K1, K3, K1 hopper]"][1]
+    exp_launches, exp_seconds = video_summary.pop("experiment")
+    new_paths["run_video_concept_attention (generate_video)"] = (
+        [exp_launches[0], 0, exp_launches[2], 0], exp_seconds)
 
     # flux-dev (23.8 GB in bf16) and T5-XXL (9.5 GB) after every earlier pipeline is released
     gc.collect()
@@ -5110,6 +5858,7 @@ def main() -> int:
               hopper_step_launches_per_path={
                   label: hopper for label, (_, _, hopper) in ring_paths.items()}),
     ]
+    print(f"smoke seconds, build included {time.perf_counter() - smoke_t0:.1f}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -9,11 +9,14 @@ ControlNet residuals are added to the image stream after each block. With
 `remat`, each block (its residual included) runs under
 `torch.utils.checkpoint`: its backward recomputes the block from its inputs
 instead of keeping every activation of every layer (the JAX package's
-`jax.checkpoint` over the scan body; the training path sets it).
+`jax.checkpoint` over the scan body; the training path sets it). A
+parameter tree laid out over a mesh runs data- and tensor-parallel over it
+(`flux_forward`).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -22,9 +25,11 @@ from torch.utils.checkpoint import checkpoint
 from conceptattention_torch.config import FluxConfig
 from conceptattention_torch.models.flux.blocks import double_block, last_layer, single_block
 from conceptattention_torch.models.flux.params import layer
-from conceptattention_torch.ops.attention import ConceptAttentionSpec
+from conceptattention_torch.ops.attention import RING_BACKENDS, ConceptAttentionSpec
 from conceptattention_torch.ops.embeddings import mlp_embedder, timestep_embedding
 from conceptattention_torch.ops.rope import embed_nd
+from conceptattention_torch.parallel.mesh import AXES
+from conceptattention_torch.parallel.sharding import rank_tree, restrict_tree, tree_mesh
 
 
 def _conditioning_vector(params, cfg: FluxConfig, timesteps, guidance, y):
@@ -94,6 +99,15 @@ def flux_forward(
       remat: rematerialize each block in the backward
         (`torch.utils.checkpoint`, non-reentrant).
 
+    A parameter tree laid out over a mesh (`parallel.sharding.shard_params`,
+    `parallel.fsdp.shard_params_fsdp`) runs over that mesh: the batch split
+    over `data` when it divides (each slice on its own ranks; otherwise
+    the whole batch on the first slice), both block stacks tensor-parallel
+    over `model`, and any dimension a parameter shards over `data` (FSDP)
+    gathered one layer at a time inside the block (inside its
+    rematerialization with `remat`). The outputs come back on the mesh's
+    first device.
+
     Returns (pred, saliency): pred [B, P, in_channels] (None when stopping
     after the double blocks), saliency {tap: [depth, B, C, P] f32} (empty
     without concepts; with `spec.return_raw_vectors`, the blocks' vector
@@ -101,6 +115,70 @@ def flux_forward(
     """
     if img.dim() != 3 or txt.dim() != 3:
         raise ValueError("img and txt must be [B, L, D]")
+    inputs = dict(img=img, img_ids=img_ids, txt=txt, txt_ids=txt_ids, timesteps=timesteps, y=y,
+                  guidance=guidance, concepts=concepts, concept_ids=concept_ids,
+                  concept_vec=concept_vec)
+    controlnet = (controlnet_block_samples, controlnet_single_block_samples)
+    mesh = tree_mesh(params)
+    if mesh is None:
+        return _forward(params, lambda key, i: layer(params[key], i), None, cfg, inputs, controlnet,
+                        controlnet_blocks_repeat, stop_after_multimodal_attentions, spec, remat)
+    return _sharded_forward(params, mesh, cfg, inputs, controlnet, controlnet_blocks_repeat,
+                            stop_after_multimodal_attentions, spec, remat)
+
+
+def _sharded_forward(params, mesh, cfg, inputs, controlnet, repeat, stop_after, spec, remat):
+    """`_forward` once for each data slice of the mesh on its rows, with
+    the slice's parameters (FSDP dimensions gathered per layer) and tensor
+    parallelism over `model` when that axis is above 1."""
+    n_data = mesh.shape[AXES.data]
+    b = inputs["img"].shape[0]
+    slices = n_data if n_data > 1 and b % n_data == 0 else 1
+    rows = b // slices
+    tp = AXES.model if mesh.shape[AXES.model] > 1 else None
+    fixed = {a: 0 for a in (AXES.pipe, AXES.expert)}
+    stacks = ("double", "single")
+    first = mesh.devices.flat[0]
+    preds, saliencies = [], []
+    for d in range(slices):
+        home = mesh.devices[d, 0, 0, 0, 0]
+        top = rank_tree(restrict_tree({k: v for k, v in params.items() if k not in stacks},
+                                      data=d, **fixed), (0,) * mesh.devices.ndim)
+
+        def get_layer(key, i, d=d):
+            lp = restrict_tree(layer(params[key], i), data=d, **fixed)
+            return lp if tp else rank_tree(lp, (0,) * mesh.devices.ndim)
+
+        def cut(x, dim=0, d=d):
+            if x is None:
+                return None
+            return x.narrow(dim, d * rows, rows).to(home) if slices > 1 else x.to(home)
+
+        part = {k: cut(v) for k, v in inputs.items()}
+        cn = tuple(cut(c, 1) for c in controlnet)
+        slice_spec = spec
+        if spec.backend in RING_BACKENDS and spec.mesh is not None and slices > 1:
+            # the slice's rows run the seq rings of its data index
+            slice_spec = dataclasses.replace(spec, mesh=spec.mesh.sub(data=d), batch_axis=None)
+        pred, sal = _forward(top, get_layer, tp, cfg, part, cn, repeat, stop_after, slice_spec,
+                             remat)
+        preds.append(None if pred is None else pred.to(first))
+        saliencies.append({k: v.to(first) for k, v in sal.items()})
+    pred = None if preds[0] is None else torch.cat(preds)
+    saliency = {k: torch.cat([s[k] for s in saliencies], dim=1) for k in saliencies[0]}
+    return pred, saliency
+
+
+def _forward(params, get_layer, tp_axis, cfg, inputs, controlnet, controlnet_blocks_repeat,
+             stop_after_multimodal_attentions, spec, remat):
+    """The forward on one slice: `params` holds the non-stacked leaves,
+    `get_layer(key, i)` layer i of the "double" / "single" stack (taken
+    inside each block's step, so under remat its gather is recomputed)."""
+    img, img_ids, txt, txt_ids = inputs["img"], inputs["img_ids"], inputs["txt"], inputs["txt_ids"]
+    timesteps, y, guidance = inputs["timesteps"], inputs["y"], inputs["guidance"]
+    concepts, concept_ids, concept_vec = (inputs["concepts"], inputs["concept_ids"],
+                                          inputs["concept_vec"])
+    controlnet_block_samples, controlnet_single_block_samples = controlnet
     img = img @ params["img_in"]["w"] + params["img_in"]["b"]
     txt = txt @ params["txt_in"]["w"] + params["txt_in"]["b"]
     vec = _conditioning_vector(params, cfg, timesteps, guidance, y).to(img.dtype)
@@ -119,8 +197,9 @@ def flux_forward(
 
     def double_step(i, img, txt, concepts):
         img, txt, concepts, saliency = double_block(
-            layer(params["double"], i), img, txt, vec, pe, cfg.num_heads,
+            get_layer("double", i), img, txt, vec, pe, cfg.num_heads,
             concepts=concepts, concept_vec=cvec, concept_pe=concept_pe, spec=spec,
+            tp_axis=tp_axis,
         )
         if cn_double is not None:
             img = img + cn_double[i].to(img.dtype)
@@ -142,8 +221,8 @@ def flux_forward(
 
     def single_step(i, x):
         x = single_block(
-            layer(params["single"], i), x, vec, pe, cfg.num_heads, cfg.mlp_hidden_dim,
-            backend=spec.backend, int8_qk=spec.int8_qk,
+            get_layer("single", i), x, vec, pe, cfg.num_heads, cfg.mlp_hidden_dim,
+            backend=spec.backend, int8_qk=spec.int8_qk, tp_axis=tp_axis,
         )
         if cn_single is not None:  # the residual lands on the image slice only
             x = torch.cat([x[:, :t_len], x[:, t_len:] + cn_single[i].to(x.dtype)], dim=1)

@@ -27,6 +27,13 @@ import torch.nn.functional as F
 
 from conceptattention_torch.models.flux.params import Params
 
+# Output frames computed at a time by the frame-wise steps (causal convs,
+# upsamplers, SpatialNorm3D's modulation). The decoder's full-size
+# activations (49 frames at 480x720 and 256 channels: 17 GB in f32) are then
+# made once each and never padded, transposed or upsampled whole; every
+# output frame is the same function of the same input frames.
+FRAME_CHUNK = 8
+
 
 @dataclasses.dataclass(frozen=True)
 class CogVideoXVAEConfig:
@@ -44,13 +51,29 @@ class CogVideoXVAEConfig:
         return int(math.log2(self.temporal_compression_ratio))
 
 
+def _frame_pieces(t: int, size: int):
+    return [(t0, min(t, t0 + size)) for t0 in range(0, t, size)]
+
+
 def causal_conv3d(x: torch.Tensor, p: Params) -> torch.Tensor:
     """Temporal front pad with the first frame repeated (kernel_t - 1)
-    times, zero 'same' padding in space, stride 1."""
+    times, zero 'same' padding in space, stride 1; FRAME_CHUNK output
+    frames at a time."""
     kt, kh, kw = p["w"].shape[2:]
-    if kt > 1:
-        x = torch.cat([x[:, :, :1].expand(-1, -1, kt - 1, -1, -1), x], dim=2)
-    return F.conv3d(x, p["w"], p["b"], padding=(0, kh // 2, kw // 2))
+    t = x.shape[2]
+    out = None
+    for t0, t1 in _frame_pieces(t, FRAME_CHUNK):
+        lo = t0 - (kt - 1)
+        src = x[:, :, max(lo, 0):t1]
+        if lo < 0:
+            src = torch.cat([x[:, :, :1].expand(-1, -1, -lo, -1, -1), src], dim=2)
+        y = F.conv3d(src, p["w"], p["b"], padding=(0, kh // 2, kw // 2))
+        if t1 - t0 == t:
+            return y
+        if out is None:
+            out = y.new_empty((*y.shape[:2], t, *y.shape[3:]))
+        out[:, :, t0:t1] = y
+    return out
 
 
 def plain_conv3d_1x1(x: torch.Tensor, p: Params) -> torch.Tensor:
@@ -93,7 +116,11 @@ def spatial_norm3d(f: torch.Tensor, zq: torch.Tensor, p: Params,
     else:
         zq = F.interpolate(zq, size=tuple(f.shape[2:]), mode="nearest")
     normed = group_norm3d(f, p["norm"], num_groups)
-    return normed * plain_conv3d_1x1(zq, p["conv_y"]) + plain_conv3d_1x1(zq, p["conv_b"])
+    for t0, t1 in _frame_pieces(f.shape[2], FRAME_CHUNK):
+        z = zq[:, :, t0:t1]
+        normed[:, :, t0:t1] = (normed[:, :, t0:t1] * plain_conv3d_1x1(z, p["conv_y"])
+                               + plain_conv3d_1x1(z, p["conv_b"]))
+    return normed
 
 
 def _resnet3d(x: torch.Tensor, p: Params, zq: Optional[torch.Tensor] = None,
@@ -102,11 +129,11 @@ def _resnet3d(x: torch.Tensor, p: Params, zq: Optional[torch.Tensor] = None,
     def norm(h, np_):
         return group_norm3d(h, np_, num_groups) if zq is None else spatial_norm3d(h, zq, np_, num_groups)
 
-    h = causal_conv3d(F.silu(norm(x, p["norm1"])), p["conv1"])
-    h = causal_conv3d(F.silu(norm(h, p["norm2"])), p["conv2"])
+    h = causal_conv3d(F.silu(norm(x, p["norm1"]), inplace=True), p["conv1"])
+    h = causal_conv3d(F.silu(norm(h, p["norm2"]), inplace=True), p["conv2"])
     if "conv_shortcut" in p:
         x = plain_conv3d_1x1(x, p["conv_shortcut"])
-    return x + h
+    return h.add_(x)
 
 
 def _downsample3d(x: torch.Tensor, p: Params, compress_time: bool) -> torch.Tensor:
@@ -130,15 +157,29 @@ def _up2(x: torch.Tensor, dims) -> torch.Tensor:
 
 def _upsample3d(x: torch.Tensor, p: Params, compress_time: bool) -> torch.Tensor:
     """Nearest 2x in space, and in time on all but a leading odd first
-    frame, then a 3x3 Conv2d per frame."""
+    frame, then a 3x3 Conv2d per frame; FRAME_CHUNK / 2 input frames at a
+    time."""
     t = x.shape[2]
-    if compress_time and t > 1 and t % 2 == 1:
-        x = torch.cat([_up2(x[:, :, :1], (3, 4)), _up2(x[:, :, 1:], (2, 3, 4))], dim=2)
-    elif compress_time and t > 1:
-        x = _up2(x, (2, 3, 4))
-    else:
-        x = _up2(x, (3, 4))
-    return _conv2d_per_frame(x, p, stride=1, padding=((1, 1), (1, 1)))
+    first_alone = compress_time and t > 1 and t % 2 == 1
+    in_time = compress_time and t > 1
+    t_out = 2 * t - first_alone if in_time else t
+    out = None
+    for i0, i1 in _frame_pieces(t, max(1, FRAME_CHUNK // 2)):
+        if first_alone:
+            parts = [_up2(x[:, :, :1], (3, 4))] if i0 == 0 else []
+            parts.append(_up2(x[:, :, max(i0, 1):i1], (2, 3, 4)))
+            up, o0, o1 = torch.cat(parts, dim=2), max(2 * i0 - 1, 0), 2 * i1 - 1
+        elif in_time:
+            up, o0, o1 = _up2(x[:, :, i0:i1], (2, 3, 4)), 2 * i0, 2 * i1
+        else:
+            up, o0, o1 = _up2(x[:, :, i0:i1], (3, 4)), i0, i1
+        y = _conv2d_per_frame(up, p, stride=1, padding=((1, 1), (1, 1)))
+        if o1 - o0 == t_out:
+            return y
+        if out is None:
+            out = y.new_empty((*y.shape[:2], t_out, *y.shape[3:]))
+        out[:, :, o0:o1] = y
+    return out
 
 
 def encoder_apply(p: Params, cfg: CogVideoXVAEConfig, x: torch.Tensor) -> torch.Tensor:
@@ -165,7 +206,7 @@ def decoder_apply(p: Params, cfg: CogVideoXVAEConfig, z: torch.Tensor) -> torch.
             h = _resnet3d(h, r, zq=z, num_groups=g)
         if "upsample" in block:
             h = _upsample3d(h, block["upsample"], compress_time=i < cfg.temporal_compress_level)
-    h = F.silu(spatial_norm3d(h, z, p["norm_out"], g))
+    h = F.silu(spatial_norm3d(h, z, p["norm_out"], g), inplace=True)
     return causal_conv3d(h, p["conv_out"])
 
 

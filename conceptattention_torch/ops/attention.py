@@ -51,8 +51,9 @@ class ConceptAttentionSpec:
     # rounds only the stacked copy (similarities are computed in f32).
     stash_dtype: Optional[str] = None
     # Ring backends only: the `parallel.mesh.Mesh` to split the fused
-    # sequence over and its sequence axis. batch_axis / head_axis (the
-    # dp x sp x tp ring) are not ported and raise.
+    # sequence over and its sequence axis; batch_axis / head_axis split the
+    # batch and the heads over two more axes of it, one ring per
+    # (batch, head) slice (the dp x sp x tp ring).
     mesh: Optional[object] = None
     seq_axis: str = "seq"
     batch_axis: Optional[str] = None

@@ -54,11 +54,14 @@ def _div(x: torch.Tensor, c: float) -> torch.Tensor:
     return x / torch.full_like(x, c)
 
 
-def quantize_activations_per_token(x: torch.Tensor):
+def quantize_activations_per_token(x: torch.Tensor, amax: Optional[torch.Tensor] = None):
     """Dynamic per-token (last-axis) absmax int8. Returns (x_int8, scale), the
-    scale f32 shaped like x with last dim 1. Zero rows give zeros, scale 1."""
+    scale f32 shaped like x with last dim 1. Zero rows give zeros, scale 1.
+    `amax` (f32, last dim 1) replaces the row's own absmax: a row-parallel
+    shard of the row quantizes against the whole row's."""
     xf = x.float()
-    amax = xf.abs().amax(dim=-1, keepdim=True)
+    if amax is None:
+        amax = xf.abs().amax(dim=-1, keepdim=True)
     scale = torch.where(amax == 0, torch.ones_like(amax), amax * INV127)
     q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
     return q, scale

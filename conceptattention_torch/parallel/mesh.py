@@ -2,11 +2,20 @@
 
 Counterpart of the JAX package's `parallel/mesh.py`. `make_mesh` returns a
 small `Mesh` with the grid, the axis names and `shape` as a dict, as
-`jax.sharding.Mesh.shape` gives it. The same device may stand in the grid
-more than once: `make_mesh(seq=4, devices=[torch.device("cuda:0")] * 4)` is a
-ring of four ranks that share one card, and `[torch.device("cpu")] * 4` the
-same on the CPU. Only the `seq` axis may be above 1 here: the dp x sp x tp
-composition is still to be ported (ROADMAP Queue 1 item 8).
+`jax.sharding.Mesh.shape` gives it. The axes:
+
+  - `data`:   batch data parallelism (and FSDP's parameter shards);
+  - `pipe`:   pipeline stages (`parallel/pipeline.py`);
+  - `expert`: expert parallelism of MoE layers (`parallel/moe.py`);
+  - `seq`:    the sequence ring (`parallel/ring_attention.py`);
+  - `model`:  tensor parallelism over heads and MLP hidden units
+              (`parallel/sharding.py`).
+
+The same device may stand in the grid more than once:
+`make_mesh(seq=4, devices=[torch.device("cuda:0")] * 4)` is a ring of four
+ranks that share one card, and `[torch.device("cpu")] * 8` an 8-rank mesh
+on the CPU. Ranks are entries of the grid; the port runs them from one
+process (`parallel/collectives.py`).
 """
 
 from __future__ import annotations
@@ -51,6 +60,19 @@ class Mesh:
         index[axis] = slice(None)
         return list(self.devices[tuple(index)])
 
+    def sub(self, **fixed: int) -> "Mesh":
+        """The mesh of the ranks at the given index of each named axis (the
+        axes stay, at size 1): `mesh.sub(data=1, model=0)`."""
+        index = tuple(slice(fixed[a], fixed[a] + 1) if a in fixed else slice(None)
+                      for a in self.axis_names)
+        unknown = set(fixed) - set(self.axis_names)
+        if unknown:
+            raise ValueError(f"unknown mesh axes {sorted(unknown)}")
+        return Mesh(self.devices[index], self.axis_names)
+
+    def __repr__(self) -> str:
+        return f"Mesh({self.shape}, first device {self.devices.flat[0]})"
+
 
 def make_mesh(
     data: int = 1,
@@ -61,20 +83,14 @@ def make_mesh(
     devices: Optional[Sequence[torch.device]] = None,
 ) -> Mesh:
     """Build a (data, pipe, expert, seq, model) mesh from `devices` (every
-    visible CUDA device when None). Raises when the mesh needs more devices
-    than it is given."""
-    others = {AXES.data: data, AXES.model: model, AXES.pipe: pipe, AXES.expert: expert}
-    above_one = [name for name, size in others.items() if size > 1]
-    if above_one:
-        raise NotImplementedError(
-            f"mesh axes {above_one} above 1: only the seq ring is ported; the dp x sp x tp "
-            "composition is ROADMAP Queue 1 item 8"
-        )
+    visible CUDA device when None). `model` is innermost, so its ranks are
+    neighbours in `devices` (the fastest links), `data` outermost. Raises
+    when the mesh needs more devices than it is given."""
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "make_mesh takes every visible CUDA device by default and none is available; "
-                "pass devices=[torch.device('cpu')] * n to build a ring on the CPU"
+                "pass devices=[torch.device('cpu')] * n to build a mesh on the CPU"
             )
         devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     n = data * model * seq * pipe * expert

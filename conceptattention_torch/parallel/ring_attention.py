@@ -130,27 +130,54 @@ def shard_over_ring(mesh: Mesh, axis_name: str, ring_fn: Callable[..., Shards],
                     batch_axis: Optional[str] = None, head_axis: Optional[str] = None):
     """A callable on whole [B, H, S, D] q/k/v that splits S into one chunk
     per device of the mesh's `axis_name`, runs `ring_fn(qs, ks, vs)` and
-    concatenates the output shards on the first device (the port's stand-in
-    for `shard_map`). S must be a multiple of the ring size."""
-    if batch_axis is not None or head_axis is not None:
-        raise NotImplementedError(
-            "batch_axis / head_axis (the dp x sp x tp ring) are ROADMAP Queue 1 item 8"
-        )
-    devices = mesh.axis_devices(axis_name)
-    n = len(devices)
+    concatenates the output shards on the mesh's first device (the port's
+    stand-in for `shard_map`). S must be a multiple of the ring size.
+
+    `batch_axis` / `head_axis` compose the ring with data and tensor
+    parallelism in one mesh (dp x sp x tp): B splits over `batch_axis`, H
+    over `head_axis`, and each (data, model) slice runs its own ring over
+    the `axis_name` devices at its indices, on its rows and heads (one
+    `ring_fn` call per slice, so a kernel's launch groups never mix two
+    rings)."""
+    for name in (batch_axis, head_axis):
+        if name is not None and name not in mesh.axis_names:
+            raise ValueError(f"{name!r} is not an axis of the mesh {mesh.axis_names}")
+    n_b = mesh.shape[batch_axis] if batch_axis else 1
+    n_h = mesh.shape[head_axis] if head_axis else 1
+    n = mesh.shape[axis_name]
+    first = mesh.devices.flat[0]
+
+    def ring_devices(i, j):
+        fixed = {}
+        if batch_axis:
+            fixed[batch_axis] = i
+        if head_axis:
+            fixed[head_axis] = j
+        return mesh.sub(**fixed).axis_devices(axis_name)
 
     def fn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-        s = q.shape[2]
+        b, h, s = q.shape[:3]
         if s % n:
             raise ValueError(f"sequence length {s} is not a multiple of the ring size {n}")
-        lc = s // n
+        if b % n_b or h % n_h:
+            raise ValueError(f"[B={b}, H={h}] does not split over {batch_axis}={n_b}, "
+                             f"{head_axis}={n_h}")
+        lc, bs, hs = s // n, b // n_b, h // n_h
+        rows = []
+        for i in range(n_b):
+            heads = []
+            for j in range(n_h):
+                devices = ring_devices(i, j)
 
-        def split(x):
-            return [x[:, :, r * lc:(r + 1) * lc].to(dev).contiguous()
-                    for r, dev in enumerate(devices)]
+                def split(x):
+                    x = x[i * bs:(i + 1) * bs, j * hs:(j + 1) * hs]
+                    return [x[:, :, r * lc:(r + 1) * lc].to(dev).contiguous()
+                            for r, dev in enumerate(devices)]
 
-        outs = ring_fn(split(q), split(k), split(v))
-        return torch.cat([o.to(devices[0]) for o in outs], dim=2)
+                outs = ring_fn(split(q), split(k), split(v))
+                heads.append(torch.cat([o.to(first) for o in outs], dim=2))
+            rows.append(torch.cat(heads, dim=1) if n_h > 1 else heads[0])
+        return torch.cat(rows) if n_b > 1 else rows[0]
 
     return fn
 

@@ -21,9 +21,15 @@ and with `keep_base_for_swap=True` a host copy of the pre-merge weights lets
 `swap_loras` replace the merged set at run time.
 
 The pipeline runs on one device, "cuda" unless the caller names another; it
-never falls back to the CPU. With `mesh=` (`parallel.make_mesh(seq=N)`) and a
-ring `attention_backend`, the double blocks' attention is split over the
-mesh's `seq` ring; the parameters live on the mesh's first device. On a
+never falls back to the CPU. With `mesh=` (`parallel.make_mesh`) the
+pipeline runs on the mesh's first device and the DiT over the mesh: a mesh
+with `model` or `data` above 1 lays the parameters out by the tensor-
+parallel rules (`parallel.sharding.shard_params`, at construction and in
+`swap_loras`), so every block runs on each `model` rank's heads and hidden
+units (one K1 launch a rank on the fused backend) and a batch that divides
+over `data` runs one slice a data index; a ring `attention_backend` splits
+the double blocks' attention over the `seq` ring of each (data, model)
+slice. On a
 card the DiT runs in `dtype` (bf16 by
 default), the decode and the saliency stash in bf16, and f32 matmuls and
 convolutions in full f32: `generate_image` and `encode_image` turn TF32 off
@@ -59,7 +65,8 @@ from conceptattention_torch.ops.quant import (
     resolve_quant_mode,
 )
 from conceptattention_torch.ops.schedule import get_schedule
-from conceptattention_torch.parallel.mesh import Mesh
+from conceptattention_torch.parallel.mesh import AXES, Mesh
+from conceptattention_torch.parallel.sharding import shard_params
 from conceptattention_torch.pipeline.heatmaps import heatmaps_to_pil, reduce_maps
 from conceptattention_torch.sampling.rectified_flow import denoise, forward_noise, get_noise
 from conceptattention_torch.utils.images import as_float01_chw
@@ -243,9 +250,10 @@ class ConceptAttentionFluxPipeline:
         "ring_rdma" (the CUDA ring kernel) or "ring" (the plain ring); the
         double blocks' attention is split over the ring, the single blocks
         run the plain path. `int8_qk` needs "fused". With a mesh the
-        parameters live on its first device, which is the pipeline's device
-        (a mesh whose only axis above 1 is `seq` replicates them); `device`
-        is then left unset.
+        pipeline's device is the mesh's first; a mesh with `model` or
+        `data` above 1 shards the parameters (`shard_params`), one whose
+        only axis above 1 is `seq` keeps them on that device; `device` is
+        then left unset.
 
         `lora` is a LoRA `.safetensors` path, an adapter tree
         (`weights/lora.py`), or a list of either, merged into the DiT at
@@ -325,7 +333,7 @@ class ConceptAttentionFluxPipeline:
             ae_params = vae.init_autoencoder_params(
                 torch.Generator(self.device).manual_seed(init_seed + 1), self.spec.ae_params
             )
-        self.params = params
+        self.params = self._place(params)
         self.ae_params = ae_params
         if text_encoders is None:
             text_encoders = StubTextEncoders(
@@ -398,7 +406,15 @@ class ConceptAttentionFluxPipeline:
         else:
             p = (merge_loras(self._swap_base, adapters, strengths, device=self.device)
                  if adapters else self._swap_base)
-        return tree_map(lambda x: x.to(self.device), p)
+        return self._place(tree_map(lambda x: x.to(self.device), p))
+
+    def _place(self, params):
+        """The DiT tree laid out over the mesh (tensor-parallel rules) when
+        its `model` or `data` axis is above 1; else as it is."""
+        mesh = self.mesh
+        if mesh is None or (mesh.shape[AXES.model] == 1 and mesh.shape[AXES.data] == 1):
+            return params
+        return shard_params(params, mesh, self.cfg)
 
     # ------------------------------------------------------------------
     def _prepare_text(self, prompt: str, batch_size: int = 1, need_clip: bool = True):

@@ -21,6 +21,10 @@ optax transforms; this module computes what that chain computes:
     generator is seeded from (seed, step index), the counterpart of
     `fold_in(key, i)`, so a resumed run draws what an uninterrupted one
     would.
+
+On a mesh the parameters and the EMA are `Sharded` trees
+(`parallel.fsdp.shard_params_fsdp`): the optimizer, its accumulator and
+the checkpoints hold their pieces, in the layout (`train_step.py`).
 """
 
 from __future__ import annotations
@@ -38,7 +42,13 @@ import torch
 
 from conceptattention_torch.config import FluxConfig
 from conceptattention_torch.models.flux.params import tree_leaves, tree_map
-from conceptattention_torch.training.train_step import flow_matching_loss, refuse_mesh
+from conceptattention_torch.parallel.collectives import Sharded
+from conceptattention_torch.parallel.sharding import replica_groups, sum_replica_grads, tree_mesh
+from conceptattention_torch.training.train_step import (
+    check_layout,
+    flow_matching_loss,
+    trainable_leaves,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,12 +133,23 @@ class LoopOptimizer:
         self.count = 0       # optimizer updates so far: the schedule's count
         self.mini_step = 0   # micro-steps accumulated toward the next update
         self.acc = [torch.zeros_like(p) for p in self.params] if self.k > 1 else None
+        self.replicas: List[List[torch.Tensor]] = []  # copies of one piece across devices
+
+    def set_replicas(self, groups: List[List[torch.Tensor]]) -> None:
+        """Copies of one piece on different devices (`sharding.replica_groups`):
+        each takes the sum of the copies' gradients, and the global norm
+        counts the piece once."""
+        self.replicas = groups
 
     def update(self, grads: Sequence[torch.Tensor]) -> Optional[torch.Tensor]:
         """Take one micro-step's gradients. On a micro-step that updates,
         apply the update and return the global norm before clipping (a
         device scalar); on an accumulating mini-step return None."""
         with torch.no_grad():
+            if self.replicas:
+                by_id = {id(p): g for p, g in zip(self.params, grads)}
+                sum_replica_grads(self.replicas, by_id)
+                grads = [by_id[id(p)] for p in self.params]
             if self.acc is not None:
                 n = self.mini_step
                 for a, g in zip(self.acc, grads):
@@ -137,7 +158,8 @@ class LoopOptimizer:
                 if self.mini_step:
                     return None
                 grads = self.acc
-            norm = _global_norm(grads)
+            skip = {id(t) for copies in self.replicas for t in copies[1:]}
+            norm = _global_norm([g for p, g in zip(self.params, grads) if id(p) not in skip])
             max_norm = self.tc.max_grad_norm
             for p, g in zip(self.params, grads):
                 p.grad = torch.where(norm < max_norm, g, (g / norm.to(g.dtype)) * max_norm)
@@ -182,18 +204,19 @@ def make_loop_step(
 ):
     """(params, ema, batch, generator) -> (loss, grad norm or None): one
     micro-step on the tensors `opt` holds (the leaves of `params`, in
-    order), then the EMA, d * e + (1 - d) * p, on every micro-step (on a
-    mini-step the parameters have not moved)."""
-    refuse_mesh(mesh, param_sharding, batch_sharding)
+    order; a sharded tree's pieces), then the EMA, d * e + (1 - d) * p, on
+    every micro-step (on a mini-step the parameters have not moved). With
+    `mesh`, the layout is checked as `train_step.make_train_step` does."""
 
     def step(params, ema, batch, generator):
+        check_layout(params, mesh, param_sharding, batch_sharding)
         loss = loss_fn(params, cfg, batch, generator)
         grads = torch.autograd.grad(loss, opt.params, allow_unused=True, materialize_grads=True)
         norm = opt.update(grads)
         if tc.ema_decay > 0.0:
             d = tc.ema_decay
             with torch.no_grad():
-                for e, p in zip(tree_leaves(ema), opt.params):
+                for e, p in zip(trainable_leaves(ema), opt.params):
                     e.copy_(d * e + (1.0 - d) * p)
         return loss.detach(), norm
 
@@ -242,25 +265,31 @@ def train_loop(
     step's generator, on the parameters' device. Resume: when
     `tc.checkpoint_dir` holds a step_XXXXXXXX checkpoint, the state restores
     from the latest and the loop continues at that step.
+
+    With `mesh`, `params` must be laid out over it (`shard_params_fsdp`);
+    the copies, the EMA, the optimizer state and the checkpoints keep that
+    layout (a checkpoint holds the pieces), and "params" / "ema" come back
+    as `Sharded` trees (`parallel.sharding.gather_tree` reassembles one).
     """
     from conceptattention_torch.utils.checkpoint import load_params, save_params
 
-    refuse_mesh(mesh, param_sharding, batch_sharding)
-    params = tree_map(lambda x: x.detach().clone().requires_grad_(True), params)
-    ema = tree_map(lambda x: x.detach().clone(), params)
-    opt = make_optimizer(tc, tree_leaves(params))
+    check_layout(params, mesh, param_sharding, batch_sharding)
+    params = _map_tensors(lambda x: x.detach().clone().requires_grad_(True), params)
+    ema = _map_tensors(lambda x: x.detach().clone(), params)
+    opt = make_optimizer(tc, trainable_leaves(params))
+    if mesh is not None:
+        opt.set_replicas(replica_groups(params))
     device = opt.params[0].device
     start = 0
 
     latest = latest_checkpoint(tc.checkpoint_dir)
     if latest is not None:
         start, path = latest
-        restored = load_params(path, like={"params": params, "ema": ema,
-                                           "opt_state": opt.state_dict()})
+        restored = load_params(path, like=_state(params, ema, opt))
         with torch.no_grad():
             for dst, src in zip(opt.params, tree_leaves(restored["params"])):
                 dst.copy_(src)
-            for dst, src in zip(tree_leaves(ema), tree_leaves(restored["ema"])):
+            for dst, src in zip(trainable_leaves(ema), tree_leaves(restored["ema"])):
                 dst.copy_(src)
         opt.load_state_dict(restored["opt_state"])
         del restored
@@ -268,7 +297,8 @@ def train_loop(
             next(data)
         log(f"resumed from {path} at step {start}")
 
-    step_fn = make_loop_step(cfg, tc, opt, loss_fn=loss_fn)
+    step_fn = make_loop_step(cfg, tc, opt, loss_fn=loss_fn, mesh=mesh,
+                             param_sharding=param_sharding, batch_sharding=batch_sharding)
 
     losses: List[float] = []
     norms: List[float] = []
@@ -292,8 +322,22 @@ def train_loop(
             log(f"step {i + 1}/{tc.total_steps} loss {losses[-1]:.5f}")
         if tc.checkpoint_dir and (i + 1) % tc.checkpoint_every == 0:
             drain()
-            save_params(_ckpt_path(tc.checkpoint_dir, i + 1),
-                        {"params": params, "ema": ema, "opt_state": opt.state_dict()})
+            save_params(_ckpt_path(tc.checkpoint_dir, i + 1), _state(params, ema, opt))
     drain()
-    return {"params": tree_map(lambda x: x.detach(), params), "ema": ema,
+    return {"params": _map_tensors(lambda x: x.detach(), params), "ema": ema,
             "step": tc.total_steps, "losses": losses, "grad_norms": norms}
+
+
+def _map_tensors(fn: Callable[[torch.Tensor], torch.Tensor], tree):
+    """fn over a tree's tensors, and over each distinct piece of its
+    `Sharded` leaves (keeping their layout)."""
+    return tree_map(lambda x: x.map(fn) if isinstance(x, Sharded) else fn(x), tree)
+
+
+def _state(params, ema, opt: LoopOptimizer) -> Dict[str, Any]:
+    """What a checkpoint holds: the parameters and the EMA (a sharded
+    tree's pieces, in `trainable_leaves` order) and the optimizer state."""
+    if tree_mesh(params) is not None:
+        return {"params": trainable_leaves(params), "ema": trainable_leaves(ema),
+                "opt_state": opt.state_dict()}
+    return {"params": params, "ema": ema, "opt_state": opt.state_dict()}

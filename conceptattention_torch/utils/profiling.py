@@ -1,0 +1,157 @@
+"""Profiling and tracing utilities.
+
+Counterpart of the JAX package's `utils/profiling.py`: a device trace
+(`torch.profiler`, exported as a Chrome / Perfetto trace), named wall-clock
+phases fenced on the device, an operation count, and the per-call time of
+a function measured over repeated calls.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import time
+from typing import Any, Callable, Dict, Optional
+
+import torch
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: str):
+    """Trace the host and, where there is a card, its kernels with
+    `torch.profiler`; the trace is written to `log_dir/trace.json` (Chrome
+    trace format, viewable in Perfetto) when the block ends. Yields the
+    profiler (`key_averages()` for a table)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def _tensors(tree):
+    if torch.is_tensor(tree):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
+
+
+def _synchronize(*trees) -> None:
+    """Wait for every card that holds a tensor of `trees`."""
+    for dev in {t.device for tree in trees for t in _tensors(tree)}:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+
+class _PhaseHandle:
+    """Yielded by PhaseTimer.phase; register tensors PRODUCED INSIDE the
+    block so the phase's device work is billed to it: `ph.fence(latents)`."""
+
+    def __init__(self, fences):
+        self._fences = fences
+
+    def fence(self, *tensors):
+        self._fences.extend(tensors)
+
+
+class PhaseTimer:
+    """Named wall-clock phases, fenced on the device.
+
+    `fence=` (evaluated at entry) fences a tensor (or a tree of them) made
+    before the block; for tensors created inside the block, call
+    `.fence(t)` on the yielded handle. At the end of the phase every card
+    holding a fenced tensor is synchronized, so work queued in the phase is
+    billed to it; without a fence a phase over asynchronous launches
+    records only their dispatch:
+
+        with timer.phase("denoise") as ph:
+            latents = run(...)
+            ph.fence(latents)
+    """
+
+    def __init__(self):
+        self.times: Dict[str, float] = {}
+
+    @contextlib.contextmanager
+    def phase(self, name: str, fence: Any = None):
+        fences = [] if fence is None else [fence]
+        t0 = time.perf_counter()
+        try:
+            yield _PhaseHandle(fences)
+        finally:
+            _synchronize(*fences)
+            self.times[name] = self.times.get(name, 0.0) + time.perf_counter() - t0
+
+    def report(self) -> str:
+        total = sum(self.times.values())
+        lines = [f"{k}: {v:.3f}s ({100 * v / max(total, 1e-9):.1f}%)" for k, v in self.times.items()]
+        return "\n".join(lines)
+
+
+def compiled_cost(fn: Callable, *args, **kwargs) -> Dict[str, Optional[float]]:
+    """The floating-point operations of one call of `fn(*args, **kwargs)`,
+    counted by `torch.utils.flop_counter.FlopCounterMode` as the call runs
+    (PyTorch has no compiled executable to ask, as XLA's cost analysis is
+    asked). The count covers the plain path only: the operators PyTorch
+    dispatches (matmuls, convolutions, SDPA). A hand-written kernel
+    launched through ctypes is invisible to it, so a function that
+    launches one (the fused attention backend) is counted without that
+    kernel's work; count the plain backend (`spec=ConceptAttentionSpec(
+    backend="sdpa")`) for the whole. `bytes_accessed` is None: nothing
+    here measures it."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        fn(*args, **kwargs)
+    return {"flops": float(counter.get_total_flops()), "bytes_accessed": None}
+
+
+def loop_rate(
+    fn: Callable,
+    *args,
+    iters: int = 6,
+    perturb: Optional[Callable] = None,
+) -> float:
+    """Seconds per call of `fn(*args)`: one warm call, then `iters` calls,
+    call i on `perturb(i, args)`, timed between two CUDA events on the
+    current stream when the first tensor argument is on a card (the
+    device's own clock: launches queue ahead of the card), else with the
+    host's `perf_counter`.
+
+    `perturb(i, args) -> args` makes the iterations differ; the default
+    scales the first tensor argument by (1 + i/64), steps that bf16 holds
+    exactly. The perturbed arguments are made before the clock starts."""
+    if perturb is None:
+        def perturb(i, a):
+            first = next(k for k, x in enumerate(a) if torch.is_tensor(x))
+            x = a[first]
+            return (*a[:first], x * torch.tensor(1.0 + i / 64.0, dtype=x.dtype, device=x.device),
+                    *a[first + 1:])
+
+    tensors = [x for x in args if torch.is_tensor(x)]
+    on_card = bool(tensors) and tensors[0].device.type == "cuda"
+    fn(*perturb(0, args))  # warm: builds, caches, allocator
+    inputs = [perturb(i, args) for i in range(iters)]
+    if on_card:
+        dev = tensors[0].device
+        torch.cuda.synchronize(dev)
+        stream = torch.cuda.current_stream(dev)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+        for a in inputs:
+            fn(*a)
+        end.record(stream)
+        end.synchronize()
+        return start.elapsed_time(end) / 1e3 / iters
+    t0 = time.perf_counter()
+    for a in inputs:
+        fn(*a)
+    return (time.perf_counter() - t0) / iters

@@ -46,9 +46,13 @@ def lora_from_numpy(tree, device="cpu"):
 # the ViT's (`models/vit.py`) and open_clip's ({"visual", "text"},
 # `models/clip_vit.py`), whose blocks JAX stacks by depth as the port does,
 # and the SD UNet's (`models/sd_unet.py`), whose levels, resnets and
-# transformer blocks are lists in both packages.
+# transformer blocks are lists in both packages; the MoE tree of
+# `parallel/moe.py` ({"router", "w_in", "w_out"}, experts stacked on axis 0)
+# and the depth-stacked layer trees that `parallel/pipeline.py` takes.
 flux_params_from_numpy = params_from_numpy
 ae_params_from_numpy = params_from_numpy
 vit_params_from_numpy = params_from_numpy
 open_clip_params_from_numpy = params_from_numpy
 unet_params_from_numpy = params_from_numpy
+moe_params_from_numpy = params_from_numpy
+stacked_params_from_numpy = params_from_numpy

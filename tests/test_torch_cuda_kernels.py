@@ -896,3 +896,51 @@ def test_kernel_entries_refuse_autograd(dev, name):
         guarded_call(name, dev, True)
     torch.cuda.synchronize()
     assert kernel_counts() != before
+
+
+@pytest.mark.parametrize("s,t,p,c", [(4355, 256, 4096, 3), (4352, 4352, 0, 0)],
+                         ids=["double", "single"])
+def test_hopper_flash_kernel_at_a_tensor_parallel_rank(dev, s, t, p, c):
+    """K1 as one rank of tensor-parallel serving at model=2 runs it: 12 of
+    flux-schnell's 24 heads at 1024² (the double block with its concept
+    rows, the single block as one segment), held to the plain version; the
+    plain version without one img key tile breaks the limit."""
+    gen = torch.Generator(dev).manual_seed(15)
+    q, k, v = (torch.randn(1, 12, s, 128, generator=gen, device=dev) for _ in range(3))
+    args = ((3 * q).bfloat16(), k.bfloat16(), v.bfloat16(), t, p, c, True, True,
+            *rope_tables(gen, 1, s, 128, dev))
+    before = fs.fused_concept_flash_attention_hopper.launches
+    got = fs.fused_concept_flash_attention(*args)
+    torch.cuda.synchronize()
+    assert fs.fused_concept_flash_attention_hopper.launches == before + 1
+    want = fs.fused_concept_flash_attention_plain(*args)
+    limit = bf16_limit(want)
+    assert (got.float() - want.float()).abs().max().item() <= limit
+    keep, control = without_key_tile(args, t if p else 64 * 40)
+    assert (control.float() - want[:, :, keep].float()).abs().max().item() > limit
+
+
+def test_ring_kernel_on_batch_and_head_sliced_rings(dev):
+    """The dp x sp x tp ring on `make_mesh(data=2, seq=2, model=2)` of one
+    card: each (data, model) slice runs its own ring of 2 over its batch row
+    and half of the heads (one `ring_attention_rdma` call, 2 Hopper step
+    launches, per slice), against the dense fused attention's plain version
+    on the whole tensor."""
+    from conceptattention_torch.parallel import make_mesh
+
+    t, p, c, d = 40, 230, 6, 128
+    s = t + p + c + 2  # padded to a multiple of 2
+    gen = torch.Generator(dev).manual_seed(16)
+    q, k, v = (torch.randn(2, 4, s, d, generator=gen, device=dev) for _ in range(3))
+    q, k, v = (3 * q).bfloat16(), k.bfloat16(), v.bfloat16()
+    mesh = make_mesh(data=2, seq=2, model=2, devices=[dev] * 8)
+    fn = rr.make_ring_concept_attention_rdma(mesh, "seq", t, p, c, batch_axis="data",
+                                             head_axis="model")
+    before = (rr.ring_attention_rdma.launches, rr.ring_attention_rdma.hopper_step_launches)
+    got = fn(q, k, v)
+    torch.cuda.synchronize()
+    assert (rr.ring_attention_rdma.launches - before[0],
+            rr.ring_attention_rdma.hopper_step_launches - before[1]) == (4, 8)
+    want = fs.fused_concept_flash_attention_plain(q, k, v, t, p, c)
+    assert got.shape == q.shape
+    assert (got.float() - want.float()).abs().max().item() <= bf16_limit(want)

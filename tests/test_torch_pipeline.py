@@ -262,7 +262,9 @@ def test_import_leaves_out_jax():
     path's modules neither `h5py`, PIL nor matplotlib (the loaders import
     them when they read files, the sweep plots when they draw); the API
     client imports `requests` only when it makes a request. The training
-    modules and checkpoints are held to the same."""
+    modules and checkpoints are held to the same, and so are the parallel
+    package, the profiling utilities, the video writers (PIL and matplotlib
+    only when they write) and the video experiment."""
     modules = ("conceptattention_torch, conceptattention_torch.pipeline.concept_pipeline, "
                "conceptattention_torch.weights.convert, conceptattention_torch.models.text.t5, "
                "conceptattention_torch.models.text.clip, conceptattention_torch.models.text.encoders, "
@@ -296,7 +298,13 @@ def test_import_leaves_out_jax():
                "conceptattention_torch.training, conceptattention_torch.training.train_step, "
                "conceptattention_torch.training.train_loop, conceptattention_torch.training.lora, "
                "conceptattention_torch.utils.checkpoint, "
-               "chip_smoke")
+               "conceptattention_torch.parallel, conceptattention_torch.parallel._compat, "
+               "conceptattention_torch.parallel.collectives, conceptattention_torch.parallel.mesh, "
+               "conceptattention_torch.parallel.sharding, conceptattention_torch.parallel.fsdp, "
+               "conceptattention_torch.parallel.pipeline, conceptattention_torch.parallel.moe, "
+               "conceptattention_torch.utils.profiling, conceptattention_torch.utils.video_utils, "
+               "conceptattention_torch.experiments.run_video_concept_attention, "
+               "chip_smoke, probe_parallel")
     code = (f"import sys, {modules}; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
             "'conceptattention_tpu', 'safetensors', 'transformers', 'h5py', 'PIL', "

@@ -376,22 +376,37 @@ def test_pipeline_ring_entry_points(pipes):
                                   "no mesh (spec)", "no mesh (pipeline)", "int8_qk (pipeline)",
                                   "device and mesh", "too few devices", "no card"])
 def test_refusals(case):
-    """What the ring path does not take raises, as in the JAX package, and
-    the dp x sp x tp composition names ROADMAP Queue 1 item 8."""
-    arrays, ids = attention_inputs(70)
+    """What the ring path does not take raises, as in the JAX package. The
+    mesh's other axes and the dp x sp x tp ring (`batch_axis` / `head_axis`)
+    are ported: a mesh with any axis beside `seq` has JAX's shape, and the
+    composed ring equals the seq ring over the whole batch and heads, while
+    a batch or head count that does not split over its axis raises."""
+    arrays, ids = attention_inputs(70, b=2)
     segs = [tuple(torch.from_numpy(a) for a in arrays[i:i + 3]) for i in (0, 3, 6)]
     pes = [t_embed_nd(torch.from_numpy(x), (2, 2, 4), 100) for x in ids]
 
-    def attend(**spec):
+    def attend(segs=segs, pes=pes, **spec):
         return t_attn.joint_concept_attention(*segs, *pes, t_attn.ConceptAttentionSpec(**spec))
 
     if case == "other axis":
         for axis in ("data", "model", "pipe", "expert"):
-            with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-                t_make_mesh(seq=2, devices=[CPU] * 8, **{axis: 2})
+            mesh = t_make_mesh(seq=2, devices=[CPU] * 8, **{axis: 2})
+            assert mesh.shape == dict(j_make_mesh(seq=2, **{axis: 2}).shape)
     elif case in ("batch_axis", "head_axis"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-            attend(backend="ring_rdma", mesh=cpu_mesh(2), **{case: "data"})
+        axis = "data" if case == "batch_axis" else "model"
+        mesh = t_make_mesh(seq=2, devices=[CPU] * 4, **{axis: 2})
+        want = attend(backend="ring_rdma", mesh=cpu_mesh(2))
+        got = attend(backend="ring_rdma", mesh=mesh, **{case: axis})
+        for g, w in zip(got[:3], want[:3]):
+            close(g, w)
+        one_row = [tuple(x[:1] for x in seg) for seg in segs]
+        one_pe = [tuple(x[:1] for x in pe) for pe in pes]
+        with pytest.raises(ValueError, match="does not split"):
+            if case == "batch_axis":
+                attend(one_row, one_pe, backend="ring_rdma", mesh=mesh, batch_axis=axis)
+            else:
+                attend(backend="ring_rdma", mesh=t_make_mesh(seq=2, model=4, devices=[CPU] * 8),
+                       head_axis="model")
     elif case == "int8_qk":
         for backend in ("ring", "ring_rdma"):
             with pytest.raises(ValueError, match="int8_qk"):

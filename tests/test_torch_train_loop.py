@@ -250,8 +250,13 @@ def test_step_seed_depends_on_seed_and_step_alone():
 
 
 def test_loop_refuses_mesh_arguments():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        t_loop(port_params(), T_TINY, port_stream(), TTrainConfig(total_steps=1), mesh=object())
+    """A mesh the parameters are not laid out over raises before any step
+    (the loop over a mesh is held in `tests/test_torch_parallel.py`)."""
+    from conceptattention_torch.parallel import make_mesh
+
+    mesh = make_mesh(data=2, devices=[torch.device("cpu")] * 2)
+    with pytest.raises(ValueError, match="laid out over"):
+        t_loop(port_params(), T_TINY, port_stream(), TTrainConfig(total_steps=1), mesh=mesh)
 
 
 def test_save_load_round_trip(tmp_path):

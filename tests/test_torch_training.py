@@ -165,9 +165,18 @@ def test_train_step_updates_match_jax(tiny, steps):
 
 
 def test_mesh_arguments_raise():
-    opt = torch.optim.AdamW([torch.zeros(1, requires_grad=True)])
-    with pytest.raises(NotImplementedError, match="item 8"):
-        t_make_step(T_TINY, opt, mesh=object())
+    """A mesh whose layout the parameters do not have, or shardings without
+    a mesh, raise when the step runs (the FSDP / TP step itself is held to
+    JAX's in `tests/test_torch_parallel.py`)."""
+    from conceptattention_torch.parallel import make_mesh
+
+    params = {"w": torch.zeros(2, 2, requires_grad=True)}
+    opt = torch.optim.AdamW([params["w"]])
+    mesh = make_mesh(data=2, devices=[torch.device("cpu")] * 2)
+    with pytest.raises(ValueError, match="laid out over"):
+        t_make_step(T_TINY, opt, mesh=mesh)(params, {})
+    with pytest.raises(ValueError, match="need a mesh"):
+        t_make_step(T_TINY, opt, param_sharding={})(params, {})
 
 
 def test_remat_gives_the_same_loss_and_gradients(tiny):

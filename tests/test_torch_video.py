@@ -407,6 +407,20 @@ def test_vae_decode(vae_pair, frames):
     close(got, want)
 
 
+@pytest.mark.parametrize("chunk", [1, 3])
+def test_vae_decode_in_frame_pieces(vae_pair, chunk, monkeypatch):
+    """The frame-wise steps computed a few frames at a time (1 and 3
+    output frames; the upsamplers 1 input frame) give JAX's whole-clip
+    decode: 3 latent frames, 9 output frames."""
+    monkeypatch.setattr(t_vae, "FRAME_CHUNK", chunk)
+    t_cfg, j_cfg, t_params, j_params = vae_pair
+    z = rand(93, 1, 4, 3, 4, 4)
+    got = t_vae.decode(t_params, t_cfg, torch.from_numpy(z))
+    want = j_vae.decode(j_params, j_cfg, jnp.asarray(z))
+    assert got.shape == want.shape
+    close(got, want)
+
+
 def test_decode_latents_uint8(pipes):
     t, j = pipes
     lat = rand(92, 1, F_LAT, 4, H_LAT, W_LAT)
