@@ -119,12 +119,26 @@ Run from the root of a checkout: `python3 chip_smoke.py`. In order it
    under build/ and loaded by the pipeline in bf16 (bit for bit) and w8a8
    (device peak below the bf16 tree), then with `lora=` in w8, w8a8 and w4
    (merged on the host before the quantize; each cell's layout and
-   dequantized error); every kernel's launch count (and the
+   dequantized error); the last slice's paths: (a) K1's D=128 candidate
+   instances at the flux double block (S=4355), one TP rank's single
+   block (S=4352, H12) and the eval double block (S=1286), each against
+   the plain version with a planted control and its pad rows, then
+   `autotune_tiles` over them, and the tile cache's round trip steering a
+   512² `encode_image` to a non-default instance; (b) `make_jitted_forward`
+   (a CUDA graph of `flux_forward`) against the eager forward at 1024² in
+   bf16 (and its 4-step Euler loop), in w8a8 + `int8_qk`, and on the
+   model=2 tree; (c) the six quickstarts of `conceptattention_torch/examples`
+   as subprocesses at their defaults; (d) the gradio demo's handler through
+   a stand-in gradio at flux-tiny; with no tile cache (XDG_CACHE_HOME points
+   at a temporary directory, removed at exit) every D=128 call of the main
+   paths takes instance 0; every kernel's launch count (and the
    Hopper instances', which take K1 at head dims 64, 128 and 512, K1b at
    head dim 128, K3, and K4's steps at head dims 64 and 128) is set to 0
    just before and read just after each run;
 6. prints the Hopper instances' launches on the bf16 `generate_image` and
-   `encode_image`, one `kernels` JSON line, then the result line.
+   `encode_image`, the quickstarts' seconds, one `kernels` JSON line (K1's
+   entry with its launches per D=128 instance and path), then the result
+   line.
 The ptxas register and spill lines of every kernel and a summary of the
 Hopper libraries' SASS (instructions, I2F conversions and a digest per
 kernel, from `cuobjdump -sass`) are printed after the build.
@@ -1352,7 +1366,8 @@ def quantized_flux_path(pipe, bf16_out, counters, conv_per_decode):
     against the bf16 run's heatmaps, `generate_images` of two prompts
     (seeds 0 and 1) cold and warm, and `encode_image`. Counters are
     [K1, K1b, K2, K1 hopper, K2 hopper, K1b hopper]. Returns {path:
-    (launches, seconds)}."""
+    (launches, seconds)}, and the graphed forwards' per-instance K1
+    launches (`graphed_forward_paths`, run at its end)."""
     from conceptattention_torch import ConceptAttentionFluxPipeline
     from conceptattention_torch.ops.quant import quantize_flux_params
 
@@ -1398,7 +1413,10 @@ def quantized_flux_path(pipe, bf16_out, counters, conv_per_decode):
         image, CONCEPTS, width=SIZE, height=SIZE, return_pil_heatmaps=False),
         [0, cfg.depth, 0, 0, 0, cfg.depth])
     del enc
-    return paths
+    t0 = time.perf_counter()
+    graphed = graphed_forward_paths(pipe, qpipe)
+    print(f"graphed forwards (bf16 and w8a8) seconds {time.perf_counter() - t0:.3f}", flush=True)
+    return paths, graphed
 
 
 def random_quantized_paths(counters, conv_per_decode):
@@ -3207,27 +3225,6 @@ def flux_state_dict(cfg, gen, dtype=torch.bfloat16):
     return sd
 
 
-def write_safetensors(path, tensors):
-    """The `.safetensors` format: an 8-byte little-endian header length, a
-    JSON header of dtype, shape and byte offsets, then the raw tensors."""
-    import struct
-
-    names = {torch.bfloat16: "BF16", torch.float32: "F32"}
-    header, offset = {}, 0
-    for key, t in tensors.items():
-        n = t.numel() * t.element_size()
-        header[key] = {"dtype": names[t.dtype], "shape": list(t.shape),
-                       "data_offsets": [offset, offset + n]}
-        offset += n
-    raw = json.dumps(header).encode()
-    raw += b" " * (-len(raw) % 8)
-    with open(path, "wb") as f:
-        f.write(struct.pack("<Q", len(raw)))
-        f.write(raw)
-        for t in tensors.values():
-            f.write(t.detach().contiguous().reshape(-1).view(torch.uint8).cpu().numpy())
-
-
 CKPT_DEPTH, CKPT_SINGLE = 2, 4
 
 
@@ -3256,6 +3253,7 @@ def checkpoint_path(counters):
         convert_autoencoder_state_dict,
         convert_flux_state_dict,
         load_safetensors,
+        save_safetensors,
     )
 
     name = "flux-dev-checkpoint-smoke"
@@ -3277,8 +3275,8 @@ def checkpoint_path(counters):
         tree_bytes = sum(t.numel() * t.element_size() for t in sd.values())
         flux_path, ae_path = root / "flux-dev-cut.safetensors", root / "ae.safetensors"
         t0 = time.perf_counter()
-        write_safetensors(flux_path, sd)
-        write_safetensors(ae_path, ae_sd)
+        save_safetensors(flux_path, sd)
+        save_safetensors(ae_path, ae_sd)
         write_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         loaded = load_safetensors(str(flux_path))
@@ -3657,6 +3655,7 @@ def lora_path(pipe, bf16_out, counters, root):
     the BFL file's path, the lora= output)."""
     from conceptattention_torch import ConceptAttentionFluxPipeline
     from conceptattention_torch.pipeline.concept_pipeline import _full_f32
+    from conceptattention_torch.weights.convert import save_safetensors
     from conceptattention_torch.weights.lora import load_lora
 
     cfg = pipe.cfg
@@ -3671,7 +3670,7 @@ def lora_path(pipe, bf16_out, counters, root):
     files, seconds = {}, {}
     for naming, sd in sds.items():
         files[naming] = str(root / f"lora-{naming}.safetensors")
-        write_safetensors(files[naming], sd)
+        save_safetensors(files[naming], sd)
     del sds
     trees = {}
     for naming, path in files.items():
@@ -3772,13 +3771,17 @@ def checkpoint_lora_merges(name, cut, flux_path, root, counters, conv):
     1-step `generate_image`. Returns {path: (launches, seconds)}."""
     from conceptattention_torch import ConceptAttentionFluxPipeline
     from conceptattention_torch.ops.quant import dequantize_w4, w4_dims
-    from conceptattention_torch.weights.convert import convert_flux_state_dict, load_safetensors
+    from conceptattention_torch.weights.convert import (
+        convert_flux_state_dict,
+        load_safetensors,
+        save_safetensors,
+    )
     from conceptattention_torch.weights.lora import load_lora
 
     sd = lora_state_dicts(cut.depth, cut.depth_single_blocks, cut.hidden_size, cut.mlp_hidden_dim,
                           torch.Generator("cuda").manual_seed(22))["bfl"]
     path = str(root / "lora-cut.safetensors")
-    write_safetensors(path, sd)
+    save_safetensors(path, sd)
     adapter = load_lora(path, cut)
     host = convert_flux_state_dict(load_safetensors(flux_path), cut, torch.bfloat16)
     refs = {}
@@ -3881,7 +3884,7 @@ def video_lora_path(counters, root):
     from conceptattention_torch import VideoConceptAttentionPipeline
     from conceptattention_torch.kernels import flash_saliency as fs
     from conceptattention_torch.models.video.dit import cogvideox_5b_config
-    from conceptattention_torch.weights.convert import load_safetensors
+    from conceptattention_torch.weights.convert import load_safetensors, save_safetensors
     from conceptattention_torch.weights.lora import convert_cogvideox_lora_state_dict
 
     full = cogvideox_5b_config()
@@ -3890,7 +3893,7 @@ def video_lora_path(counters, root):
           flush=True)
     plain = VideoConceptAttentionPipeline(vcfg, init_seed=0)
     path = str(root / "lora-video.safetensors")
-    write_safetensors(path, video_lora_state_dict(plain.params["blocks"], VIDEO_LORA_LAYERS,
+    save_safetensors(path, video_lora_state_dict(plain.params["blocks"], VIDEO_LORA_LAYERS,
                                                   torch.Generator("cuda").manual_seed(23)))
     t0 = time.perf_counter()
     lv = VideoConceptAttentionPipeline(vcfg, init_seed=0, lora=path, lora_strength=LORA_STRENGTH)
@@ -5114,6 +5117,10 @@ def tp_serving_path(pipe, bf16_out, counters, conv_per_decode):
             raise AssertionError(f"tensor-parallel generate_image launches {launches} != {want}")
         check_image_output(out, "tensor-parallel generate_image")
         seconds.append(secs)
+    graphed_forward_check(tp_pipe, f"model={TP} tensor-parallel tree on card 0",
+                          {"flash_saliency": TP * (cfg.depth + cfg.depth_single_blocks)}, K1_KERNEL)
+    gc.collect()
+    torch.cuda.empty_cache()
     def image(p, seed=0):
         return p.generate_image(PROMPT, CONCEPTS, width=SIZE, height=SIZE, seed=seed,
                                 num_inference_steps=STEPS, return_pil_heatmaps=False,
@@ -5494,10 +5501,462 @@ def parallel_paths(pipe, bf16_out, counters, conv_per_decode):
     torch.cuda.empty_cache()
     paths.update(gpipe_path(pipe, counters))
     moe_path()
+    # (g) after the tensor-parallel tree's graph and its trace: a later
+    # torch.profiler session must still see the card (`device_trace` raises
+    # when it does not)
     profiling_path(pipe.cfg)
     gc.collect()
     torch.cuda.empty_cache()
     return paths, ring
+
+
+AUTOTUNE_ITERS = 7
+PAD_ROWS = 5  # rows past the concepts, which see nothing
+TILE_ROUND_TRIP_SIZE = 512  # the encode_image that a tile cache steers
+LOOP_REPS = 3  # the 4-step Euler loop, eager and graphed: median of 3
+
+
+def with_pad_rows(args, n=PAD_ROWS):
+    """K1's args with n rows past the last segment (copies of the first n
+    rows, identity rotation): rows that see nothing."""
+    q, k, v, t, p, c, cross, self_attention, cos, sin = args
+
+    def rows(x):
+        return torch.cat([x, x[:, :, :n]], 2).contiguous()
+
+    def table(x, fill):
+        return torch.cat([x, torch.full_like(x[:, :n], fill)], 1).contiguous()
+
+    return (rows(q), rows(k), rows(v), t, p, c, cross, self_attention, table(cos, 1.0),
+            table(sin, 0.0))
+
+
+def autotune_phases(cfg, cache_file):
+    """(a) K1's D=128 candidate instances (`FLASH_D128_INSTANCES`) at the
+    flux double block (B1 H24, S=4355), one TP rank's single block (B1 H12,
+    S=4352) and the eval double block (B1 H24, S=1286): each instance held
+    to the plain version per row segment (the (T, T) mode), with a planted
+    control (one img key tile dropped) and its pad rows read on a copy of
+    the input with PAD_ROWS more rows; then `autotune_tiles` sweeps the
+    instances on a probe of the same workload (the shape's segments and
+    mask mode, with RoPE, loop_rate) and writes its winner to `cache_file`.
+    The overlay is cleared after, so every later call takes instance 0.
+    Returns (phase results, {label: (overlay key, winner)})."""
+    from conceptattention_torch.kernels import autotune
+    from conceptattention_torch.kernels import flash_saliency as fs
+
+    gen = torch.Generator("cuda").manual_seed(24)
+    rank = h12(cfg)
+    shapes = [("flux double block", *joint_rows_inputs(cfg, gen, 1, 256), 64 * 32),
+              (f"one TP rank's single block (H{rank.num_heads})",
+               *single_rows_inputs(rank, gen, 256), 256 + 64 * 32),
+              ("eval double block", *joint_rows_inputs(cfg, gen, 1, 256, size=EVAL_SIZE, c=6),
+               64 * 8)]
+    results, winners = [], {}
+    for label, args, qr, kr, drop in shapes:
+        q, k, v, t, p, c, *_ = args
+        h, s, d = q.shape[1], q.shape[2], q.shape[3]
+        mask = fs.segment_mask(s, t, p, c, True, True, "cuda")
+        joint = "joint rows" if c else "all"
+        segments = ({"joint rows": slice(0, t + p), "concept rows": slice(t + p, s)} if c
+                    else {"all": slice(None)})
+        controls = [("one img key tile dropped", joint,
+                     lambda want, a=args, start=drop: drop_key_tile(want, a, start))]
+        padded = with_pad_rows(args)
+        lines = []
+        for i, name in enumerate(fs.FLASH_D128_INSTANCES):
+            def pad_rows(got, i=i):
+                out = fs.fused_concept_flash_attention_hopper(*padded, instance=i)
+                torch.cuda.synchronize()
+                zero = torch.count_nonzero(out[:, :, s:]).item() == 0
+                return {"pad_rows_zero": zero, "padded_rows_equal": torch.equal(out[:, :, :s], got),
+                        "ok": zero}
+
+            r = phase_result(
+                f"flash_saliency instance {i} {name} {label} S={s} H={h}",
+                lambda a=args, i=i: fs.fused_concept_flash_attention_hopper(*a, instance=i),
+                lambda a=args: fs.fused_concept_flash_attention_plain(*a),
+                (lambda: F.scaled_dot_product_attention(qr, kr, v, attn_mask=mask)) if c
+                else (lambda: F.scaled_dot_product_attention(qr, kr, v)),
+                4 * d * mask.sum().item() * h, 4 * h * s * d * 2 + 2 * s * d * 4, 0, segments,
+                controls, extra=pad_rows)
+            r["instance"] = i
+            results.append(r)
+            tflops = 4 * d * mask.sum().item() * h / r["kernel_ms"] / 1e9
+            lines.append(f"instance {i} {name}: {r['kernel_ms']:.4f} ms, {tflops:.1f} TFLOP/s, "
+                         f"{100 * r['bound_ms'] / r['kernel_ms']:.1f}% of the "
+                         f"{r['bound_ms']:.4f} ms bound, error over limit "
+                         f"{r['err_over_limit']:.3f}, pad rows zero {r['pad_rows_zero']}")
+        print(f"autotune: {label} B1 H{h} S={s} on {gpu_line()}, the (T, T) mode, median of 7 "
+              f"(CUDA events): " + "; ".join(lines), flush=True)
+        winner = autotune.autotune_tiles(s, batch=1, heads=h, head_dim=d, iters=AUTOTUNE_ITERS,
+                                         cache_path=cache_file, verbose=True, segments=(t, p, c))
+        key = fs.tile_key(d, s, h, t, p, c)
+        winners[label] = (key, winner)
+        print(f"autotune: {label} S={s} H={h}: the sweep's winner is instance {winner} "
+              f"{fs.FLASH_D128_INSTANCES[winner]} (its probe: this call's segments {(t, p, c)} "
+              f"and mask mode, with RoPE, loop_rate over {AUTOTUNE_ITERS} calls; overlay key "
+              f"{key})", flush=True)
+        del args, qr, kr, padded, mask
+        torch.cuda.empty_cache()
+    fs._TUNED_TILES.clear()
+    return results, winners
+
+
+def tile_cache_round_trip(pipe, winners, cache_file, results):
+    """(a) `load_tile_cache` reads back the sweep's winners from
+    `cache_file`; a cache naming a non-default instance (the eval shape's
+    winner, or the last instance when that is 0) at the workload of a 512²
+    `encode_image`'s double blocks (B1 H24, S=1283: 256 txt, 1024 img, 3
+    concept rows, the (T, T) mode) makes its 19 K1 launches take that
+    instance, and its heatmaps match instance 0's at the encode limit.
+    Clears the overlay after. Returns {path: per-instance launches}."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from conceptattention_torch.kernels import autotune
+    from conceptattention_torch.kernels import flash_saliency as fs
+
+    hopper = fs.fused_concept_flash_attention_hopper
+    n = len(fs.FLASH_D128_INSTANCES)
+    fs._TUNED_TILES.clear()
+    loaded = autotune.load_tile_cache(cache_file)
+    want = dict(winners.values())
+    _, eval_winner = winners["eval double block"]
+    inst = eval_winner or n - 1
+    p_enc = (TILE_ROUND_TRIP_SIZE // 16) ** 2
+    s_enc = 256 + p_enc + len(CONCEPTS)
+    enc_key = fs.tile_key(128, s_enc, pipe.cfg.num_heads, 256, p_enc, len(CONCEPTS))
+    measured = next(r for r in results if r["instance"] == inst and "eval" in r["phase"])
+    root = Path(tempfile.mkdtemp(prefix="smoke_tiles_"))
+    try:
+        steer = str(root / "tiles.json")
+        with open(steer, "w") as f:
+            json.dump({autotune._device_kind(): {autotune._key(enc_key): {
+                "instance": inst,
+                "tflops": round(PEAK_BF16_FLOPS * measured["bound_ms"] / measured["kernel_ms"] / 1e12, 2),
+                "probe": {"batch": 1, "heads": pipe.cfg.num_heads, "head_dim": 128}}}}, f)
+        fs._TUNED_TILES.clear()
+        steered = autotune.load_tile_cache(steer)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    image = np.random.default_rng(3).integers(0, 256, (TILE_ROUND_TRIP_SIZE,) * 2 + (3,),
+                                              dtype=np.uint8)
+
+    def encode():
+        hopper.instance_launches[:] = [0] * n
+        out = pipe.encode_image(image, CONCEPTS, width=TILE_ROUND_TRIP_SIZE,
+                                height=TILE_ROUND_TRIP_SIZE, return_pil_heatmaps=False)
+        torch.cuda.synchronize()
+        return out, list(hopper.instance_launches)
+
+    tuned, tuned_launches = encode()
+    fs._TUNED_TILES.clear()
+    base, base_launches = encode()
+    rms = heatmaps_rms(tuned, base)
+    depth = pipe.cfg.depth
+    ok = (loaded == want and steered == {enc_key: inst}
+          and tuned_launches == [depth * (i == inst) for i in range(n)]
+          and base_launches == [depth * (i == 0) for i in range(n)] and rms <= ENCODE_IMAGES_LIMIT)
+    print(f"autotune: load_tile_cache of the sweep's file {sorted(loaded.items())} (want "
+          f"{sorted(want.items())}); a cache naming instance {inst} "
+          f"{fs.FLASH_D128_INSTANCES[inst]} at {enc_key}: "
+          f"encode_image {TILE_ROUND_TRIP_SIZE}x{TILE_ROUND_TRIP_SIZE} launches per instance "
+          f"{tuned_launches}, without it {base_launches}; heatmaps' relative RMS against "
+          f"instance 0's {rms} (limit {ENCODE_IMAGES_LIMIT}): ok={ok}", flush=True)
+    if not ok:
+        raise AssertionError("the tile cache's round trip or the instance it names is off")
+    return {f"encode_image {TILE_ROUND_TRIP_SIZE}² (tile cache naming instance {inst})":
+            tuned_launches,
+            f"encode_image {TILE_ROUND_TRIP_SIZE}² (no tile cache)": base_launches}
+
+
+def forward_inputs(pipe, seed=25):
+    """flux_forward's keyword inputs of one SIZE² image with the pipeline's
+    prompt and CONCEPTS embedded."""
+    from conceptattention_torch.ops.packing import make_img_ids
+
+    cfg, dev, grid = pipe.cfg, pipe.device, SIZE // 16
+    gen = torch.Generator(dev).manual_seed(seed)
+    txt, txt_ids, vec = pipe._prepare_text(PROMPT, 1)
+    c_emb, c_ids, c_vec = pipe._prepare_concepts(CONCEPTS, 1)
+    img = torch.randn(1, grid * grid, cfg.in_channels, generator=gen, device=dev).to(pipe.dtype)
+    return dict(img=img, img_ids=make_img_ids(grid, grid, 1, device=dev), txt=txt,
+                txt_ids=txt_ids, timesteps=torch.full((1,), 1.0, device=dev), y=vec,
+                concepts=c_emb, concept_ids=c_ids, concept_vec=c_vec)
+
+
+def max_diffs(got, want):
+    out = {"pred": (got[0].float() - want[0].float()).abs().max().item()}
+    out.update({k: (got[1][k].float() - want[1][k].float()).abs().max().item() for k in want[1]})
+    return out
+
+
+def launch_delta(run):
+    """The kernel launches (`kernels.launch_counts`, the non-zero ones) that
+    `run()` adds, read after the card has finished."""
+    from conceptattention_torch.kernels import launch_counts
+
+    before = launch_counts()
+    run()
+    torch.cuda.synchronize()
+    return {k: v - before[k] for k, v in launch_counts().items() if v != before[k]}
+
+
+K1_KERNEL = "flash_saliency_sm90_kernel<128, 128, 128, 2, 0, 1>"  # instance 0
+K1B_KERNEL = "flash_saliency_int8_sm90_kernel"
+
+
+def traced_kernel_events(run, kernel) -> int:
+    """The events naming `kernel` in one `device_trace` (a torch.profiler
+    session of its own) around `run()`."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from conceptattention_torch.utils.profiling import device_trace
+
+    root = Path(tempfile.mkdtemp(prefix="smoke_graph_", dir=Path(__file__).resolve().parent / "build"))
+    try:
+        with device_trace(str(root)):
+            run()
+            torch.cuda.synchronize()
+        with open(root / "trace.json") as f:
+            return sum(kernel in e.get("name", "") for e in json.load(f)["traceEvents"])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def graphed_forward_check(pipe, label, want_launches, kernel, loop=False):
+    """(b) `make_jitted_forward` on the pipeline's weights and attention
+    spec at SIZE², B1, CONCEPTS: capture seconds (the first call: a warm
+    eager forward, the capture, one replay), eager against replay ms for
+    one forward (CUDA events, median of 7), max |d| of pred and every
+    saliency map between replay and eager (held to the DiT check's limits,
+    expected 0), the launches of an eager forward and of a replay
+    (`want_launches`, by the replay's delta), one `device_trace` of a
+    replay, which must name `kernel`, and with `loop` the STEPS-step Euler
+    loop of replays against `denoise` (median of LOOP_REPS). Returns the
+    readings."""
+    from conceptattention_torch.models.flux.dit import flux_forward, make_jitted_forward
+    from conceptattention_torch.ops.schedule import get_schedule
+    from conceptattention_torch.sampling.rectified_flow import denoise
+
+    cfg, spec = pipe.cfg, pipe.attention_spec
+    inputs = forward_inputs(pipe)
+
+    def eager():
+        with torch.no_grad():
+            return flux_forward(pipe.params, cfg, **inputs, spec=spec)
+
+    fwd = make_jitted_forward(cfg, spec=spec)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = fwd(pipe.params, **inputs)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    want = eager()
+    diffs = max_diffs(got, want)
+    scale = {"pred": want[0].float().abs().max().item(),
+             **{k: v.float().abs().max().item() for k, v in want[1].items()}}
+    del got, want
+    eager_launches = launch_delta(eager)
+    replay_launches = launch_delta(lambda: fwd(pipe.params, **inputs))
+    (replay,) = fwd.graphs.values()
+    captured = {k: v for k, v in replay.launches.items() if v}
+    named = traced_kernel_events(lambda: fwd(pipe.params, **inputs), kernel)
+    readings = {"capture_s": capture_s, "eager_ms": time_ms(eager),
+                "replay_ms": time_ms(lambda: fwd(pipe.params, **inputs)),
+                "max_abs_diff": diffs, "exactly_equal": all(v == 0 for v in diffs.values()),
+                "launches_eager": eager_launches, "launches_replay": replay_launches,
+                "trace_events_naming": {kernel: named}}
+    ok = (all(diffs[k] <= DIT_PRED_LIMIT * scale[k] for k in diffs)
+          and eager_launches == replay_launches == captured and named > 0
+          and all(replay_launches.get(k) == n for k, n in want_launches.items()))
+    if loop:
+        schedule = get_schedule(STEPS, inputs["img"].shape[1], shift=not pipe.is_schnell)
+
+        def eager_loop():
+            with torch.no_grad():
+                return denoise(pipe.params, cfg, inputs["img"], inputs["img_ids"], inputs["txt"],
+                               inputs["txt_ids"], inputs["y"], schedule, 0.0,
+                               concepts=inputs["concepts"], concept_ids=inputs["concept_ids"],
+                               concept_vec=inputs["concept_vec"], spec=spec)
+
+        def graphed_loop():
+            # denoise's steps, each forward a replay
+            ts = torch.as_tensor(schedule, dtype=torch.float32, device=pipe.device)
+            x, per_step = inputs["img"], []
+            for i in range(len(schedule) - 1):
+                pred, sal = fwd(pipe.params, **dict(inputs, img=x, timesteps=ts[i].expand(1)))
+                x = (x.float() + (ts[i + 1] - ts[i]) * pred.float()).to(x.dtype)
+                if spec.stash_dtype == "bf16":
+                    sal = {k: v.to(torch.bfloat16) for k, v in sal.items()}
+                per_step.append(sal)
+            return x, {k: torch.stack([s[k] for s in per_step]) for k in per_step[0]}
+
+        loop_diffs = max_diffs(graphed_loop(), eager_loop())
+        readings.update({
+            "loop_eager_ms": time_ms(eager_loop, reps=LOOP_REPS),
+            "loop_graphed_ms": time_ms(graphed_loop, reps=LOOP_REPS),
+            "loop_max_abs_diff": loop_diffs, "graphs_captured": len(fwd.graphs)})
+        ok = ok and len(fwd.graphs) == 1 and all(v == 0 for v in loop_diffs.values())
+    print(f"graphed flux_forward ({label}) {SIZE}x{SIZE} B1 C={len(CONCEPTS)} on {gpu_line()}: "
+          f"{json.dumps(readings)}: ok={ok}", flush=True)
+    if not ok:
+        raise AssertionError(f"graphed flux_forward ({label}): replay off eager, launches off, or "
+                             f"the trace does not name {kernel}")
+    return readings
+
+
+def graphed_forward_paths(pipe, qpipe):
+    """(b) on the bf16 pipeline (one forward and the Euler loop) and on its
+    w8a8 + int8_qk copy (one forward), each with a trace of a replay naming
+    K1's or K1b's kernel. Returns {path: per-instance K1 launches of one
+    replay}."""
+    from conceptattention_torch.kernels import flash_saliency as fs
+
+    cfg = pipe.cfg
+    per_forward = cfg.depth + cfg.depth_single_blocks
+    keys = [f"flash_saliency (Hopper D=128 instance {i} {name})"
+            for i, name in enumerate(fs.FLASH_D128_INSTANCES)]
+    bf16 = graphed_forward_check(
+        pipe, "bf16", {"flash_saliency": per_forward, keys[0]: per_forward}, K1_KERNEL, loop=True)
+    graphed_forward_check(
+        qpipe, "w8a8 + int8_qk", {"flash_saliency_int8": per_forward,
+                                  "flash_saliency_int8 (Hopper instance)": per_forward}, K1B_KERNEL)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"graphed flux_forward replay (bf16)": [bf16["launches_replay"].get(k, 0) for k in keys]}
+
+
+def fake_gradio():
+    """A stand-in gradio module: components that take anything, Blocks /
+    Row / Column as context managers, and a Button whose click handler is
+    recorded in `clicks` (gradio is not on the card's machine)."""
+    gr = types.ModuleType("gradio")
+    gr.clicks = []
+
+    class Component:
+        def __init__(self, *args, **kwargs):
+            self.args, self.kwargs = args, kwargs
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    class Button(Component):
+        def click(self, fn, inputs, outputs):
+            gr.clicks.append((fn, inputs, outputs))
+
+    for name in ("Blocks", "Markdown", "Row", "Column", "Textbox", "Slider", "Number", "Radio",
+                 "Image", "Gallery"):
+        setattr(gr, name, type(name, (Component,), {}))
+    gr.Button = Button
+    return gr
+
+
+DEMO_SIZE = 256
+
+
+def demo_path():
+    """(d) the gradio demo built on the card at flux-tiny through a
+    stand-in gradio: its click handler called once must return one image
+    and one gallery entry (a heatmap image and its concept) per concept,
+    and launch K1 (flux-tiny's VAE convs have too few channels for K2's
+    gate, in both packages, and run `F.conv2d`)."""
+    saved = sys.modules.get("gradio")
+    gr = sys.modules["gradio"] = fake_gradio()
+    try:
+        from conceptattention_torch import demo
+
+        demo.build_demo("flux-tiny", "cuda")
+        ((generate, inputs, outputs),) = gr.clicks
+        out = {}
+        launches = launch_delta(lambda: out.update(zip(("image", "gallery"), generate(
+            PROMPT, ", ".join(CONCEPTS), DEMO_SIZE, DEMO_SIZE, 4, 0.0, 0, "softmax"))))
+    finally:
+        if saved is None:
+            sys.modules.pop("gradio", None)
+        else:
+            sys.modules["gradio"] = saved
+    image, gallery = out["image"], out["gallery"]
+    sizes = {hm.size for hm, _ in gallery}
+    ok = (image.size == (DEMO_SIZE, DEMO_SIZE) and [c for _, c in gallery] == CONCEPTS
+          and len(sizes) == 1 and min(sizes.pop()) > 0 and launches.get("flash_saliency", 0) > 0)
+    print(f"demo (gradio stand-in, flux-tiny on the card, {DEMO_SIZE}x{DEMO_SIZE}, 4 steps): "
+          f"{len(inputs)} inputs, {len(outputs)} outputs; the handler returned an image of "
+          f"{image.size} and gallery {[(hm.size, c) for hm, c in gallery]}; launches "
+          f"{json.dumps(launches)}: ok={ok}", flush=True)
+    if not ok:
+        raise AssertionError("the demo's handler did not return an image and one heatmap a concept")
+
+
+QUICKSTART_CONCEPTS = ["dragon", "rock", "sky", "cloud"]
+
+
+def quickstarts_path(tiny=False):
+    """(c) the six quickstarts of conceptattention_torch/examples, each a
+    subprocess from one temporary working directory, at their defaults
+    (`tiny`: flux-tiny where the default is flux-schnell): exit 0, the
+    files each writes, its seconds."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import PIL.Image
+
+    repo = Path(__file__).resolve().parent
+    examples = repo / "conceptattention_torch" / "examples"
+    root = Path(tempfile.mkdtemp(prefix="smoke_examples_", dir=repo / "build"))
+    size = 64 if tiny else SIZE
+    small = ["--tiny"] if tiny else []
+    hm = QUICKSTART_CONCEPTS
+    runs = [
+        ("example_generated_image.py", small,
+         {"generated_image.png": size, **{f"{c}_heatmap.png": None for c in hm}}, ""),
+        ("example_encoded_image.py", ["generated_image.png", *small],
+         {f"encoded_{c}_heatmap.png": None for c in hm}, ""),
+        ("int8_serving.py", small,
+         {**{f"int8_image_{i}.png": size for i in range(2)},
+          **{f"int8_{i}_{c}.png": None for i in range(2) for c in hm}}, ""),
+        ("lora_finetune.py", ["--out", str(root / "flux_lora.safetensors")],
+         {"flux_lora.safetensors": None}, "under the adapter"),
+        ("fsdp_train.py", [], {}, "done: final loss"),
+        # one card: model=2 is a virtual mesh, both ranks on card 0
+        ("multichip_inference.py", ["--model", "2", *small], {"multichip_output.png": size},
+         "mesh: data=1 model=2"),
+    ]
+    env = dict(os.environ, HF_HUB_OFFLINE="1", PYTHONPATH=str(repo))
+    seconds = {}
+    try:
+        for script, args, files, says in runs:
+            free = torch.cuda.mem_get_info()[0] / 2**30
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, str(examples / script), *args], cwd=root,
+                                  env=env, capture_output=True, text=True, timeout=600)
+            seconds[script] = time.perf_counter() - t0
+            sizes = {}
+            for name, want in files.items():
+                path = root / name
+                sizes[name] = (PIL.Image.open(path).size if path.suffix == ".png"
+                               else path.stat().st_size) if path.exists() else None
+            ok = (proc.returncode == 0 and all(v is not None for v in sizes.values())
+                  and all(sizes[n] == (w, w) for n, w in files.items() if w)
+                  and says in proc.stdout)
+            print(f"quickstart {script} {' '.join(args)}: exit {proc.returncode}, seconds "
+                  f"{seconds[script]:.3f} (device memory free before {free:.2f} GiB), files "
+                  f"{json.dumps(sizes)}, says {says!r}: {says in proc.stdout}, last line "
+                  f"{proc.stdout.strip().splitlines()[-1:]}: ok={ok}", flush=True)
+            if not ok:
+                raise AssertionError(f"quickstart {script} failed:\n{proc.stdout[-2000:]}\n"
+                                     f"{proc.stderr[-3000:]}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return seconds
 
 
 def sass_summary(lib_path) -> dict:
@@ -5546,12 +6005,24 @@ def main() -> int:
     print(f"cuda {torch.version.cuda}", flush=True)
     print(gpu_line(), flush=True)
     smoke_t0 = time.perf_counter()
+    # No tile cache from this run, or from an earlier one, may steer a later
+    # run's kernels: the port reads and writes its cache under this
+    # directory, which goes when the smoke ends.
+    import atexit
+    import shutil
+    import tempfile
+
+    cache_home = tempfile.mkdtemp(prefix="smoke_cache_")
+    atexit.register(shutil.rmtree, cache_home, ignore_errors=True)
+    os.environ["XDG_CACHE_HOME"] = cache_home
+    sweep_file = os.path.join(cache_home, "sweep_tiles.json")  # not the default cache path
 
     from conceptattention_torch import ConceptAttentionFluxPipeline
     from conceptattention_torch.config import configs
     from conceptattention_torch.kernels import _build
     from conceptattention_torch.kernels.conv3x3 import conv3x3_same, conv3x3_same_hopper
     from conceptattention_torch.kernels.flash_saliency import (
+        FLASH_D128_INSTANCES,
         fused_concept_flash_attention,
         fused_concept_flash_attention_hopper,
         fused_concept_flash_attention_int8,
@@ -5608,6 +6079,11 @@ def main() -> int:
     flash += eval_flash_phases(cfg)
     flash += sweep_flash_phases(cfg)
     flash += compare_flash_phases(cfg)
+    # the D=128 candidate instances at three shapes, and the sweep
+    t0 = time.perf_counter()
+    tuned, winners = autotune_phases(cfg, sweep_file)
+    slice_seconds = {"(a) instances and sweep": time.perf_counter() - t0}
+    flash += tuned
     # K1b: generate_image (batch 1) and generate_images (batch 2) with w8a8
     # + int8_qk, and encode_image with int8_qk.
     int8 = int8_flash_phases(cfg, {
@@ -5648,15 +6124,22 @@ def main() -> int:
     # K1's Hopper instance takes every DiT block (head dim 128) and the VAE's
     # mid-attention (head dim 512)
     want_gen = [per_image + 1, sum(conv_counts.values()), per_image + 1, sum(conv_counts.values())]
+    # with no tile cache every D=128 call takes instance 0
+    n_instances = len(FLASH_D128_INSTANCES)
+    instances = fused_concept_flash_attention_hopper.instance_launches
+    want_instances = {"generate_image": [per_image] + [0] * (n_instances - 1),
+                      "encode_image": [cfg.depth] + [0] * (n_instances - 1)}
     gen_seconds = []
     for _ in range(2):
+        instances[:] = [0] * n_instances
         out, seconds, launches = counted(lambda: pipe.generate_image(
             PROMPT, CONCEPTS, width=SIZE, height=SIZE, num_inference_steps=STEPS,
             return_pil_heatmaps=False, return_image_array=True,
         ), counters)
         gen_seconds.append(seconds)
-        if launches != want_gen:
-            raise AssertionError(f"generate_image launches {launches} != {want_gen}")
+        if launches != want_gen or instances != want_instances["generate_image"]:
+            raise AssertionError(f"generate_image launches {launches} != {want_gen}, or per "
+                                 f"D=128 instance {instances}")
         grid = SIZE // 16
         for maps in (out.concept_heatmaps, out.cross_attention_maps):
             if maps.shape != (len(CONCEPTS), grid, grid) or not np.isfinite(maps).all():
@@ -5670,18 +6153,24 @@ def main() -> int:
     image = np.random.default_rng(0).integers(0, 256, (SIZE, SIZE, 3), dtype=np.uint8)
     enc_seconds = []
     for _ in range(2):
+        instances[:] = [0] * n_instances
         out, seconds, launches = counted(lambda: pipe.encode_image(
             image, CONCEPTS, width=SIZE, height=SIZE, return_pil_heatmaps=False,
         ), counters)
         enc_seconds.append(seconds)
-        if launches != [cfg.depth, 0, cfg.depth, 0]:
-            raise AssertionError(f"encode_image launches {launches} != {[cfg.depth, 0, cfg.depth, 0]}")
+        if launches != [cfg.depth, 0, cfg.depth, 0] or instances != want_instances["encode_image"]:
+            raise AssertionError(f"encode_image launches {launches} != {[cfg.depth, 0, cfg.depth, 0]}"
+                                 f", or per D=128 instance {instances}")
         for maps in (out.concept_heatmaps, out.cross_attention_maps):
             if maps.shape != (len(CONCEPTS), grid, grid) or not np.isfinite(maps).all():
                 raise AssertionError(f"bad heatmaps {maps.shape}")
     print(f"encode_image {SIZE}x{SIZE}: launches {{'flash_saliency': {cfg.depth}}}, "
           f"cold seconds {enc_seconds[0]:.4f}, warm seconds {enc_seconds[1]:.4f}", flush=True)
     print(f"peak device memory GiB {torch.cuda.max_memory_allocated() / 2**30:.3f}", flush=True)
+    instance_paths = dict(want_instances)
+    t0 = time.perf_counter()
+    instance_paths.update(tile_cache_round_trip(pipe, winners, sweep_file, tuned))
+    slice_seconds["(a) tile-cache round trip"] = time.perf_counter() - t0
     new_paths = encode_images_path(pipe, counters)
     eval_paths, dataset = eval_path(pipe, counters)
     new_paths.update(eval_paths)
@@ -5719,7 +6208,8 @@ def main() -> int:
         "encode_image": dict(zip(names, [cfg.depth, 0, cfg.depth, 0]))}), flush=True)
     int8_counters = [fused_concept_flash_attention, fused_concept_flash_attention_int8,
                      conv3x3_same] + hopper + [fused_concept_flash_attention_int8_hopper]
-    quant_paths = quantized_flux_path(pipe, bf16_out, int8_counters, want_gen[1])
+    quant_paths, graphed = quantized_flux_path(pipe, bf16_out, int8_counters, want_gen[1])
+    instance_paths.update(graphed)
     del pipe, out
     gc.collect()
     torch.cuda.empty_cache()
@@ -5749,6 +6239,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     new_paths.update(checkpoint_path(counters))
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    quickstart_seconds = quickstarts_path()
+    slice_seconds["(c) quickstarts"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    demo_path()
+    slice_seconds["(d) demo"] = time.perf_counter() - t0
     print(f"flux surface paths (launches [K1, K2, K1 hopper, K2 hopper], seconds): "
           f"{json.dumps(new_paths)}", flush=True)
 
@@ -5812,7 +6310,12 @@ def main() -> int:
                   "conceptattention_torch/csrc/flash_saliency_sm90.cu":
                       "head dims 64, 128, 512 (Hopper)",
                   "conceptattention_torch/csrc/flash_saliency.cu":
-                      "head dim 32 (mma.sync; its 64, 128, 512 instances timed as mma_sync_ms)"},
+                      "head dim 32 (mma.sync; its 64, 128, 512 instances timed as mma_sync_ms)",
+                  **{f"conceptattention_torch/csrc/flash_saliency_sm90.cu D=128 instance {i}":
+                     f"{name} (a candidate of kernels/autotune.py"
+                     + ("; the default)" if i == 0 else ")")
+                     for i, name in enumerate(FLASH_D128_INSTANCES)}},
+              instance_launches_per_path=instance_paths,
               hopper_launches_per_path={
                   "generate_image": want_gen[2], "encode_image": cfg.depth,
                   "generate_video (PAIR_HEADS off)":
@@ -5858,6 +6361,9 @@ def main() -> int:
               hopper_step_launches_per_path={
                   label: hopper for label, (_, _, hopper) in ring_paths.items()}),
     ]
+    print(f"quickstart seconds {json.dumps(quickstart_seconds)}; the last slice's phases' "
+          f"seconds (w8a8 and TP graphs inside their paths) {json.dumps(slice_seconds)}",
+          flush=True)
     print(f"smoke seconds, build included {time.perf_counter() - smoke_t0:.1f}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -66,6 +66,18 @@
 //     output has been stored. (Storing head a's output while head b's first
 //     Q K^T is in flight made ptxas serialise every wgmma of the kernel.)
 //     The tile run and the mask decisions are computed once a block.
+//   D = 128, the candidates of the run-time instance choice
+//     (ca_flash_saliency_sm90_bf16_instance; kernels/autotune.py measures
+//     them on the card, the port's counterpart of the JAX autotuner's tile
+//     sweep, since the tile shape here is fixed at compile time):
+//     0 <128, 128, 128, 2, in order, 1>, the default above;
+//     1 <128, 128, 128, 2, pingpong, 1>, K1b's schedule: one consumer
+//       warpgroup's softmax runs while the other's products do;
+//     2 <128, 128, 64, 4, in order, 1>, 64-key tiles and a 4-deep ring, for
+//       rows that walk few key tiles (S ~ 1286: 11 tiles of 128 keys).
+//     (The output split in two 64-column chunks, <128, 64, 128, 2, in
+//     order, 1>, was a candidate too; it computes Q K^T twice and lost to
+//     instance 0 at every shape measured, so it is not compiled.)
 // Not yet done: a TMA store of the output, a persistent grid, multicast of
 // K and V across a cluster (the D = 512 instance streams 20 MB a block from
 // L2).
@@ -244,6 +256,12 @@ cudaError_t launch_rope(const void* q, const void* k, const void* rope_cos, cons
 
 extern "C" {
 
+int ca_flash_saliency_sm90_bf16_instance(const void* q, const void* k, const void* v, void* out,
+                                         int batch, int heads, int seq_len, int head_dim,
+                                         int txt_len, int img_len, int concept_len, int cross,
+                                         int self_attn, float score_mul, int instance,
+                                         void* stream);
+
 // q, k -> q_out, k_out: [B, H, S, D] bf16, D in {64, 128, 512}; rope_cos /
 // rope_sin: [B, S, D] f32. q_out = bf16(rope(q) * scale), k_out =
 // bf16(rope(k)). Returns a cudaError_t.
@@ -268,19 +286,42 @@ int ca_rope_qk_rows_bf16(const void* q, const void* k, const void* rope_cos, con
 
 // q, k, v, out: [B, H, S, D] bf16, contiguous, 16-byte aligned; q and k
 // roped (q pre-scaled, score_mul = 1) or raw (score_mul = log2(e)/sqrt(D)).
-// Head dims 64, 128 and 512. Returns a cudaError_t.
+// Head dims 64, 128 and 512, each through its instance 0. Returns a
+// cudaError_t.
 int ca_flash_saliency_sm90_bf16(const void* q, const void* k, const void* v, void* out,
                                 int batch, int heads, int seq_len, int head_dim, int txt_len,
                                 int img_len, int concept_len, int cross, int self_attn,
                                 float score_mul, void* stream) {
+  return ca_flash_saliency_sm90_bf16_instance(q, k, v, out, batch, heads, seq_len, head_dim,
+                                              txt_len, img_len, concept_len, cross, self_attn,
+                                              score_mul, 0, stream);
+}
+
+// The same contract through one compiled instance: `instance` indexes the
+// head dim's instances (0 at D = 64 and 512; 0-2 at D = 128, in the order of
+// FLASH_D128_INSTANCES). An index outside them returns cudaErrorInvalidValue.
+int ca_flash_saliency_sm90_bf16_instance(const void* q, const void* k, const void* v, void* out,
+                                         int batch, int heads, int seq_len, int head_dim,
+                                         int txt_len, int img_len, int concept_len, int cross,
+                                         int self_attn, float score_mul, int instance,
+                                         void* stream) {
   const Segments g = make_segments(seq_len, txt_len, img_len, concept_len, cross, self_attn);
   const int bh = batch * heads;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim == 64) return launch<64, 64, 128, 4, OVERLAP, 1>(q, k, v, out, bh, g, score_mul, s);
-  if (head_dim == 128) {
-    return launch<128, 128, 128, 2, IN_ORDER, 1>(q, k, v, out, bh, g, score_mul, s);
+  if (head_dim == 64 && instance == 0) {
+    return launch<64, 64, 128, 4, OVERLAP, 1>(q, k, v, out, bh, g, score_mul, s);
   }
-  if (head_dim == 512) return launch<512, 128, 64, 1, IN_ORDER, 1>(q, k, v, out, bh, g, score_mul, s);
+  if (head_dim == 128) {
+    switch (instance) {
+      case 0: return launch<128, 128, 128, 2, IN_ORDER, 1>(q, k, v, out, bh, g, score_mul, s);
+      case 1: return launch<128, 128, 128, 2, PINGPONG, 1>(q, k, v, out, bh, g, score_mul, s);
+      case 2: return launch<128, 128, 64, 4, IN_ORDER, 1>(q, k, v, out, bh, g, score_mul, s);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  if (head_dim == 512 && instance == 0) {
+    return launch<512, 128, 64, 1, IN_ORDER, 1>(q, k, v, out, bh, g, score_mul, s);
+  }
   return cudaErrorInvalidValue;
 }
 

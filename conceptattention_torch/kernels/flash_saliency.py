@@ -36,13 +36,23 @@ s8 wgmma on K1's mainloop) or `csrc/flash_saliency_int8.cu`'s mma.sync
 kernel (head dims 32 and 64); it never falls back from one to another and
 never takes K3. Each wrapper's `launches` attribute counts its calls that
 launch its kernels.
+
+At head dim 128 the Hopper kernel has several compiled instances
+(`FLASH_D128_INSTANCES`). Which one a call takes is chosen at run time, as
+the JAX kernel chooses its tiles (`_auto_tiles`): the overlay
+`_TUNED_TILES`, keyed on the call's workload (`tile_key`: head dim, S,
+B x H, the segments and the mask mode) and filled by `kernels/autotune.py`
+(its sweep, or its per-card cache read once, lazily, at the first card
+call), else instance 0.
+`fused_concept_flash_attention_hopper.instance_launches` counts the launches
+of each.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -60,6 +70,18 @@ HOPPER_HEAD_DIMS = (64, 128, 512)
 INT8_HEAD_DIMS = (32, 64, 128)  # K1b's instances; the VAE's D=512 never takes int8
 INT8_HOPPER_HEAD_DIMS = (128,)  # the flux DiT blocks; 32 and 64 stay on mma.sync
 PAIRED_HEAD_DIM = 64
+# The compiled instances <D, DC, HK, STAGES, schedule, heads a block> of the
+# Hopper kernel at head dim 128 (`ca_flash_saliency_sm90_bf16_instance`), by
+# index; every other head dim has instance 0 alone.
+FLASH_D128_INSTANCES = (
+    "<128, 128, 128, 2, in order, 1>",
+    "<128, 128, 128, 2, pingpong, 1>",
+    "<128, 128, 64, 4, in order, 1>",
+)
+# {tile_key(...): instance}: the run-time overlay that `kernels/autotune.py`
+# fills (`register_tuned_tiles`, `load_tile_cache`).
+_TUNED_TILES: Dict[Tuple[int, ...], int] = {}
+_tile_cache_loaded = False
 # Route d=64 attention with an even head count through K3 (the head-paired
 # instance) instead of K1; read at call time.
 PAIR_HEADS = False
@@ -269,6 +291,36 @@ def flash_instance(head_dim: int) -> str:
     return "hopper" if head_dim in HOPPER_HEAD_DIMS else "mma_sync"
 
 
+def hopper_instances(head_dim: int) -> Tuple[int, ...]:
+    """The indices of the Hopper kernel's compiled instances at this head
+    dim: all of `FLASH_D128_INSTANCES` at 128, instance 0 at 64 and 512."""
+    if head_dim == 128:
+        return tuple(range(len(FLASH_D128_INSTANCES)))
+    return (0,) if head_dim in HOPPER_HEAD_DIMS else ()
+
+
+def tile_key(head_dim: int, seq_len: int, batch_heads: int, txt_len: int, img_len: int,
+             concept_len: int, cross: bool = True, self_attention: bool = True) -> Tuple[int, ...]:
+    """The overlay's key: everything that sets a call's work and block
+    count. A winner timed on one workload steers only calls of that one."""
+    return tuple(int(x) for x in (head_dim, seq_len, batch_heads, txt_len, img_len, concept_len,
+                                  cross, self_attention))
+
+
+def _auto_instance(*key) -> int:
+    """The instance a call of `tile_key(*key)` takes: the tuned overlay's
+    entry, else 0. The first call reads the card's tile cache into the
+    overlay (`autotune.load_tile_cache`; a missing or corrupt file leaves
+    it empty)."""
+    global _tile_cache_loaded
+    if not _tile_cache_loaded:
+        _tile_cache_loaded = True  # one attempt; no cache is the common case
+        from conceptattention_torch.kernels import autotune
+
+        autotune.load_tile_cache()
+    return _TUNED_TILES.get(tile_key(*key), 0)
+
+
 def _sm90_library() -> ctypes.CDLL:
     lib = _build.load("flash_saliency_sm90")
     if lib.ca_flash_saliency_sm90_bf16.argtypes is None:
@@ -277,6 +329,9 @@ def _sm90_library() -> ctypes.CDLL:
         for fn in (lib.ca_flash_saliency_sm90_bf16, lib.ca_flash_saliency_paired_sm90_bf16):
             fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, f, p]
             fn.restype = i
+        lib.ca_flash_saliency_sm90_bf16_instance.argtypes = [
+            p, p, p, p, i, i, i, i, i, i, i, i, i, f, i, p]
+        lib.ca_flash_saliency_sm90_bf16_instance.restype = i
         lib.ca_rope_qk_rows_bf16.restype = i
     return lib
 
@@ -308,30 +363,43 @@ def fused_concept_flash_attention_hopper(
     self_attention: bool = True,
     rope_cos: Optional[torch.Tensor] = None,
     rope_sin: Optional[torch.Tensor] = None,
+    instance: Optional[int] = None,
 ) -> torch.Tensor:
     """`fused_concept_flash_attention` through `csrc/flash_saliency_sm90.cu`,
     head dims 64, 128 and 512: with tables, the pre-pass ropes and rounds
     every q and k row once (`rope_qk_rows_cuda`) and the main kernel scores
     them at scale 1; without, it scores q and k as given at
-    log2(e)/sqrt(D)."""
+    log2(e)/sqrt(D). `instance` picks one of `hopper_instances(D)`; None
+    takes the tuned overlay's, else 0 (`_auto_instance`). An index outside
+    them raises ValueError before any launch, on the CPU too."""
     refuse_autograd("fused_concept_flash_attention_hopper", q, k, v, rope_cos, rope_sin)
+    d = q.shape[-1]
+    if instance is not None and instance not in hopper_instances(d):
+        raise ValueError(f"head dim {d} has Hopper instances {hopper_instances(d)}, "
+                         f"not {instance}")
     if q.device.type == "cpu":
         return fused_concept_flash_attention_plain(
             q, k, v, txt_len, img_len, concept_len, cross, self_attention, rope_cos, rope_sin)
     _check_inputs(q, k, v, txt_len, img_len, concept_len, rope_cos, rope_sin)
-    if flash_instance(q.shape[-1]) != "hopper":
-        raise ValueError(f"the Hopper flash kernel takes head dims {HOPPER_HEAD_DIMS}, "
-                         f"got {q.shape[-1]}")
-    out = _launch_sm90("ca_flash_saliency_sm90_bf16", q, k, v, txt_len, img_len, concept_len,
-                       cross, self_attention, rope_cos, rope_sin)
+    if flash_instance(d) != "hopper":
+        raise ValueError(f"the Hopper flash kernel takes head dims {HOPPER_HEAD_DIMS}, got {d}")
+    if instance is None:
+        instance = _auto_instance(d, q.shape[2], q.shape[0] * q.shape[1], txt_len, img_len,
+                                  concept_len, cross, self_attention)
+    out = _launch_sm90("ca_flash_saliency_sm90_bf16_instance", q, k, v, txt_len, img_len,
+                       concept_len, cross, self_attention, rope_cos, rope_sin, instance)
     fused_concept_flash_attention_hopper.launches += 1
+    if d == 128:
+        fused_concept_flash_attention_hopper.instance_launches[instance] += 1
     return out
 
 
 def _launch_sm90(entry, q, k, v, txt_len, img_len, concept_len, cross, self_attention,
-                 rope_cos, rope_sin):
+                 rope_cos, rope_sin, *extra):
     """The RoPE pre-pass (with tables) and one launch of the Hopper kernel's
-    `entry` on checked inputs, uncounted."""
+    `entry` on checked inputs, uncounted; `extra` are the entry's arguments
+    before the stream (the instance index of
+    `ca_flash_saliency_sm90_bf16_instance`)."""
     b, h, s, d = q.shape
     for name, t in (("q", q), ("k", k), ("v", v)):  # TMA, and the pre-pass's 16-byte loads
         if t.data_ptr() % 16:
@@ -345,7 +413,7 @@ def _launch_sm90(entry, q, k, v, txt_len, img_len, concept_len, cross, self_atte
     with torch.cuda.device(q.device):
         err = getattr(lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, s, d,
-            txt_len, img_len, concept_len, int(cross), int(self_attention), score_mul,
+            txt_len, img_len, concept_len, int(cross), int(self_attention), score_mul, *extra,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check(lib, err, f"{entry} launch")
@@ -353,6 +421,8 @@ def _launch_sm90(entry, q, k, v, txt_len, img_len, concept_len, cross, self_atte
 
 
 fused_concept_flash_attention_hopper.launches = 0
+# launches of each D=128 instance, by index of FLASH_D128_INSTANCES
+fused_concept_flash_attention_hopper.instance_launches = [0] * len(FLASH_D128_INSTANCES)
 
 
 def _launch(entry, q, k, v, txt_len, img_len, concept_len, cross, self_attention,

@@ -11,7 +11,9 @@ ControlNet residuals are added to the image stream after each block. With
 instead of keeping every activation of every layer (the JAX package's
 `jax.checkpoint` over the scan body; the training path sets it). A
 parameter tree laid out over a mesh runs data- and tensor-parallel over it
-(`flux_forward`).
+(`flux_forward`). `make_jitted_forward` is the counterpart of `jax.jit` over
+the forward: on the card, a CUDA graph captured once per input signature and
+replayed.
 """
 
 from __future__ import annotations
@@ -23,11 +25,13 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from conceptattention_torch.config import FluxConfig
+from conceptattention_torch.kernels._autograd import refuse_autograd
 from conceptattention_torch.models.flux.blocks import double_block, last_layer, single_block
 from conceptattention_torch.models.flux.params import layer
 from conceptattention_torch.ops.attention import RING_BACKENDS, ConceptAttentionSpec
 from conceptattention_torch.ops.embeddings import mlp_embedder, timestep_embedding
 from conceptattention_torch.ops.rope import embed_nd
+from conceptattention_torch.parallel.collectives import Sharded
 from conceptattention_torch.parallel.mesh import AXES
 from conceptattention_torch.parallel.sharding import rank_tree, restrict_tree, tree_mesh
 
@@ -232,3 +236,112 @@ def _forward(params, get_layer, tp_axis, cfg, inputs, controlnet, controlnet_blo
         x = _step(single_step, remat, i, x)
     pred = last_layer(params["final"], x[:, t_len:], vec)
     return pred, saliency
+
+
+def _leaves(tree):
+    """The tensors of a parameter tree, a `Sharded` leaf's pieces included."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, Sharded):
+        for piece in tree.grid.flat:
+            yield piece
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+
+
+def _signature(params, kwargs) -> tuple:
+    """What a captured graph is valid for: each keyword's shape, dtype and
+    device (None where it is None; a non-tensor's value), and the address,
+    shape and dtype of every parameter tensor (the graph reads them where
+    they lay at capture)."""
+    inputs = tuple(
+        (k, None) if v is None
+        else (k, tuple(v.shape), v.dtype, v.device) if isinstance(v, torch.Tensor)
+        else (k, v)
+        for k, v in sorted(kwargs.items()))
+    return inputs, tuple((t.data_ptr(), tuple(t.shape), t.dtype) for t in _leaves(params))
+
+
+class _Replay:
+    """One captured forward: the graph, its static input buffers and
+    outputs, and the kernel launches it holds (`kernels.launch_counts` keys)."""
+
+    def __init__(self, fwd, params, kwargs, device):
+        from conceptattention_torch.kernels import add_launches, launch_counts
+
+        self.inputs = {k: v.clone() if isinstance(v, torch.Tensor) else v
+                       for k, v in kwargs.items()}
+        # One warm call on a side stream first: it loads the kernels'
+        # libraries and the entry point of cuTensorMapEncodeTiled, and lets
+        # the allocator see the forward, before capture begins.
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            fwd(params, self.inputs)
+        torch.cuda.current_stream(device).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        before = launch_counts()
+        try:
+            with torch.cuda.graph(self.graph):
+                self.outputs = fwd(params, self.inputs)
+        except Exception as e:
+            raise RuntimeError(
+                "make_jitted_forward: capturing flux_forward into a CUDA graph failed "
+                f"({type(e).__name__}: {e}); it does not fall back to the eager forward") from e
+        self.launches = {k: v - before[k] for k, v in launch_counts().items()}
+        # the wrappers counted while the graph was recorded, and nothing ran
+        add_launches({k: -v for k, v in self.launches.items()})
+
+    def __call__(self, kwargs):
+        from conceptattention_torch.kernels import add_launches
+
+        for k, v in kwargs.items():
+            if isinstance(v, torch.Tensor):
+                self.inputs[k].copy_(v)
+        self.graph.replay()
+        add_launches(self.launches)
+        pred, saliency = self.outputs
+        return (None if pred is None else pred.clone(),
+                {k: v.clone() for k, v in saliency.items()})
+
+
+def make_jitted_forward(cfg: FluxConfig, **static_kwargs):
+    """The forward with `cfg` and `static_kwargs` closed over: `fwd(params,
+    img=..., ...)` returns `flux_forward`'s (pred, saliency).
+
+    Array inputs must be passed by KEYWORD, as in the JAX package: cfg holds
+    the second positional slot of flux_forward, so a positional array raises
+    TypeError. Runs under `torch.no_grad()` and refuses inputs that require
+    grad while autograd is on (the forward carries no gradient, as the
+    kernels do not). On CPU tensors it calls `flux_forward`. On the card it
+    is the port's `jax.jit`: the first call of each signature (inputs'
+    shapes, dtypes and None pattern, and the parameters' addresses) captures
+    the forward into a CUDA graph, and every call replays it on a copy of
+    its inputs and returns fresh outputs (a later replay does not overwrite
+    them). A replay adds the launches it holds to `kernels.launch_counts`. A
+    capture that fails raises; it never runs the eager forward instead.
+    """
+    graphs = {}
+
+    def forward(params, inputs):
+        return flux_forward(params, cfg=cfg, **static_kwargs, **inputs)
+
+    def fwd(params, **kwargs):
+        refuse_autograd("make_jitted_forward", *_leaves(params),
+                        *(v for v in kwargs.values() if isinstance(v, torch.Tensor)))
+        with torch.no_grad():
+            img = kwargs.get("img")
+            if not isinstance(img, torch.Tensor) or img.device.type != "cuda":
+                return forward(params, kwargs)
+            key = _signature(params, kwargs)
+            replay = graphs.get(key)
+            if replay is None:
+                replay = graphs[key] = _Replay(forward, params, kwargs, img.device)
+            return replay(kwargs)
+
+    fwd.graphs = graphs
+    return fwd

@@ -8,19 +8,27 @@ computed in float64 on the host.
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence, Tuple
 
 import numpy as np
 import torch
 
 
+@functools.lru_cache(maxsize=None)
+def _omega(dim: int, theta: int, device: torch.device) -> torch.Tensor:
+    """The f32 frequency ladder on `device`, copied there once: a forward
+    captured into a CUDA graph (`models/flux/dit.make_jitted_forward`) may
+    not copy from the host."""
+    scale = np.arange(0, dim, 2, dtype=np.float64) / dim
+    return torch.as_tensor(1.0 / (float(theta) ** scale), dtype=torch.float32, device=device)
+
+
 def rope_table(pos: torch.Tensor, dim: int, theta: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """cos/sin tables `[..., N, dim // 2]` f32 for one id axis of `[..., N]` positions."""
     if dim % 2:
         raise ValueError(f"rope dim must be even, got {dim}")
-    scale = np.arange(0, dim, 2, dtype=np.float64) / dim
-    omega = torch.as_tensor(1.0 / (float(theta) ** scale), dtype=torch.float32, device=pos.device)
-    args = pos.float()[..., None] * omega
+    args = pos.float()[..., None] * _omega(dim, theta, pos.device)
     return torch.cos(args), torch.sin(args)
 
 

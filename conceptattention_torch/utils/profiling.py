@@ -9,6 +9,7 @@ a function measured over repeated calls.
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import time
 from typing import Any, Callable, Dict, Optional
@@ -16,21 +17,62 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 
+BLOCK = "device_trace block"  # the annotation around the traced block
+# Tiny kernels launched at the start of a card session, ahead of the block.
+# On an H100 (torch 2.11, CUDA 12.8) a process that has captured and
+# replayed CUDA graphs and run more work came to lose the first few kernel
+# records of each later session (1 to 3 in `probe_trace.py`), whatever
+# TEARDOWN_CUPTI said: a block of two kernels then traced as none.
+PROLOGUE_KERNELS = 256
+
+
+def kernel_events(trace_path: str) -> int:
+    """The device kernel events of the traced block in a Chrome trace that
+    `device_trace` wrote: those that start after the block's annotation
+    does (the session's prologue is not counted)."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    start = min((e["ts"] for e in events if e.get("name") == BLOCK), default=float("-inf"))
+    return sum(e.get("cat") == "kernel" and e["ts"] >= start for e in events)
+
+
+def _prologue() -> None:
+    x = torch.zeros(1, device="cuda")
+    for _ in range(PROLOGUE_KERNELS):
+        x.add_(1.0)
+    torch.cuda.synchronize()
+
+
 @contextlib.contextmanager
 def device_trace(log_dir: str):
     """Trace the host and, where there is a card, its kernels with
     `torch.profiler`; the trace is written to `log_dir/trace.json` (Chrome
     trace format, viewable in Perfetto) when the block ends. Yields the
-    profiler (`key_averages()` for a table)."""
-    from torch.profiler import ProfilerActivity, profile
+    profiler (`key_averages()` for a table). The block runs under the
+    annotation `BLOCK`.
+
+    Where the card is traced, the session opens with PROLOGUE_KERNELS tiny
+    kernels, finished before the block starts (they take the place of
+    the records a session can lose at its start), and a block that left no
+    kernel event raises RuntimeError: an empty device trace is never
+    returned as a reading."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
+    card = torch.cuda.is_available()
+    if card:
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
+    path = os.path.join(log_dir, "trace.json")
     with profile(activities=activities) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+        if card:
+            _prologue()
+        with record_function(BLOCK):
+            yield prof
+    prof.export_chrome_trace(path)
+    if card and not kernel_events(path):
+        raise RuntimeError(f"device_trace: the card was traced but the block in {path} left no "
+                           f"kernel event")
 
 
 def _tensors(tree):

@@ -71,6 +71,27 @@ def load_safetensors(path: str) -> Dict[str, torch.Tensor]:
     return out
 
 
+def save_safetensors(path: str, tensors: Mapping[str, torch.Tensor]) -> None:
+    """Write {key: tensor} as a `.safetensors` file (an 8-byte
+    little-endian header length, a JSON header of dtype, shape and byte
+    offsets, then the raw tensors), which `load_safetensors` and the
+    `safetensors` package read; the card's machine has no such package."""
+    names = {dtype: name for name, dtype in _DTYPES.items()}
+    header, offset = {}, 0
+    for key, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[key] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                       "data_offsets": [offset, offset + n]}
+        offset += n
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for t in tensors.values():
+            f.write(t.detach().contiguous().reshape(-1).view(torch.uint8).cpu().numpy().tobytes())
+
+
 class StateDict:
     """A state dict read one tensor at a time into `dtype` on `device` (the
     source's by default), recording the keys it used (`unused()` reports

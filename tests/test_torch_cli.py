@@ -102,10 +102,13 @@ class TestCliEndToEnd:
         assert sorted(os.listdir(tmp_path / "hm")) == ["blue_sky.png", "cat.png"]
         assert PIL.Image.open(tmp_path / "hm" / "cat.png").size == (16, 16)
         launches = json.loads(r.stdout.split("kernel launches ", 1)[1].splitlines()[0])
-        assert launches == {"flash_saliency": 0, "flash_saliency_int8": 0,
-                            "flash_saliency_paired": 0, "conv3x3": 0, "ring_attention": 0,
-                            "flash_saliency (Hopper instance)": 0,
-                            "conv3x3 (Hopper instance)": 0}
+        from conceptattention_torch.kernels import launch_counts
+
+        # every count of kernels.launch_counts, the K1 instances' included: 0 on the CPU
+        assert launches == {k: 0 for k in launch_counts()}
+        assert {"flash_saliency", "flash_saliency_int8", "flash_saliency_paired", "conv3x3",
+                "ring_attention", "flash_saliency (Hopper instance)",
+                "conv3x3 (Hopper instance)"} <= set(launches)
 
     def test_loop_reads_prompts_and_lora(self, tmp_path):
         """--loop: one image per prompt read from stdin (a fresh seed after

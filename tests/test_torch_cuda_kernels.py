@@ -944,3 +944,186 @@ def test_ring_kernel_on_batch_and_head_sliced_rings(dev):
     want = fs.fused_concept_flash_attention_plain(q, k, v, t, p, c)
     assert got.shape == q.shape
     assert (got.float() - want.float()).abs().max().item() <= bf16_limit(want)
+
+
+# K1 at head dim 128 through each compiled instance (FLASH_D128_INSTANCES):
+# B1 H24 at flux-schnell's double block at 1024² with 3 concepts, its single
+# block (no concept rows), the eval path's double block at 512² with 6
+# concepts, and the double block with 5 pad rows past its concepts.
+INSTANCE_SHAPES = {"double": (4355, 256, 4096, 3), "single": (4352, 4352, 0, 0),
+                   "eval": (1286, 256, 1024, 6), "padded": (4360, 256, 4096, 3)}
+
+
+@pytest.mark.parametrize("shape", list(INSTANCE_SHAPES))
+@pytest.mark.parametrize("instance", range(len(fs.FLASH_D128_INSTANCES)))
+def test_hopper_flash_instance_matches_plain(dev, instance, shape):
+    """Each D=128 instance holds to the plain version on the joint and the
+    concept rows, each against its own limit; pad rows are exact zeros; the
+    instance's own counter moves by one and no other instance's does."""
+    s, t, p, c = INSTANCE_SHAPES[shape]
+    gen = torch.Generator(dev).manual_seed(31)
+    q, k, v = (torch.randn(1, 24, s, 128, generator=gen, device=dev) for _ in range(3))
+    args = ((3 * q).bfloat16(), k.bfloat16(), v.bfloat16(), t, p, c, True, True,
+            *rope_tables(gen, 1, s, 128, dev))
+    before = list(fs.fused_concept_flash_attention_hopper.instance_launches)
+    got = fs.fused_concept_flash_attention_hopper(*args, instance=instance)
+    torch.cuda.synchronize()
+    want_counts = list(before)
+    want_counts[instance] += 1
+    assert fs.fused_concept_flash_attention_hopper.instance_launches == want_counts
+    want = fs.fused_concept_flash_attention_plain(*args)
+    for rows in (slice(0, t + p), slice(t + p, t + p + c)):
+        if rows.stop > rows.start:
+            err = (got[:, :, rows].float() - want[:, :, rows].float()).abs().max().item()
+            assert err <= bf16_limit(want[:, :, rows])
+    assert torch.count_nonzero(got[:, :, t + p + c:]).item() == 0
+
+
+@pytest.mark.parametrize("d,instance", [(128, len(fs.FLASH_D128_INSTANCES)), (128, -1),
+                                        (64, 1), (512, 1)])
+def test_hopper_flash_instance_outside_the_compiled_set_raises(dev, d, instance):
+    """An instance index the head dim does not have raises ValueError before
+    any launch, and the C entry refuses it too (CUDA error, nothing runs)."""
+    gen = torch.Generator(dev).manual_seed(32)
+    q, k, v = (torch.randn(1, 2, 130, d, generator=gen, device=dev).bfloat16() for _ in range(3))
+    before = kernel_counts(), list(fs.fused_concept_flash_attention_hopper.instance_launches)
+    with pytest.raises(ValueError, match="instances"):
+        fs.fused_concept_flash_attention_hopper(q, k, v, 40, 80, 5, instance=instance)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        fs._launch_sm90("ca_flash_saliency_sm90_bf16_instance", q, k, v, 40, 80, 5, True, True,
+                        None, None, instance)
+    torch.cuda.synchronize()
+    assert (kernel_counts(), fs.fused_concept_flash_attention_hopper.instance_launches) == before
+
+
+def test_tuned_overlay_picks_the_instance(dev):
+    """A call of the workload the overlay names (head dim, S, B x H, the
+    segments and the mask mode) launches that instance; a call of another
+    S, or of the same S with other segments, launches instance 0."""
+    from conceptattention_torch.kernels.autotune import register_tuned_tiles
+
+    saved, flag = dict(fs._TUNED_TILES), fs._tile_cache_loaded
+    fs._tile_cache_loaded = True
+    try:
+        register_tuned_tiles(300, 2, 128, 2, segments=(40, 250, 5))
+        gen = torch.Generator(dev).manual_seed(33)
+        for s, segments, want in ((300, (40, 250, 5), 2), (310, (40, 250, 5), 0),
+                                  (300, (300, 0, 0), 0)):
+            q, k, v = (torch.randn(1, 2, s, 128, generator=gen, device=dev).bfloat16()
+                       for _ in range(3))
+            args = (q, k, v, *segments, True, True, *rope_tables(gen, 1, s, 128, dev))
+            before = list(fs.fused_concept_flash_attention_hopper.instance_launches)
+            got = fs.fused_concept_flash_attention(*args)
+            torch.cuda.synchronize()
+            after = fs.fused_concept_flash_attention_hopper.instance_launches
+            assert [a - b for a, b in zip(after, before)] == [
+                int(i == want) for i in range(len(fs.FLASH_D128_INSTANCES))]
+            want_out = fs.fused_concept_flash_attention_plain(*args)
+            assert (got.float() - want_out.float()).abs().max().item() <= bf16_limit(want_out)
+    finally:
+        fs._TUNED_TILES.clear()
+        fs._TUNED_TILES.update(saved)
+        fs._tile_cache_loaded = flag
+
+
+def small_flux_forward_inputs(dev, seed, size=512):
+    """flux-schnell at full width cut to 2 double and 2 single blocks (bf16,
+    random weights), and keyword inputs of one `size`² image with 256 txt
+    rows and 3 concepts."""
+    import dataclasses
+
+    from conceptattention_torch.config import configs
+    from conceptattention_torch.models.flux.params import init_flux_params
+    from conceptattention_torch.ops.packing import make_img_ids
+
+    cfg = dataclasses.replace(configs["flux-schnell"].params, depth=2, depth_single_blocks=2)
+    params = init_flux_params(torch.Generator(dev).manual_seed(30), cfg, torch.bfloat16)
+    gen = torch.Generator(dev).manual_seed(seed)
+    grid, t, c = size // 16, 256, 3
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).bfloat16()
+
+    inputs = dict(img=randn(1, grid * grid, cfg.in_channels),
+                  img_ids=make_img_ids(grid, grid, 1, device=dev),
+                  txt=randn(1, t, cfg.context_in_dim),
+                  txt_ids=torch.zeros(1, t, 3, device=dev),
+                  timesteps=torch.full((1,), 0.25 + 0.5 * (seed % 2), device=dev),
+                  y=randn(1, cfg.vec_in_dim), concepts=randn(1, c, cfg.context_in_dim),
+                  concept_ids=torch.zeros(1, c, 3, device=dev),
+                  concept_vec=torch.zeros(1, cfg.vec_in_dim, device=dev, dtype=torch.bfloat16))
+    return cfg, params, inputs
+
+
+def test_graphed_forward_replay_equals_eager(dev):
+    """make_jitted_forward on the card captures one CUDA graph and replays
+    it: pred and every saliency map equal the eager flux_forward bit for
+    bit, on the inputs it captured with and on new ones; an earlier output
+    is not overwritten by a later replay."""
+    from conceptattention_torch.models.flux.dit import flux_forward, make_jitted_forward
+
+    cfg, params, inputs = small_flux_forward_inputs(dev, 1)
+    _, _, other = small_flux_forward_inputs(dev, 2)
+    fwd = make_jitted_forward(cfg)
+    with torch.no_grad():
+        eager = [flux_forward(params, cfg, **x) for x in (inputs, other)]
+    got = [fwd(params, **x) for x in (inputs, other)]
+    torch.cuda.synchronize()
+    assert len(fwd.graphs) == 1
+    for (gp, gs), (ep, es) in zip(got, eager):
+        assert torch.equal(gp, ep)
+        assert gs.keys() == es.keys() and all(torch.equal(gs[k], es[k]) for k in es)
+    assert not torch.equal(got[0][0], got[1][0])
+
+
+def test_graphed_forward_replay_moves_launch_counts(dev):
+    """A replay adds the launches its graph holds to kernels.launch_counts,
+    the same as an eager forward's: one K1 launch a block, all of them
+    instance 0 at head dim 128."""
+    from conceptattention_torch.kernels import launch_counts
+    from conceptattention_torch.models.flux.dit import flux_forward, make_jitted_forward
+
+    cfg, params, inputs = small_flux_forward_inputs(dev, 3)
+    fwd = make_jitted_forward(cfg)
+    fwd(params, **inputs)
+    (replay,) = fwd.graphs.values()
+
+    def delta(run):
+        before = launch_counts()
+        run()
+        torch.cuda.synchronize()
+        return {k: v - before[k] for k, v in launch_counts().items()}
+
+    with torch.no_grad():
+        eager = delta(lambda: flux_forward(params, cfg, **inputs))
+    replayed = delta(lambda: fwd(params, **inputs))
+    blocks = cfg.depth + cfg.depth_single_blocks
+    instance0 = f"flash_saliency (Hopper D=128 instance 0 {fs.FLASH_D128_INSTANCES[0]})"
+    assert replayed == eager == replay.launches
+    assert replayed["flash_saliency"] == replayed[instance0] == blocks
+
+
+def test_device_trace_sees_the_card_after_graph_replays(dev, tmp_path):
+    """torch.profiler sessions after CUDA graphs were captured and replayed
+    under earlier sessions each record the card's kernels: a graph and a
+    traced replay, a second graph and its traced replay, then an eager
+    forward in a third session (the order in which such a session once
+    recorded nothing). `device_trace` raises on an empty card trace."""
+    from conceptattention_torch.models.flux.dit import flux_forward, make_jitted_forward
+    from conceptattention_torch.utils.profiling import device_trace, kernel_events
+
+    cfg, params, inputs = small_flux_forward_inputs(dev, 4)
+
+    def traced(run, session):
+        log_dir = str(tmp_path / f"session{session}")
+        with torch.no_grad(), device_trace(log_dir):
+            run()
+            torch.cuda.synchronize()
+        return kernel_events(f"{log_dir}/trace.json")
+
+    graphs = []
+    for session in range(2):
+        graphs.append(make_jitted_forward(cfg))
+        graphs[-1](params, **inputs)  # the capture, outside any session
+        assert traced(lambda: graphs[-1](params, **inputs), session) > 0
+    assert traced(lambda: flux_forward(params, cfg, **inputs), 2) > 0

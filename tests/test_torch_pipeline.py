@@ -264,7 +264,9 @@ def test_import_leaves_out_jax():
     client imports `requests` only when it makes a request. The training
     modules and checkpoints are held to the same, and so are the parallel
     package, the profiling utilities, the video writers (PIL and matplotlib
-    only when they write) and the video experiment."""
+    only when they write) and the video experiment, and so are the instance
+    autotuner, the demos (gradio, streamlit and PIL only when a page is
+    built) and the quickstarts."""
     modules = ("conceptattention_torch, conceptattention_torch.pipeline.concept_pipeline, "
                "conceptattention_torch.weights.convert, conceptattention_torch.models.text.t5, "
                "conceptattention_torch.models.text.clip, conceptattention_torch.models.text.encoders, "
@@ -304,7 +306,15 @@ def test_import_leaves_out_jax():
                "conceptattention_torch.parallel.pipeline, conceptattention_torch.parallel.moe, "
                "conceptattention_torch.utils.profiling, conceptattention_torch.utils.video_utils, "
                "conceptattention_torch.experiments.run_video_concept_attention, "
-               "chip_smoke, probe_parallel")
+               "conceptattention_torch.kernels.autotune, conceptattention_torch.demo, "
+               "conceptattention_torch.demo_st, conceptattention_torch.examples, "
+               "conceptattention_torch.examples.example_generated_image, "
+               "conceptattention_torch.examples.example_encoded_image, "
+               "conceptattention_torch.examples.int8_serving, "
+               "conceptattention_torch.examples.lora_finetune, "
+               "conceptattention_torch.examples.fsdp_train, "
+               "conceptattention_torch.examples.multichip_inference, "
+               "chip_smoke, probe_parallel, probe_trace")
     code = (f"import sys, {modules}; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
             "'conceptattention_tpu', 'safetensors', 'transformers', 'h5py', 'PIL', "

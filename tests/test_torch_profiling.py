@@ -12,6 +12,7 @@ import os
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from conceptattention_torch.config import FluxConfig
@@ -115,3 +116,24 @@ def test_device_trace_writes_a_chrome_trace(tmp_path):
         events = json.load(f)["traceEvents"]
     assert any("mm" in e.get("name", "") for e in events)
     assert prof.key_averages()
+
+
+def test_device_trace_refuses_a_card_trace_without_kernels(tmp_path, monkeypatch):
+    """Where the card is traced, a trace with no kernel event raises rather
+    than passing an empty device trace on. The CPU build cannot trace a
+    card: a profiler that drops the CUDA activity stands in for a card
+    session that recorded nothing."""
+    real = torch.profiler.profile
+
+    def recording_nothing_on_the_card(activities, **kw):
+        assert torch.profiler.ProfilerActivity.CUDA in activities
+        return real(activities=[a for a in activities
+                                if a != torch.profiler.ProfilerActivity.CUDA], **kw)
+
+    monkeypatch.setattr(t_prof.torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.profiler, "profile", recording_nothing_on_the_card)
+    monkeypatch.setattr(t_prof, "_prologue", lambda: None)  # its kernels need the card
+    with pytest.raises(RuntimeError, match="left no kernel event"):
+        with t_prof.device_trace(str(tmp_path)):
+            torch.randn(64, 64) @ torch.randn(64, 64)
+    assert t_prof.kernel_events(os.path.join(tmp_path, "trace.json")) == 0
