@@ -34,6 +34,7 @@ from conceptattention_torch.ops.rope import embed_nd
 from conceptattention_torch.parallel.collectives import Sharded
 from conceptattention_torch.parallel.mesh import AXES
 from conceptattention_torch.parallel.sharding import rank_tree, restrict_tree, tree_mesh
+from conceptattention_torch.utils.profiling import DIT_FORWARD, span
 
 
 def _conditioning_vector(params, cfg: FluxConfig, timesteps, guidance, y):
@@ -123,12 +124,14 @@ def flux_forward(
                   guidance=guidance, concepts=concepts, concept_ids=concept_ids,
                   concept_vec=concept_vec)
     controlnet = (controlnet_block_samples, controlnet_single_block_samples)
-    mesh = tree_mesh(params)
-    if mesh is None:
-        return _forward(params, lambda key, i: layer(params[key], i), None, cfg, inputs, controlnet,
-                        controlnet_blocks_repeat, stop_after_multimodal_attentions, spec, remat)
-    return _sharded_forward(params, mesh, cfg, inputs, controlnet, controlnet_blocks_repeat,
-                            stop_after_multimodal_attentions, spec, remat)
+    with span(DIT_FORWARD):
+        mesh = tree_mesh(params)
+        if mesh is None:
+            return _forward(params, lambda key, i: layer(params[key], i), None, cfg, inputs,
+                            controlnet, controlnet_blocks_repeat, stop_after_multimodal_attentions,
+                            spec, remat)
+        return _sharded_forward(params, mesh, cfg, inputs, controlnet, controlnet_blocks_repeat,
+                                stop_after_multimodal_attentions, spec, remat)
 
 
 def _sharded_forward(params, mesh, cfg, inputs, controlnet, repeat, stop_after, spec, remat):
@@ -299,14 +302,15 @@ class _Replay:
     def __call__(self, kwargs):
         from conceptattention_torch.kernels import add_launches
 
-        for k, v in kwargs.items():
-            if isinstance(v, torch.Tensor):
-                self.inputs[k].copy_(v)
-        self.graph.replay()
-        add_launches(self.launches)
-        pred, saliency = self.outputs
-        return (None if pred is None else pred.clone(),
-                {k: v.clone() for k, v in saliency.items()})
+        with span(DIT_FORWARD):
+            for k, v in kwargs.items():
+                if isinstance(v, torch.Tensor):
+                    self.inputs[k].copy_(v)
+            self.graph.replay()
+            add_launches(self.launches)
+            pred, saliency = self.outputs
+            return (None if pred is None else pred.clone(),
+                    {k: v.clone() for k, v in saliency.items()})
 
 
 def make_jitted_forward(cfg: FluxConfig, **static_kwargs):

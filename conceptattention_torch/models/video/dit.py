@@ -43,6 +43,7 @@ from conceptattention_torch.ops.attention import (
     similarity_map_heads,
 )
 from conceptattention_torch.ops.rope import apply_rope, embed_nd
+from conceptattention_torch.utils.profiling import DIT_FORWARD, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -291,58 +292,59 @@ def video_dit_forward(
     Returns (pred [B, F, C_out, H, W], saliency {tap: [depth, B, C, F*P] f32},
     empty without concepts).
     """
-    b, f, _, h, w = video.shape
-    p = cfg.patch_size
-    t_len = text.shape[1]
-    dev = video.device
+    with span(DIT_FORWARD):
+        b, f, _, h, w = video.shape
+        p = cfg.patch_size
+        t_len = text.shape[1]
+        dev = video.device
 
-    temb = _timestep_embedding(timestep, cfg.hidden_size, cfg.flip_sin_to_cos,
-                               cfg.freq_shift).to(video.dtype)
-    temb = _linear(F.silu(_linear(temb, params["time_lin1"])), params["time_lin2"])
+        temb = _timestep_embedding(timestep, cfg.hidden_size, cfg.flip_sin_to_cos,
+                                   cfg.freq_shift).to(video.dtype)
+        temb = _linear(F.silu(_linear(temb, params["time_lin1"])), params["time_lin2"])
 
-    tokens = _linear(patchify_latents(video, p), params["patch_proj"])
-    text = _linear(text, params["text_proj"])
-    has_concepts = concepts is not None
-    if has_concepts:
-        concepts = _linear(concepts, params["text_proj"])
-
-    if not cfg.use_rotary_positional_embeddings:
-        pos = cogvideox_pos_embedding(cfg).to(dev, tokens.dtype)
-        t0 = cfg.max_text_seq_length
-        tokens = tokens + pos[:, t0 : t0 + tokens.shape[1]]
-        text = text + pos[:, :t_len]
+        tokens = _linear(patchify_latents(video, p), params["patch_proj"])
+        text = _linear(text, params["text_proj"])
+        has_concepts = concepts is not None
         if has_concepts:
-            concepts = concepts + pos[:, : concepts.shape[1]]
+            concepts = _linear(concepts, params["text_proj"])
 
-    if video_ids is None:
-        video_ids = make_video_ids(f, h // p, w // p, batch_size=b, device=dev)
-    if not cfg.use_rotary_positional_embeddings:
-        # No RoPE in the 2B model: zero ids make the rotation the identity, so
-        # one code path serves both variants.
-        video_ids = torch.zeros_like(video_ids)
-    axes, theta = cfg.rope_axes_dim, 10_000
-    text_ids = torch.zeros((b, t_len, 3), dtype=torch.float32, device=dev)
-    pe = embed_nd(torch.cat([text_ids, video_ids], dim=1), axes, theta)
-    concept_pe = None
-    if has_concepts:
-        concept_ids = torch.zeros((b, concepts.shape[1], 3), dtype=torch.float32, device=dev)
-        concept_pe = embed_nd(torch.cat([concept_ids, video_ids], dim=1), axes, theta)
+        if not cfg.use_rotary_positional_embeddings:
+            pos = cogvideox_pos_embedding(cfg).to(dev, tokens.dtype)
+            t0 = cfg.max_text_seq_length
+            tokens = tokens + pos[:, t0 : t0 + tokens.shape[1]]
+            text = text + pos[:, :t_len]
+            if has_concepts:
+                concepts = concepts + pos[:, : concepts.shape[1]]
 
-    per_layer = []
-    for i in range(cfg.num_layers):
-        tokens, text, concepts, saliency = _video_block(
-            layer(params["blocks"], i), cfg, tokens, text, concepts, temb, pe, concept_pe, spec
-        )
-        per_layer.append(saliency)
-    saliency = {k: torch.stack([s[k] for s in per_layer]) for k in per_layer[0]}
+        if video_ids is None:
+            video_ids = make_video_ids(f, h // p, w // p, batch_size=b, device=dev)
+        if not cfg.use_rotary_positional_embeddings:
+            # No RoPE in the 2B model: zero ids make the rotation the identity, so
+            # one code path serves both variants.
+            video_ids = torch.zeros_like(video_ids)
+        axes, theta = cfg.rope_axes_dim, 10_000
+        text_ids = torch.zeros((b, t_len, 3), dtype=torch.float32, device=dev)
+        pe = embed_nd(torch.cat([text_ids, video_ids], dim=1), axes, theta)
+        concept_pe = None
+        if has_concepts:
+            concept_ids = torch.zeros((b, concepts.shape[1], 3), dtype=torch.float32, device=dev)
+            concept_pe = embed_nd(torch.cat([concept_ids, video_ids], dim=1), axes, theta)
 
-    tokens = _ln(tokens, params["norm_final"]["w"], params["norm_final"]["b"], cfg.norm_eps)
-    mod = _linear(F.silu(temb), params["norm_out_lin"])
-    shift, scale = mod.chunk(2, dim=-1)
-    tokens = _ln(tokens, params["norm_out_ln"]["w"], params["norm_out_ln"]["b"],
-                 cfg.norm_eps) * (1 + scale[:, None]) + shift[:, None]
-    tokens = _linear(tokens, params["proj_out"])
-    return unpatchify_latents(tokens, f, h, w, cfg.out_channels, p), saliency
+        per_layer = []
+        for i in range(cfg.num_layers):
+            tokens, text, concepts, saliency = _video_block(
+                layer(params["blocks"], i), cfg, tokens, text, concepts, temb, pe, concept_pe, spec
+            )
+            per_layer.append(saliency)
+        saliency = {k: torch.stack([s[k] for s in per_layer]) for k in per_layer[0]}
+
+        tokens = _ln(tokens, params["norm_final"]["w"], params["norm_final"]["b"], cfg.norm_eps)
+        mod = _linear(F.silu(temb), params["norm_out_lin"])
+        shift, scale = mod.chunk(2, dim=-1)
+        tokens = _ln(tokens, params["norm_out_ln"]["w"], params["norm_out_ln"]["b"],
+                     cfg.norm_eps) * (1 + scale[:, None]) + shift[:, None]
+        tokens = _linear(tokens, params["proj_out"])
+        return unpatchify_latents(tokens, f, h, w, cfg.out_channels, p), saliency
 
 
 def init_video_dit_params(

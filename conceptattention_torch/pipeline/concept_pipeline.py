@@ -70,6 +70,15 @@ from conceptattention_torch.parallel.sharding import shard_params
 from conceptattention_torch.pipeline.heatmaps import heatmaps_to_pil, reduce_maps
 from conceptattention_torch.sampling.rectified_flow import denoise, forward_noise, get_noise
 from conceptattention_torch.utils.images import as_float01_chw
+from conceptattention_torch.utils.profiling import (
+    CALL_ENCODE_IMAGES,
+    CALL_GENERATE_IMAGES,
+    PIPELINE_PREPARE,
+    PIPELINE_TO_HOST,
+    VAE_DECODE,
+    VAE_ENCODE,
+    span,
+)
 from conceptattention_torch.weights.lora import load_lora, merge_loras
 
 # Salt of the VAE reparameterization draw's seed, kept apart from the
@@ -120,13 +129,14 @@ def batched_noise_saliency(
     (samples leading, in the place of the time axis)."""
     _, _, lh, lw = z.shape
     n = num_samples
-    noise = torch.cat([
-        get_noise(
-            torch.Generator(pipe.device).manual_seed(seed + i), 1, height, width, pipe.dtype,
-            channels=pipe.spec.ae_params.z_channels, vae_factor=pipe.vae_factor,
-        )
-        for i in range(n)
-    ])
+    with span(PIPELINE_PREPARE):
+        noise = torch.cat([
+            get_noise(
+                torch.Generator(pipe.device).manual_seed(seed + i), 1, height, width, pipe.dtype,
+                channels=pipe.spec.ae_params.z_channels, vae_factor=pipe.vae_factor,
+            )
+            for i in range(n)
+        ])
     noised = forward_noise(z.expand(n, -1, -1, -1), noise, t)
 
     def bc(a):
@@ -165,13 +175,14 @@ def batched_images_saliency(
     b, _, lh, lw = zs.shape
     n = num_samples
     seeds = _seeds_list(seed, b)
-    eps = torch.cat([
-        get_noise(
-            torch.Generator(pipe.device).manual_seed(seeds[j] + i), 1, height, width, pipe.dtype,
-            channels=pipe.spec.ae_params.z_channels, vae_factor=pipe.vae_factor,
-        )
-        for i in range(n) for j in range(b)
-    ])
+    with span(PIPELINE_PREPARE):
+        eps = torch.cat([
+            get_noise(
+                torch.Generator(pipe.device).manual_seed(seeds[j] + i), 1, height, width,
+                pipe.dtype, channels=pipe.spec.ae_params.z_channels, vae_factor=pipe.vae_factor,
+            )
+            for i in range(n) for j in range(b)
+        ])
 
     def tile(a):
         return a.repeat(n, *([1] * (a.dim() - 1)))
@@ -207,14 +218,16 @@ def _load_flux_params(path: str, cfg, dtype: torch.dtype, mode: Optional[str],
 
 def _vae_decode(ae_params, cfg, latents_packed, h_tokens, w_tokens, dtype=torch.float32):
     """Packed latents -> [B, 3, H, W] pixels through the NHWC decoder at `dtype`."""
-    z = unpack_latents(latents_packed.to(dtype), h_tokens, w_tokens)
-    return vae.decode_nhwc(tree_map(lambda x: x.to(dtype), ae_params), cfg, z)
+    with span(VAE_DECODE):
+        z = unpack_latents(latents_packed.to(dtype), h_tokens, w_tokens)
+        return vae.decode_nhwc(tree_map(lambda x: x.to(dtype), ae_params), cfg, z)
 
 
 def _vae_encode(ae_params, cfg, x, generator: Optional[torch.Generator] = None):
     """[B, 3, H, W] pixels -> scaled latents through the NCHW encoder: the
     posterior mean, or a reparameterized draw from `generator`."""
-    return vae.vae_latents(vae.encoder_apply(ae_params["encoder"], cfg, x), cfg, generator)
+    with span(VAE_ENCODE):
+        return vae.vae_latents(vae.encoder_apply(ae_params["encoder"], cfg, x), cfg, generator)
 
 
 class ConceptAttentionFluxPipeline:
@@ -519,66 +532,73 @@ class ConceptAttentionFluxPipeline:
         num_inference_steps, guidance, timesteps, softmax, attention_norm, cmap,
         return_image_array, watermark, seeds, init_image=None, image2image_strength=0.8,
     ) -> List[ConceptAttentionPipelineOutput]:
-        b = len(prompts)
-        if b == 0:
-            return []
-        if seeds is not None and len(seeds) != b:
-            raise ValueError(f"seeds has {len(seeds)} entries for {b} prompts")
-        layer_indices = self._layer_indices(layer_indices)
-        self._check_size(height, width)
-        if timesteps is None:
-            timesteps = list(range(num_inference_steps))
+        with span(CALL_GENERATE_IMAGES):
+            b = len(prompts)
+            if b == 0:
+                return []
+            if seeds is not None and len(seeds) != b:
+                raise ValueError(f"seeds has {len(seeds)} entries for {b} prompts")
+            layer_indices = self._layer_indices(layer_indices)
+            self._check_size(height, width)
+            if timesteps is None:
+                timesteps = list(range(num_inference_steps))
 
-        def noise_of(s, n):
-            return get_noise(
-                torch.Generator(self.device).manual_seed(int(s)), n, height, width, self.dtype,
-                channels=self.spec.ae_params.z_channels, vae_factor=self.vae_factor,
-            )
-
-        noise = noise_of(seed, b) if seeds is None else torch.cat([noise_of(s, 1) for s in seeds])
-        _, _, lh, lw = noise.shape
-        schedule = get_schedule(
-            num_inference_steps, (lh // 2) * (lw // 2), shift=not self.is_schnell
-        )
-        if init_image is not None:
-            z0 = self._encode_pixels(init_image, height, width, seed)
-            t_idx = max(int((1.0 - image2image_strength) * num_inference_steps), 0)
-            if t_idx >= num_inference_steps:
-                raise ValueError(
-                    f"image2image_strength={image2image_strength} leaves no denoise steps "
-                    "(and so no concept saliency); use a strength above 0, or encode_image() "
-                    "for the heatmaps of an unmodified image"
+            def noise_of(s, n):
+                return get_noise(
+                    torch.Generator(self.device).manual_seed(int(s)), n, height, width,
+                    self.dtype, channels=self.spec.ae_params.z_channels,
+                    vae_factor=self.vae_factor,
                 )
-            t = schedule[t_idx]
-            schedule = schedule[t_idx:]
-            noise = (t * noise.float() + (1.0 - t) * z0.float()).to(noise.dtype)
-            if list(timesteps) == list(range(num_inference_steps)):
-                timesteps = list(range(len(schedule) - 1))
-        txt = self.text_encoders.encode_t5(list(prompts)).to(self.device, self.dtype)
-        vec = self.text_encoders.encode_clip(list(prompts)).to(self.device, self.dtype)
-        txt_ids = torch.zeros((b, txt.shape[1], 3), dtype=torch.float32, device=self.device)
-        c_emb, c_ids, c_vec = self._prepare_concepts(concepts, b)
-        latents, saliency = denoise(
-            self.params, self.cfg, pack_latents(noise),
-            make_img_ids(lh // 2, lw // 2, b, device=self.device),
-            txt, txt_ids, vec, schedule, guidance,
-            concepts=c_emb, concept_ids=c_ids, concept_vec=c_vec, spec=self.attention_spec,
-        )
-        grid = (lh // 2, lw // 2)
-        concept_heatmaps = reduce_maps(
-            saliency["output"], layer_indices, timesteps, softmax, attention_norm, grid
-        )
-        cross_attention_maps = reduce_maps(
-            saliency["cross_attention"], layer_indices, timesteps, softmax, attention_norm, grid
-        )
-        return [
-            self._package_output(
-                self._decode_image(latents[i : i + 1], grid, watermark, return_image_array),
-                concept_heatmaps[i : i + 1], cross_attention_maps[i : i + 1],
-                return_pil_heatmaps, cmap,
+
+            with span(PIPELINE_PREPARE):
+                noise = (noise_of(seed, b) if seeds is None
+                         else torch.cat([noise_of(s, 1) for s in seeds]))
+            _, _, lh, lw = noise.shape
+            schedule = get_schedule(
+                num_inference_steps, (lh // 2) * (lw // 2), shift=not self.is_schnell
             )
-            for i in range(b)
-        ]
+            if init_image is not None:
+                z0 = self._encode_pixels(init_image, height, width, seed)
+                t_idx = max(int((1.0 - image2image_strength) * num_inference_steps), 0)
+                if t_idx >= num_inference_steps:
+                    raise ValueError(
+                        f"image2image_strength={image2image_strength} leaves no denoise steps "
+                        "(and so no concept saliency); use a strength above 0, or "
+                        "encode_image() for the heatmaps of an unmodified image"
+                    )
+                t = schedule[t_idx]
+                schedule = schedule[t_idx:]
+                noise = (t * noise.float() + (1.0 - t) * z0.float()).to(noise.dtype)
+                if list(timesteps) == list(range(num_inference_steps)):
+                    timesteps = list(range(len(schedule) - 1))
+            with span(PIPELINE_PREPARE):
+                txt = self.text_encoders.encode_t5(list(prompts)).to(self.device, self.dtype)
+                vec = self.text_encoders.encode_clip(list(prompts)).to(self.device, self.dtype)
+                txt_ids = torch.zeros((b, txt.shape[1], 3), dtype=torch.float32,
+                                      device=self.device)
+                c_emb, c_ids, c_vec = self._prepare_concepts(concepts, b)
+            latents, saliency = denoise(
+                self.params, self.cfg, pack_latents(noise),
+                make_img_ids(lh // 2, lw // 2, b, device=self.device),
+                txt, txt_ids, vec, schedule, guidance,
+                concepts=c_emb, concept_ids=c_ids, concept_vec=c_vec, spec=self.attention_spec,
+            )
+            grid = (lh // 2, lw // 2)
+            concept_heatmaps = reduce_maps(
+                saliency["output"], layer_indices, timesteps, softmax, attention_norm, grid
+            )
+            cross_attention_maps = reduce_maps(
+                saliency["cross_attention"], layer_indices, timesteps, softmax, attention_norm,
+                grid,
+            )
+            return [
+                self._package_output(
+                    self._decode_image(latents[i : i + 1], grid, watermark, return_image_array),
+                    concept_heatmaps[i : i + 1], cross_attention_maps[i : i + 1],
+                    return_pil_heatmaps, cmap,
+                )
+                for i in range(b)
+            ]
 
     def _decode_image(self, latents, grid, watermark: bool, return_image_array: bool):
         """Packed latents of one image -> HWC uint8 array (or PIL image),
@@ -620,30 +640,32 @@ class ConceptAttentionFluxPipeline:
     ) -> ConceptAttentionPipelineOutput:
         """Concept heatmaps of a real image: VAE-encode, forward-noise to
         `noise_timestep`, one DiT forward stopping after the double blocks."""
-        layer_indices = self._layer_indices(layer_indices)
-        self._check_size(height, width)
-        z = self._encode_pixels(image, height, width, seed)
-        txt, txt_ids, _ = self._prepare_text(prompt, 1, need_clip=False)
-        c_emb, c_ids, c_vec = self._prepare_concepts(concepts, 1)
-        _, _, lh, lw = z.shape
-        schedule = get_schedule(num_steps, (lh // 2) * (lw // 2), shift=not self.is_schnell)
-        # The encode protocol modulates both streams with the zeroed concept
-        # vector (y = concept_vec), not the prompt's pooled vector.
-        saliency = batched_noise_saliency(
-            self, z, schedule[noise_timestep], num_samples, height, width, seed,
-            txt, txt_ids, c_vec, c_emb, c_ids, c_vec, self.attention_spec,
-            stop_after=stop_after_multi_modal_attentions,
-        )
-        grid = (lh // 2, lw // 2)
-        concept_heatmaps = reduce_maps(
-            saliency["output"], layer_indices, None, softmax, attention_norm, grid
-        )
-        cross_attention_maps = reduce_maps(
-            saliency["cross_attention"], layer_indices, None, softmax, attention_norm, grid
-        )
-        return self._package_output(
-            image, concept_heatmaps, cross_attention_maps, return_pil_heatmaps, cmap
-        )
+        with span(CALL_ENCODE_IMAGES):
+            layer_indices = self._layer_indices(layer_indices)
+            self._check_size(height, width)
+            z = self._encode_pixels(image, height, width, seed)
+            with span(PIPELINE_PREPARE):
+                txt, txt_ids, _ = self._prepare_text(prompt, 1, need_clip=False)
+                c_emb, c_ids, c_vec = self._prepare_concepts(concepts, 1)
+            _, _, lh, lw = z.shape
+            schedule = get_schedule(num_steps, (lh // 2) * (lw // 2), shift=not self.is_schnell)
+            # The encode protocol modulates both streams with the zeroed concept
+            # vector (y = concept_vec), not the prompt's pooled vector.
+            saliency = batched_noise_saliency(
+                self, z, schedule[noise_timestep], num_samples, height, width, seed,
+                txt, txt_ids, c_vec, c_emb, c_ids, c_vec, self.attention_spec,
+                stop_after=stop_after_multi_modal_attentions,
+            )
+            grid = (lh // 2, lw // 2)
+            concept_heatmaps = reduce_maps(
+                saliency["output"], layer_indices, None, softmax, attention_norm, grid
+            )
+            cross_attention_maps = reduce_maps(
+                saliency["cross_attention"], layer_indices, None, softmax, attention_norm, grid
+            )
+            return self._package_output(
+                image, concept_heatmaps, cross_attention_maps, return_pil_heatmaps, cmap
+            )
 
     # ------------------------------------------------------------------
     @torch.inference_mode()
@@ -672,61 +694,65 @@ class ConceptAttentionFluxPipeline:
         per image; `seeds` one int or one per image. The outputs are those of
         B separate `encode_image` calls: each image draws its VAE noise and
         its forward noise from its own generators."""
-        b = len(images)
-        if b == 0:
-            return []
-        if concepts and isinstance(concepts[0], str):
-            concepts_list = [list(concepts)] * b
-        else:
-            concepts_list = [list(c) for c in concepts]
-            if len(concepts_list) != b:
-                raise ValueError(f"{len(concepts_list)} concept lists for {b} images")
-        if len({len(c) for c in concepts_list}) != 1:
-            raise ValueError("per-image concept lists must share a length in one batch")
-        if prompts is None:
-            prompts = [""] * b
-        elif isinstance(prompts, str):
-            prompts = [prompts] * b
-        if len(prompts) != b:
-            raise ValueError(f"{len(prompts)} prompts for {b} images")
-        seeds = _seeds_list(0 if seeds is None else seeds, b)
-        layer_indices = self._layer_indices(layer_indices)
-        self._check_size(height, width)
+        with span(CALL_ENCODE_IMAGES):
+            b = len(images)
+            if b == 0:
+                return []
+            if concepts and isinstance(concepts[0], str):
+                concepts_list = [list(concepts)] * b
+            else:
+                concepts_list = [list(c) for c in concepts]
+                if len(concepts_list) != b:
+                    raise ValueError(f"{len(concepts_list)} concept lists for {b} images")
+            if len({len(c) for c in concepts_list}) != 1:
+                raise ValueError("per-image concept lists must share a length in one batch")
+            if prompts is None:
+                prompts = [""] * b
+            elif isinstance(prompts, str):
+                prompts = [prompts] * b
+            if len(prompts) != b:
+                raise ValueError(f"{len(prompts)} prompts for {b} images")
+            seeds = _seeds_list(0 if seeds is None else seeds, b)
+            layer_indices = self._layer_indices(layer_indices)
+            self._check_size(height, width)
 
-        zs = self._encode_pixels_batch(images, height, width, seeds)
-        _, _, lh, lw = zs.shape
-        schedule = get_schedule(num_steps, (lh // 2) * (lw // 2), shift=not self.is_schnell)
-        txts = self.text_encoders.encode_t5(list(prompts)).to(self.device, self.dtype)
-        txt_ids = torch.zeros((b, txts.shape[1], 3), dtype=torch.float32, device=self.device)
-        c_embs, c_ids, c_vecs = (torch.cat(parts) for parts in zip(
-            *(self._prepare_concepts(c, 1) for c in concepts_list)))
-        # y is the zeroed concept vector, as in encode_image
-        saliency = batched_images_saliency(
-            self, zs, schedule[noise_timestep], num_samples, height, width, seeds,
-            txts, txt_ids, c_vecs, c_embs, c_ids, c_vecs, self.attention_spec,
-            stop_after=stop_after_multi_modal_attentions,
-        )
-        grid = (lh // 2, lw // 2)
-        outputs = []
-        for i in range(b):
-            sal = {k: a[i][:, :, None] for k, a in saliency.items()}  # [N, L, 1, C, P]
-            outputs.append(self._package_output(
-                images[i],
-                reduce_maps(sal["output"], layer_indices, None, softmax, attention_norm, grid),
-                reduce_maps(sal["cross_attention"], layer_indices, None, softmax,
-                            attention_norm, grid),
-                return_pil_heatmaps, cmap,
-            ))
-        return outputs
+            zs = self._encode_pixels_batch(images, height, width, seeds)
+            _, _, lh, lw = zs.shape
+            schedule = get_schedule(num_steps, (lh // 2) * (lw // 2), shift=not self.is_schnell)
+            with span(PIPELINE_PREPARE):
+                txts = self.text_encoders.encode_t5(list(prompts)).to(self.device, self.dtype)
+                txt_ids = torch.zeros((b, txts.shape[1], 3), dtype=torch.float32,
+                                      device=self.device)
+                c_embs, c_ids, c_vecs = (torch.cat(parts) for parts in zip(
+                    *(self._prepare_concepts(c, 1) for c in concepts_list)))
+            # y is the zeroed concept vector, as in encode_image
+            saliency = batched_images_saliency(
+                self, zs, schedule[noise_timestep], num_samples, height, width, seeds,
+                txts, txt_ids, c_vecs, c_embs, c_ids, c_vecs, self.attention_spec,
+                stop_after=stop_after_multi_modal_attentions,
+            )
+            grid = (lh // 2, lw // 2)
+            outputs = []
+            for i in range(b):
+                sal = {k: a[i][:, :, None] for k, a in saliency.items()}  # [N, L, 1, C, P]
+                outputs.append(self._package_output(
+                    images[i],
+                    reduce_maps(sal["output"], layer_indices, None, softmax, attention_norm, grid),
+                    reduce_maps(sal["cross_attention"], layer_indices, None, softmax,
+                                attention_norm, grid),
+                    return_pil_heatmaps, cmap,
+                ))
+            return outputs
 
     # ------------------------------------------------------------------
     def _resize_pixels(self, image, height: int, width: int) -> torch.Tensor:
         """PIL / array -> [1, 3, H, W] f32 in [-1, 1], resized bilinearly with
         antialiasing when downsampling (as `jax.image.resize` does)."""
-        x = torch.from_numpy(2.0 * as_float01_chw(image) - 1.0)[None].to(self.device)
-        return F.interpolate(
-            x, size=(height, width), mode="bilinear", antialias=True, align_corners=False
-        )
+        with span(PIPELINE_PREPARE):
+            x = torch.from_numpy(2.0 * as_float01_chw(image) - 1.0)[None].to(self.device)
+            return F.interpolate(
+                x, size=(height, width), mode="bilinear", antialias=True, align_corners=False
+            )
 
     def _encode_pixels(self, image, height: int, width: int, seed: int,
                        sample: bool = True) -> torch.Tensor:
@@ -753,17 +779,19 @@ class ConceptAttentionFluxPipeline:
     def _pixels_to_uint8(p: torch.Tensor) -> np.ndarray:
         """[3, H, W] decode output -> HWC uint8 (f32 upcast first, so a bf16
         decode maps to 0..255 exactly as an f32 one)."""
-        x = torch.clamp(p.float(), -1.0, 1.0)
-        return ((x + 1.0) * 127.5).permute(1, 2, 0).cpu().numpy().astype(np.uint8)
+        with span(PIPELINE_TO_HOST):
+            x = torch.clamp(p.float(), -1.0, 1.0)
+            return ((x + 1.0) * 127.5).permute(1, 2, 0).cpu().numpy().astype(np.uint8)
 
     def _package_output(
         self, image, concept_heatmaps, cross_attention_maps, return_pil: bool, cmap: str
     ) -> ConceptAttentionPipelineOutput:
-        concept_heatmaps = concept_heatmaps.float().cpu().numpy()[0]
-        cross_attention_maps = cross_attention_maps.float().cpu().numpy()[0]
-        if return_pil:
-            concept_heatmaps = heatmaps_to_pil(concept_heatmaps, cmap)
-            cross_attention_maps = heatmaps_to_pil(cross_attention_maps, cmap)
+        with span(PIPELINE_TO_HOST):
+            concept_heatmaps = concept_heatmaps.float().cpu().numpy()[0]
+            cross_attention_maps = cross_attention_maps.float().cpu().numpy()[0]
+            if return_pil:
+                concept_heatmaps = heatmaps_to_pil(concept_heatmaps, cmap)
+                cross_attention_maps = heatmaps_to_pil(cross_attention_maps, cmap)
         return ConceptAttentionPipelineOutput(
             image=image,
             concept_heatmaps=concept_heatmaps,

@@ -15,6 +15,7 @@ from typing import List, Optional, Sequence
 import torch
 
 from conceptattention_torch.ops.sparse import entmax15, sparsemax
+from conceptattention_torch.utils.profiling import PIPELINE_REDUCE_MAPS, span
 
 
 def normalize_concepts_linear(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -58,20 +59,21 @@ def reduce_maps(
     """[T, L, B, C, P] raw similarity maps -> [B, C, h, w] heatmaps: normalize
     over concepts, select timesteps and layers, then average.
     `softmax=True` overrides attention_norm."""
-    norm = "softmax" if (softmax or attention_norm == "softmax") else attention_norm
-    maps = apply_attention_norm(maps.float(), norm, dim=-2)
-    if timesteps is not None:
-        maps = maps[_checked_index(timesteps, maps.shape[0], "timesteps", maps.device)]
-    maps = maps[:, _checked_index(layer_indices, maps.shape[1], "layer_indices", maps.device)]
-    maps = maps.mean(dim=(0, 1))
-    b, c, p = maps.shape
-    if spatial_shape is None:
-        side = int(round(p**0.5))
-        spatial_shape = (side, side)
-    h, w = spatial_shape
-    if h * w != p:
-        raise ValueError(f"spatial_shape {spatial_shape} does not hold {p} patches")
-    return maps.reshape(b, c, h, w)
+    with span(PIPELINE_REDUCE_MAPS):
+        norm = "softmax" if (softmax or attention_norm == "softmax") else attention_norm
+        maps = apply_attention_norm(maps.float(), norm, dim=-2)
+        if timesteps is not None:
+            maps = maps[_checked_index(timesteps, maps.shape[0], "timesteps", maps.device)]
+        maps = maps[:, _checked_index(layer_indices, maps.shape[1], "layer_indices", maps.device)]
+        maps = maps.mean(dim=(0, 1))
+        b, c, p = maps.shape
+        if spatial_shape is None:
+            side = int(round(p**0.5))
+            spatial_shape = (side, side)
+        h, w = spatial_shape
+        if h * w != p:
+            raise ValueError(f"spatial_shape {spatial_shape} does not hold {p} patches")
+        return maps.reshape(b, c, h, w)
 
 
 def compute_heatmaps_from_vectors(

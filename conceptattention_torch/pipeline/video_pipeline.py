@@ -46,6 +46,15 @@ from conceptattention_torch.ops.quant import (
 from conceptattention_torch.pipeline.concept_pipeline import _full_f32
 from conceptattention_torch.sampling.ddim import DDIMSchedule, ddim_step, make_ddim_schedule
 from conceptattention_torch.sampling.dpm import dpm_init, dpm_step
+from conceptattention_torch.utils.profiling import (
+    CALL_GENERATE_VIDEO,
+    PIPELINE_PREPARE,
+    PIPELINE_REDUCE_MAPS,
+    PIPELINE_TO_HOST,
+    SAMPLER_DENOISE,
+    VAE_DECODE,
+    span,
+)
 from conceptattention_torch.weights.convert import load_safetensors
 from conceptattention_torch.weights.lora import convert_cogvideox_lora_state_dict, merge_loras
 
@@ -96,19 +105,20 @@ def _cfg_denoise(
         reduced = {k: _reduce_step_maps(v, layer_indices, n_concepts) for k, v in saliency.items()}
         return uncond + guidance_scale * (cond - uncond), reduced
 
-    per_step = []
-    state = dpm_init(latents) if scheduler == "dpm" else None
-    for t in (int(t) for t in timesteps_idx):
+    with span(SAMPLER_DENOISE):
+        per_step = []
+        state = dpm_init(latents) if scheduler == "dpm" else None
+        for t in (int(t) for t in timesteps_idx):
+            if state is not None:
+                guided, reduced = guided_pred(state.sample, t)
+                state = dpm_step(sched, state, guided, t, t - step_gap)
+            else:
+                guided, reduced = guided_pred(latents, t)
+                latents = ddim_step(sched, guided, t, t - step_gap, latents)
+            per_step.append(reduced)
         if state is not None:
-            guided, reduced = guided_pred(state.sample, t)
-            state = dpm_step(sched, state, guided, t, t - step_gap)
-        else:
-            guided, reduced = guided_pred(latents, t)
-            latents = ddim_step(sched, guided, t, t - step_gap, latents)
-        per_step.append(reduced)
-    if state is not None:
-        latents = state.sample
-    return latents, {k: torch.stack([s[k] for s in per_step]) for k in per_step[0]}
+            latents = state.sample
+        return latents, {k: torch.stack([s[k] for s in per_step]) for k in per_step[0]}
 
 
 class VideoConceptAttentionPipeline:
@@ -178,11 +188,13 @@ class VideoConceptAttentionPipeline:
         """[B, F, C, h, w] DiT latents -> uint8 frames [F', h*8, w*8, 3] of
         the first clip through the 3D causal VAE in f32 (odd F gives
         F' = 1 + (F-1)*4, the first latent frame decoding to one frame)."""
-        vae_cfg, vae_params = self._vae()
-        z = latents.to(self.device, torch.float32).transpose(1, 2)
-        pixels = vvae.decode(vae_params, vae_cfg, z)
-        x = torch.clamp(pixels[0], -1.0, 1.0)
-        return ((x + 1.0) * 127.5).permute(1, 2, 3, 0).cpu().numpy().astype(np.uint8)
+        with span(VAE_DECODE):
+            vae_cfg, vae_params = self._vae()
+            z = latents.to(self.device, torch.float32).transpose(1, 2)
+            pixels = vvae.decode(vae_params, vae_cfg, z)
+            x = torch.clamp(pixels[0], -1.0, 1.0)
+        with span(PIPELINE_TO_HOST):
+            return ((x + 1.0) * 127.5).permute(1, 2, 3, 0).cpu().numpy().astype(np.uint8)
 
     def encode_concepts(self, concepts: List[str], seq_length: Optional[int] = None):
         """First T5 token per concept, zero-padded to seq_length -> [1, seq_length, D]."""
@@ -242,47 +254,54 @@ class VideoConceptAttentionPipeline:
     ) -> VideoConceptPipelineOutput:
         """CFG DDIM / DPM-Solver++ 2M sampling; returns the latents and
         [C, F, h, w] maps. height/width are LATENT sizes (before patchify)."""
-        cfg = self.cfg
-        if height % cfg.patch_size or width % cfg.patch_size:
-            raise ValueError(
-                f"latent height/width ({height}x{width}) must be divisible by "
-                f"patch_size={cfg.patch_size}"
+        with span(CALL_GENERATE_VIDEO):
+            cfg = self.cfg
+            if height % cfg.patch_size or width % cfg.patch_size:
+                raise ValueError(
+                    f"latent height/width ({height}x{width}) must be divisible by "
+                    f"patch_size={cfg.patch_size}"
+                )
+            if layer_indices is None:
+                layer_indices = list(range(cfg.num_layers))
+            self._check_indices(layer_indices, concept_timesteps, num_inference_steps)
+
+            f, h, w = num_frames, height, width
+            with span(PIPELINE_PREPARE):
+                text_cond = self._encode_text(prompt)
+                text_uncond = self._encode_text(negative_prompt)
+                concepts_emb = self.encode_concepts(concepts)
+                latents = torch.randn(
+                    (1, f, cfg.in_channels, h, w),
+                    generator=torch.Generator(self.device).manual_seed(seed),
+                    device=self.device, dtype=torch.float32,
+                ).to(self.dtype)
+
+            taps = ("output", "cross_attention") if return_cross_attention else ("output",)
+            sched = make_ddim_schedule(num_inference_steps)
+            latents, saliency = _cfg_denoise(
+                self.params, cfg, latents, text_cond, text_uncond, concepts_emb,
+                sched.timesteps, sched.alphas_cumprod.to(self.device), sched.final_alpha_cumprod,
+                guidance_scale, ConceptAttentionSpec(taps=taps), 1000, scheduler,
+                tuple(layer_indices), len(concepts),
             )
-        if layer_indices is None:
-            layer_indices = list(range(cfg.num_layers))
-        self._check_indices(layer_indices, concept_timesteps, num_inference_steps)
 
-        text_cond = self._encode_text(prompt)
-        text_uncond = self._encode_text(negative_prompt)
-        concepts_emb = self.encode_concepts(concepts)
-        f, h, w = num_frames, height, width
-        latents = torch.randn(
-            (1, f, cfg.in_channels, h, w), generator=torch.Generator(self.device).manual_seed(seed),
-            device=self.device, dtype=torch.float32,
-        ).to(self.dtype)
+            gh, gw = h // cfg.patch_size, w // cfg.patch_size
 
-        taps = ("output", "cross_attention") if return_cross_attention else ("output",)
-        sched = make_ddim_schedule(num_inference_steps)
-        latents, saliency = _cfg_denoise(
-            self.params, cfg, latents, text_cond, text_uncond, concepts_emb,
-            sched.timesteps, sched.alphas_cumprod.to(self.device), sched.final_alpha_cumprod,
-            guidance_scale, ConceptAttentionSpec(taps=taps), 1000, scheduler,
-            tuple(layer_indices), len(concepts),
-        )
+            def finalize(maps, extra_softmax):  # maps: [S, C, F*P], reduced per step
+                with span(PIPELINE_REDUCE_MAPS):
+                    if concept_timesteps is not None:
+                        steps = torch.as_tensor(list(concept_timesteps), device=maps.device)
+                        maps = maps[steps]
+                    if extra_softmax:  # the reference re-softmaxes the sliced cross maps
+                        maps = torch.softmax(maps, dim=-2)
+                    maps = maps.mean(dim=0).reshape(len(concepts), f, gh, gw).float()
+                with span(PIPELINE_TO_HOST):
+                    return maps.cpu().numpy()
 
-        gh, gw = h // cfg.patch_size, w // cfg.patch_size
-
-        def finalize(maps, extra_softmax):  # maps: [S, C, F*P], reduced per step
-            if concept_timesteps is not None:
-                maps = maps[torch.as_tensor(list(concept_timesteps), device=maps.device)]
-            if extra_softmax:  # the reference re-softmaxes the sliced cross maps
-                maps = torch.softmax(maps, dim=-2)
-            return maps.mean(dim=0).reshape(len(concepts), f, gh, gw).float().cpu().numpy()
-
-        return VideoConceptPipelineOutput(
-            video_latents=latents,
-            concept_heatmaps=finalize(saliency["output"], extra_softmax=False),
-            cross_attention_maps=(finalize(saliency["cross_attention"], extra_softmax=True)
-                                  if return_cross_attention else None),
-            video_frames=self.decode_latents(latents) if decode else None,
-        )
+            return VideoConceptPipelineOutput(
+                video_latents=latents,
+                concept_heatmaps=finalize(saliency["output"], extra_softmax=False),
+                cross_attention_maps=(finalize(saliency["cross_attention"], extra_softmax=True)
+                                      if return_cross_attention else None),
+                video_frames=self.decode_latents(latents) if decode else None,
+            )

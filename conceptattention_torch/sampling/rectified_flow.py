@@ -19,6 +19,7 @@ from conceptattention_torch.config import FluxConfig
 from conceptattention_torch.models.flux.dit import flux_forward
 from conceptattention_torch.ops.attention import ConceptAttentionSpec
 from conceptattention_torch.ops.packing import latent_noise_shape, make_img_ids, pack_latents
+from conceptattention_torch.utils.profiling import SAMPLER_DENOISE, span
 
 
 def get_noise(
@@ -110,33 +111,35 @@ def denoise(
 
     Returns (final latents [B, P, C*4], saliency {tap: [S, depth, B, C, P]}).
     """
-    b = img.shape[0]
-    ts = torch.as_tensor(timesteps, dtype=torch.float32, device=img.device)
-    guidance_vec = torch.full((b,), guidance, dtype=torch.float32, device=img.device)
-    per_step = []
-    x = img
-    for i in range(len(timesteps) - 1):
-        t_curr, t_prev = ts[i], ts[i + 1]
-        pred, saliency = flux_forward(
-            params, cfg, img=x, img_ids=img_ids, txt=txt, txt_ids=txt_ids,
-            timesteps=t_curr.expand(b), y=vec,
-            guidance=guidance_vec if cfg.guidance_embed else None,
-            concepts=concepts, concept_ids=concept_ids, concept_vec=concept_vec,
-            spec=spec,
-        )
-        if true_cfg:
-            neg_pred, _ = flux_forward(
-                params, cfg, img=x, img_ids=img_ids, txt=neg_txt, txt_ids=txt_ids,
-                timesteps=t_curr.expand(b), y=neg_vec,
-                guidance=guidance_vec if cfg.guidance_embed else None, spec=spec,
+    with span(SAMPLER_DENOISE):
+        b = img.shape[0]
+        ts = torch.as_tensor(timesteps, dtype=torch.float32, device=img.device)
+        guidance_vec = torch.full((b,), guidance, dtype=torch.float32, device=img.device)
+        per_step = []
+        x = img
+        for i in range(len(timesteps) - 1):
+            t_curr, t_prev = ts[i], ts[i + 1]
+            pred, saliency = flux_forward(
+                params, cfg, img=x, img_ids=img_ids, txt=txt, txt_ids=txt_ids,
+                timesteps=t_curr.expand(b), y=vec,
+                guidance=guidance_vec if cfg.guidance_embed else None,
+                concepts=concepts, concept_ids=concept_ids, concept_vec=concept_vec,
+                spec=spec,
             )
-            pred = neg_pred + guidance_scale * (pred - neg_pred)
-        x = (x.float() + (t_prev - t_curr) * pred.float()).to(x.dtype)
-        if spec.stash_dtype == "bf16":
-            saliency = {k: v.to(torch.bfloat16) for k, v in saliency.items()}
-        per_step.append(saliency)
-    stacked = {k: torch.stack([s[k] for s in per_step]) for k in per_step[0]} if per_step else {}
-    return x, stacked
+            if true_cfg:
+                neg_pred, _ = flux_forward(
+                    params, cfg, img=x, img_ids=img_ids, txt=neg_txt, txt_ids=txt_ids,
+                    timesteps=t_curr.expand(b), y=neg_vec,
+                    guidance=guidance_vec if cfg.guidance_embed else None, spec=spec,
+                )
+                pred = neg_pred + guidance_scale * (pred - neg_pred)
+            x = (x.float() + (t_prev - t_curr) * pred.float()).to(x.dtype)
+            if spec.stash_dtype == "bf16":
+                saliency = {k: v.to(torch.bfloat16) for k, v in saliency.items()}
+            per_step.append(saliency)
+        stacked = ({k: torch.stack([s[k] for s in per_step]) for k in per_step[0]}
+                   if per_step else {})
+        return x, stacked
 
 
 def forward_noise(x: torch.Tensor, noise: torch.Tensor, t: float) -> torch.Tensor:

@@ -3,7 +3,9 @@
 Counterpart of the JAX package's `utils/profiling.py`: a device trace
 (`torch.profiler`, exported as a Chrome / Perfetto trace), named wall-clock
 phases fenced on the device, an operation count, and the per-call time of
-a function measured over repeated calls.
+a function measured over repeated calls. Besides, the spans the port opens
+at its layer boundaries (`span`, `SPANS`), which a profiler session that
+records shows on its host timeline.
 """
 
 from __future__ import annotations
@@ -73,6 +75,38 @@ def device_trace(log_dir: str):
     if card and not kernel_events(path):
         raise RuntimeError(f"device_trace: the card was traced but the block in {path} left no "
                            f"kernel event")
+
+
+# The spans the port opens, one per layer boundary. A call of a pipeline
+# holds its phases (prepare, reduce_maps, to_host), its sampler loop and
+# its VAE passes; the sampler loop holds the DiT forwards.
+CALL_GENERATE_IMAGES = "ca.call.generate_images"
+CALL_ENCODE_IMAGES = "ca.call.encode_images"
+CALL_GENERATE_VIDEO = "ca.call.generate_video"
+PIPELINE_PREPARE = "ca.pipeline.prepare"
+PIPELINE_REDUCE_MAPS = "ca.pipeline.reduce_maps"
+PIPELINE_TO_HOST = "ca.pipeline.to_host"
+SAMPLER_DENOISE = "ca.sampler.denoise"
+DIT_FORWARD = "ca.dit.forward"
+VAE_ENCODE = "ca.vae.encode"
+VAE_DECODE = "ca.vae.decode"
+SPANS = (
+    CALL_GENERATE_IMAGES, CALL_ENCODE_IMAGES, CALL_GENERATE_VIDEO,
+    PIPELINE_PREPARE, PIPELINE_REDUCE_MAPS, PIPELINE_TO_HOST,
+    SAMPLER_DENOISE, DIT_FORWARD, VAE_ENCODE, VAE_DECODE,
+)
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context for the block named `name` (one of SPANS): while a
+    `torch.profiler` session records on the calling thread (a
+    `device_trace` block, say), `torch.profiler.record_function(name)`,
+    whose range the trace shows on the host's timeline; otherwise a shared
+    no-op context, so the block costs one check. Nothing else turns it on."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 def _tensors(tree):
