@@ -27,7 +27,9 @@ Run from the root of a checkout: `python3 chip_smoke.py`. In order it
    the earlier kernel's time on the same input is read beside it; K1b also
    reads its pre-pass alone; K4 also reads its N step
    launches alone (no hops) and checks its f32 running state against the
-   plain step after every step but the last;
+   plain step after every step but the last; the video block's one-pass
+   LayerNorms at the CogVideoX-5b shapes (`layer_norm_phases`, which also
+   runs alone), timed on the card alone and with the host's wrapper;
 4. checks the full-width models against their plain reference paths on a
    small input (DiT blocks: kernel vs SDPA backend, and the ring_rdma
    backend vs the fused one, with a control for each limit; VAE decodes:
@@ -206,6 +208,22 @@ def time_ms(fn, reps: int = 7) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Mean device time of one call of `fn` over `reps` calls enqueued behind
+    a device sleep, so that the host's own time per call (which `time_ms`
+    counts where it exceeds the card's) stays out of the reading."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)  # some 10 ms of the card's clock: the host enqueues meanwhile
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def host_ms(fn, reps: int = 7) -> float:
@@ -638,6 +656,91 @@ def video_flash_phases(vcfg, launches_k1, launches_k3, dev="cuda", frames=VIDEO_
         del mask
         torch.cuda.empty_cache()
     return results["k1"], results["k3"]
+
+
+def layer_norm_phases(vcfg=None, frames=VIDEO_FRAMES):
+    """The video block's one-pass LayerNorms (`kernels/layer_norm.py`) at
+    the CogVideoX-5b shapes (B = 2 for CFG, 17550 video rows): LayerNormZero
+    [2, 17550, 3072] (affine, eps 1e-5, per-batch scale and shift) and the
+    q/k norm read from the qkv GEMM's output [2, 17550, 3, 48, 64] (eps
+    1e-6). Each against the plain version: at most 2 bf16 steps apart, on
+    under 1% of the elements, and a planted control (the shift left out; k
+    normalised with q's parameters) breaks the max-abs limit. Times the
+    kernel on the card alone (`device_ms`) and with its host wrapper
+    (`time_ms`), the plain version and `F.layer_norm` on the same rows (the
+    library yardstick, which the port never calls; without the modulation).
+    Bound: the bf16 bytes read and written at the HBM rate. Run it alone:
+    `python3 -c "import chip_smoke; chip_smoke.layer_norm_phases()"`."""
+    from conceptattention_torch.kernels import layer_norm as lnk
+    from conceptattention_torch.models.video.dit import cogvideox_5b_config
+
+    vcfg = vcfg or cogvideox_5b_config()
+    gen = torch.Generator("cuda").manual_seed(23)
+    b, h, hd = 2, vcfg.num_attention_heads, vcfg.attention_head_dim
+    d = h * hd
+    rows = frames * (VIDEO_H // 2) * (VIDEO_W // 2)
+
+    def draw(*shape, loc=0.0, std=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda") * std + loc).bfloat16()
+
+    def steps_apart(got, want, magnitude):
+        m = torch.clamp(magnitude.float().abs(), min=2.0**-6)
+        steps = (got.float() - want.float()).abs() / torch.exp2(torch.floor(torch.log2(m)) - 7)
+        return steps.max().item(), (got != want).float().mean().item()
+
+    x, w, bias = draw(b, rows, d, loc=0.3, std=2.0), draw(d, loc=1.0, std=0.1), draw(d, std=0.1)
+    scale, shift = draw(b, 6 * d, std=0.5).chunk(6, -1)[1], draw(b, d, std=0.5)
+    qkv = draw(b, rows, 3 * d, loc=-0.2, std=1.5)
+    qk = [draw(hd, loc=1.0 - i % 2, std=0.1) for i in range(4)]
+    heads = qkv.reshape(b, rows, 3, h, hd)
+    # A modulated element is held at the magnitude of its product term too,
+    # where + shift cancels it (`test_layer_norm_kernel_matches_plain`).
+    product = (lnk.layer_norm_plain(x, w, bias, vcfg.norm_eps).float()
+               * (1 + scale[:, None].float())).abs()
+    cases = [
+        ("layer_norm LayerNormZero video", 2 * (2 * b * rows * d + 4 * d),
+         lambda: lnk.layer_norm(x, w, bias, vcfg.norm_eps, scale=scale, shift=shift),
+         lambda: lnk.layer_norm_plain(x, w, bias, vcfg.norm_eps, scale, shift),
+         lambda: F.layer_norm(x, (d,), w, bias, vcfg.norm_eps),
+         ("shift left out", lambda: lnk.layer_norm_plain(x, w, bias, vcfg.norm_eps, scale,
+                                                         torch.zeros_like(shift))),
+         lambda want: torch.maximum(want.float().abs(), product), 6 * vcfg.num_layers + 2),
+        ("layer_norm q/k video", 2 * (4 * b * rows * d + 4 * hd),
+         lambda: lnk.qk_layer_norm(qkv, h, *qk, eps=1e-6),
+         lambda: lnk.qk_layer_norm_plain(qkv, h, *qk, eps=1e-6),
+         lambda: [F.layer_norm(heads[:, :, i], (hd,), qk[2 * i], qk[2 * i + 1], 1e-6)
+                  for i in range(2)],
+         ("k normalised with q's parameters",
+          lambda: lnk.qk_layer_norm_plain(qkv, h, *qk[:2], *qk[:2], eps=1e-6)),
+         lambda want: want, 3 * vcfg.num_layers),
+    ]
+
+    def one(out):  # (q, k) as one tensor
+        return torch.stack(out) if isinstance(out, tuple) else out
+
+    results = []
+    for (name, nbytes, kernel_fn, plain_fn, library_fn, (label, control_fn), magnitude,
+         per_forward) in cases:
+        got = one(kernel_fn())
+        torch.cuda.synchronize()
+        want = one(plain_fn())
+        limit = limit_of(want)
+        err = (got.float() - want.float()).abs().max().item()
+        control = (one(control_fn()).float() - want.float()).abs().max().item()
+        steps, moved = steps_apart(got, want, magnitude(want))
+        bound_ms, bound_by = bound(0.0, nbytes)
+        res = {"phase": name, "ok": err <= limit < control and steps <= 2 and moved < 0.01,
+               "max_abs_err": err, "limit": limit, f"control: {label}": control,
+               "max_bf16_steps": steps, "share_moved": moved,
+               "kernel_ms": device_ms(kernel_fn), "plain_ms": device_ms(plain_fn, 3),
+               "library_ms": device_ms(library_fn), "kernel_ms_with_host": time_ms(kernel_fn),
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "launches_a_forward": per_forward}
+        print(json.dumps(res), flush=True)
+        results.append(res)
+        del got, want
+    torch.cuda.empty_cache()
+    return results
 
 
 def faulty_ring(qs, ks, vs, t, p, c, origin_shift=0, skip_hop=None):
@@ -6035,7 +6138,7 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = _build.build(["flash_saliency", "flash_saliency_sm90", "flash_saliency_int8",
                          "flash_saliency_int8_sm90", "conv3x3", "conv3x3_sm90", "ring_attention",
-                         "ring_attention_sm90"])
+                         "ring_attention_sm90", "layer_norm"])
     print(f"build seconds {time.perf_counter() - t0:.3f}", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
@@ -6107,7 +6210,9 @@ def main() -> int:
     across = cross_card_ring_phase(cfg)
     ring += [across] if across else []
     torch.cuda.empty_cache()
-    failed = [r["phase"] for r in flash + int8 + conv + video_k1 + video_k3 + ring if not r["ok"]]
+    norms = layer_norm_phases()
+    failed = [r["phase"] for r in flash + int8 + conv + video_k1 + video_k3 + ring + norms
+              if not r["ok"]]
     if failed:
         raise AssertionError(f"kernel phases outside their limits or with a blind control: {failed}")
 

@@ -20,6 +20,7 @@ def _counters():
         fused_concept_flash_attention_int8_hopper,
         fused_concept_flash_attention_paired,
     )
+    from conceptattention_torch.kernels.layer_norm import layer_norm, qk_layer_norm
     from conceptattention_torch.kernels.ring_rdma import ring_attention_rdma
 
     return [
@@ -39,15 +40,18 @@ def _counters():
         ("conv3x3 (generic instance)", conv3x3_same_generic, "launches", None),
         ("ring_attention (steps)", ring_attention_rdma, "step_launches", None),
         ("ring_attention (Hopper steps)", ring_attention_rdma, "hopper_step_launches", None),
+        ("layer_norm", layer_norm, "launches", None),
+        ("layer_norm (q/k)", qk_layer_norm, "launches", None),
     ]
 
 
 def launch_counts() -> dict:
     """{kernel: launches so far in this process} of every kernel wrapper,
     and of the instances among them: K1's and K1b's Hopper instances (K1's
-    at head dim 128 one by one), K2's Hopper and generic ones, and K4's step
-    launches (each counts the calls that launch its kernel on a card; the
-    plain versions on the CPU count nothing)."""
+    at head dim 128 one by one), K2's Hopper and generic ones, K4's step
+    launches, and the video block's LayerNorm and q/k LayerNorm (each counts
+    the calls that launch its kernel on a card; the plain versions on the
+    CPU count nothing)."""
     return {name: getattr(holder, attr) if i is None else getattr(holder, attr)[i]
             for name, holder, attr, i in _counters()}
 

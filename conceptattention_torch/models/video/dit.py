@@ -35,6 +35,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from conceptattention_torch.kernels.layer_norm import layer_norm, qk_layer_norm
 from conceptattention_torch.models.flux.blocks import _linear
 from conceptattention_torch.models.flux.params import Params, _Init, layer
 from conceptattention_torch.ops.attention import (
@@ -172,27 +173,16 @@ def unpatchify_latents(
     return x.reshape(b, frames, out_channels, h, w)
 
 
-def _ln(x: torch.Tensor, w=None, b=None, eps: float = 1e-5) -> torch.Tensor:
-    """LayerNorm in f32 (population variance), optional affine, in x's dtype."""
-    xf = x.float()
-    mean = xf.mean(dim=-1, keepdim=True)
-    var = (xf - mean).pow(2).mean(dim=-1, keepdim=True)
-    out = (xf - mean) * torch.rsqrt(var + eps)
-    if w is not None:
-        out = out * w.float()
-    if b is not None:
-        out = out + b.float()
-    return out.to(x.dtype)
-
-
-def _norm_zero(p: Params, temb: torch.Tensor, hidden: torch.Tensor, other: torch.Tensor,
-               eps: float):
+def _norm_zero(p: Params, temb: torch.Tensor, hidden: Optional[torch.Tensor],
+               other: torch.Tensor, eps: float):
     """CogVideoXLayerNormZero: affine LN + six-chunk AdaLN from temb.
-    Returns (norm_hidden, norm_other, gate, other_gate)."""
+    Returns (norm_hidden, norm_other, gate, other_gate); with `hidden` None
+    only the other stream is normalised (norm_hidden is None)."""
     mod = _linear(F.silu(temb), p["lin"])
     shift, scale, gate, o_shift, o_scale, o_gate = mod.chunk(6, dim=-1)
-    nh = _ln(hidden, p["ln"]["w"], p["ln"]["b"], eps) * (1 + scale[:, None]) + shift[:, None]
-    no = _ln(other, p["ln"]["w"], p["ln"]["b"], eps) * (1 + o_scale[:, None]) + o_shift[:, None]
+    w, b = p["ln"]["w"], p["ln"]["b"]
+    nh = None if hidden is None else layer_norm(hidden, w, b, eps, scale=scale, shift=shift)
+    no = layer_norm(other, w, b, eps, scale=o_scale, shift=o_shift)
     return nh, no, gate[:, None], o_gate[:, None]
 
 
@@ -200,11 +190,9 @@ def _qkv_heads_ln(x: torch.Tensor, qkv: Params, qnorm: Params, knorm: Params, nu
     """Fused qkv projection ([D, 3*H*hd], laid out (3, H, hd)) and per-head
     affine LayerNorm of q and k (eps 1e-6). Returns [B, H, L, hd] each."""
     h = _linear(x, qkv)
+    q, k = qk_layer_norm(h, num_heads, qnorm["w"], qnorm["b"], knorm["w"], knorm["b"], eps=1e-6)
     b, l, _ = h.shape
-    h = h.reshape(b, l, 3, num_heads, -1).permute(2, 0, 3, 1, 4)
-    q = _ln(h[0], qnorm["w"], qnorm["b"], eps=1e-6)
-    k = _ln(h[1], knorm["w"], knorm["b"], eps=1e-6)
-    return q, k, h[2]
+    return q, k, h.reshape(b, l, 3, num_heads, -1).permute(2, 0, 3, 1, 4)[2]
 
 
 def _feed_forward(x: torch.Tensor, p: Params) -> torch.Tensor:
@@ -233,7 +221,7 @@ def _video_block(
 
     concept_qkv = c_gate = None
     if concepts is not None:
-        _, n_con, _, c_gate = _norm_zero(p["norm1"], temb, video, concepts, cfg.norm_eps)
+        _, n_con, _, c_gate = _norm_zero(p["norm1"], temb, None, concepts, cfg.norm_eps)
         concept_qkv = _qkv_heads_ln(n_con, p["qkv"], p["qnorm"], p["knorm"], heads)
 
     text_attn, video_attn, concept_attn, extras = joint_concept_attention(
@@ -257,9 +245,9 @@ def _video_block(
     text = text + t_gate * _linear(text_attn, p["proj"])
     if concepts is not None:
         concepts = concepts + c_gate * _linear(concept_attn, p["proj"])
-        # The concept FF's LayerNormZero is conditioned on the updated concept
-        # states but the pre-attention video states.
-        _, n_con, _, c_gate_ff = _norm_zero(p["norm2"], temb, video, concepts, cfg.norm_eps)
+        # The concept branch takes only the concept stream's half of each
+        # LayerNormZero: the video stream's half is the video branch's own.
+        _, n_con, _, c_gate_ff = _norm_zero(p["norm2"], temb, None, concepts, cfg.norm_eps)
         concepts = concepts + c_gate_ff * _feed_forward(n_con, p)
 
     n_video, n_text, v_gate_ff, t_gate_ff = _norm_zero(p["norm2"], temb, video, text, cfg.norm_eps)
@@ -338,11 +326,12 @@ def video_dit_forward(
             per_layer.append(saliency)
         saliency = {k: torch.stack([s[k] for s in per_layer]) for k in per_layer[0]}
 
-        tokens = _ln(tokens, params["norm_final"]["w"], params["norm_final"]["b"], cfg.norm_eps)
+        tokens = layer_norm(tokens, params["norm_final"]["w"], params["norm_final"]["b"],
+                            cfg.norm_eps)
         mod = _linear(F.silu(temb), params["norm_out_lin"])
         shift, scale = mod.chunk(2, dim=-1)
-        tokens = _ln(tokens, params["norm_out_ln"]["w"], params["norm_out_ln"]["b"],
-                     cfg.norm_eps) * (1 + scale[:, None]) + shift[:, None]
+        tokens = layer_norm(tokens, params["norm_out_ln"]["w"], params["norm_out_ln"]["b"],
+                            cfg.norm_eps, scale=scale, shift=shift)
         tokens = _linear(tokens, params["proj_out"])
         return unpatchify_latents(tokens, f, h, w, cfg.out_channels, p), saliency
 

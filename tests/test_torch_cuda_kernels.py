@@ -17,6 +17,7 @@ import torch
 
 from conceptattention_torch.kernels import conv3x3 as conv
 from conceptattention_torch.kernels import flash_saliency as fs
+from conceptattention_torch.kernels import layer_norm as lnk
 from conceptattention_torch.kernels import ring_rdma as rr
 
 pytestmark = pytest.mark.cuda
@@ -841,7 +842,8 @@ def kernel_counts():
             fs.fused_concept_flash_attention_paired.launches, conv.conv3x3_same.launches,
             conv.conv3x3_same_generic.launches, conv.conv3x3_same_hopper.launches,
             rr.ring_attention_rdma.launches, rr.ring_attention_rdma.step_launches,
-            rr.ring_attention_rdma.hopper_step_launches)
+            rr.ring_attention_rdma.hopper_step_launches, lnk.layer_norm.launches,
+            lnk.qk_layer_norm.launches)
 
 
 def guarded_call(name, dev, requires_grad):
@@ -868,6 +870,12 @@ def guarded_call(name, dev, requires_grad):
         w = (torch.randn(3, 3, cin, 64, generator=gen, device=dev) * 0.05).to(dtype)
         return getattr(conv, name)(x.requires_grad_(requires_grad), w,
                                    torch.zeros(64, device=dev, dtype=dtype))
+    if name == "layer_norm":
+        return lnk.layer_norm(torch.randn(2, 40, 3072, generator=gen, device=dev).bfloat16()
+                              .requires_grad_(requires_grad))
+    if name == "qk_layer_norm":
+        qkv = torch.randn(2, 40, 3 * 4 * 64, generator=gen, device=dev).bfloat16()
+        return lnk.qk_layer_norm(qkv.requires_grad_(requires_grad), 4)
     q, k, v, _, _ = attn(128, s=128)
     if name == "ring_attention_rdma":
         return rr.ring_attention_rdma(*([c.contiguous() for c in x.chunk(2, 2)] for x in (q, k, v)))
@@ -878,7 +886,8 @@ def guarded_call(name, dev, requires_grad):
 GUARDED = ["fused_concept_flash_attention", "fused_concept_flash_attention_hopper",
            "fused_concept_flash_attention_int8", "fused_concept_flash_attention_int8_hopper",
            "fused_concept_flash_attention_paired", "conv3x3_same", "conv3x3_same_generic",
-           "conv3x3_same_hopper", "ring_attention_rdma", "ring_step"]
+           "conv3x3_same_hopper", "ring_attention_rdma", "ring_step", "layer_norm",
+           "qk_layer_norm"]
 
 
 @pytest.mark.parametrize("name", GUARDED)
@@ -1127,3 +1136,113 @@ def test_device_trace_sees_the_card_after_graph_replays(dev, tmp_path):
         graphs[-1](params, **inputs)  # the capture, outside any session
         assert traced(lambda: graphs[-1](params, **inputs), session) > 0
     assert traced(lambda: flux_forward(params, cfg, **inputs), 2) > 0
+
+
+def bf16_steps(got, want, magnitude):
+    """|got - want| in bf16 steps at max(magnitude, 2**-6). The normalised
+    rows have unit scale; below 2**-6 x - mean cancels, and a move of the
+    f32 mean by one step is already more than a bf16 step of the element."""
+    m = torch.clamp(magnitude.float().abs(), min=2.0**-6)
+    return (got.float() - want.float()).abs() / torch.exp2(torch.floor(torch.log2(m)) - 7)
+
+
+def unbiased_ln(x, w, b, eps):
+    """A changed arithmetic, the control: the variance over D - 1."""
+    xf = x.float()
+    out = (xf - xf.mean(-1, keepdim=True)) * torch.rsqrt(xf.var(-1, keepdim=True) + eps)
+    return (out * w.float() + b.float()).to(x.dtype)
+
+
+def assert_rounding_apart(got, want, magnitude, control):
+    """The kernel equals the plain version but where the f32 sum order moves
+    a value across a bf16 rounding boundary: at most 2 bf16 steps, on under
+    1% of the elements. The control, a changed arithmetic, moves more than
+    1% of them."""
+    assert got.shape == want.shape and got.dtype == want.dtype == torch.bfloat16
+    assert bf16_steps(got, want, magnitude).max().item() <= 2
+    assert (got != want).float().mean().item() < 0.01
+    assert (control != want).float().mean().item() > 0.01
+
+
+@pytest.mark.parametrize("b,l,d,modulated", [
+    (2, 17550, 3072, True),   # the video LayerNormZero of CogVideoX-5b
+    (2, 226, 3072, True),     # its text and concept streams
+    (2, 17550, 3072, False),  # norm_final
+    (2, 4003, 1920, True),    # the 2B model's width; 4003 rows fill no whole block
+    (3, 77, 64, False),       # one head's width, 4 threads a row
+])
+def test_layer_norm_kernel_matches_plain(dev, b, l, d, modulated):
+    """LayerNormZero (affine, eps 1e-5, per-batch scale and shift) and the
+    plain affine LayerNorm against the plain version on the card; the
+    control drops the bf16 rounding between the affine and the modulation
+    (or, unmodulated, takes the unbiased variance)."""
+    gen = torch.Generator(dev).manual_seed(21)
+
+    def draw(*shape, loc=0.0, std=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * std + loc).bfloat16()
+
+    x = draw(b, l, d, loc=0.3, std=2.0)
+    w, bias = draw(d, loc=1.0, std=0.1), draw(d, std=0.1)
+    scale, shift = (draw(b, 6 * d, std=0.5).chunk(6, -1)[1], draw(b, d, std=0.5)) if modulated \
+        else (None, None)
+    before = lnk.layer_norm.launches
+    got = lnk.layer_norm(x, w, bias, 1e-5, scale=scale, shift=shift)
+    torch.cuda.synchronize()
+    assert lnk.layer_norm.launches == before + 1
+    normed = lnk.layer_norm_plain(x, w, bias, 1e-5)
+    want = lnk.layer_norm_plain(x, w, bias, 1e-5, scale, shift)
+    if modulated:
+        factor = 1 + scale[:, None].float()
+        magnitude = torch.maximum(want.float().abs(), (normed.float() * factor).abs())
+        xf = x.float()
+        t = (xf - xf.mean(-1, keepdim=True)) * torch.rsqrt(xf.var(-1, correction=0, keepdim=True) + 1e-5)
+        control = ((t * w.float() + bias.float()) * factor + shift[:, None].float()).bfloat16()
+    else:
+        magnitude, control = want, unbiased_ln(x, w, bias, 1e-5)
+    assert_rounding_apart(got, want, magnitude, control)
+
+
+@pytest.mark.parametrize("b,l,h", [(2, 17550, 48), (2, 226, 48), (1, 1001, 30)],
+                         ids=["video", "text", "2b-heads"])
+def test_qk_layer_norm_kernel_matches_plain(dev, b, l, h):
+    """The per-head q and k norms (eps 1e-6, affine) read through the qkv
+    GEMM output's strides and written as [B, H, L, 64], against the plain
+    version; the control takes the unbiased variance."""
+    gen = torch.Generator(dev).manual_seed(22)
+    qkv = (torch.randn(b, l, 3 * h * 64, generator=gen, device=dev) * 1.5 - 0.2).bfloat16()
+    params = [(torch.randn(64, generator=gen, device=dev) * 0.1 + (1.0 if i % 2 == 0 else 0.0))
+              .bfloat16() for i in range(4)]
+    before = lnk.qk_layer_norm.launches
+    q, k = lnk.qk_layer_norm(qkv, h, *params, eps=1e-6)
+    torch.cuda.synchronize()
+    assert lnk.qk_layer_norm.launches == before + 1
+    assert q.is_contiguous() and k.is_contiguous()
+    want_q, want_k = lnk.qk_layer_norm_plain(qkv, h, *params, eps=1e-6)
+    heads = qkv.reshape(b, l, 3, h, 64).permute(2, 0, 3, 1, 4)
+    for got, want, x, (w, bias) in ((q, want_q, heads[0], params[:2]),
+                                    (k, want_k, heads[1], params[2:])):
+        assert_rounding_apart(got, want, want, unbiased_ln(x, w, bias, 1e-6))
+
+
+def test_layer_norm_kernel_refuses_what_it_cannot_take(dev):
+    """A width not a multiple of 8 or above 3072, a non-bf16 input or
+    parameter, and an input that requires grad raise before anything
+    launches: no fallback."""
+    before = kernel_counts()
+    x = torch.randn(2, 16, 64, device=dev)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        lnk.layer_norm(x[..., :60].bfloat16())
+    with pytest.raises(ValueError, match="at most 3072"):
+        lnk.layer_norm(torch.randn(2, 16, 3080, device=dev).bfloat16())
+    with pytest.raises(ValueError, match="multiple of 8"):
+        lnk.qk_layer_norm(torch.randn(2, 16, 3 * 2 * 60, device=dev).bfloat16(), 2)
+    with pytest.raises(TypeError, match="takes bf16"):
+        lnk.layer_norm(x)
+    with pytest.raises(TypeError, match="takes bf16"):
+        lnk.qk_layer_norm(torch.randn(2, 16, 3 * 2 * 64, device=dev).half(), 2)
+    with pytest.raises(TypeError, match="bf16 parameters"):
+        lnk.layer_norm(x.bfloat16(), torch.ones(64, device=dev))
+    with pytest.raises(RuntimeError, match="layer_norm has no backward"):
+        lnk.layer_norm(x.bfloat16().requires_grad_(True))
+    torch.cuda.synchronize()
+    assert kernel_counts() == before
