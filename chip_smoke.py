@@ -10,8 +10,11 @@ Run from the root of a checkout: `python3 chip_smoke.py`. In order it
    encode's (B=2, 4), the NHWC encoder's convs, the eval path's double
    block (512x512: S=1286 at B=1 and 4 in the four cross / self modes, and
    7 and 8 concepts) and the sweeps' (512x512 with 4 concepts: S=1284 with
-   flux-schnell's 256 txt rows, S=1540 with flux-dev's 512) and the
-   qualitative comparison's (512x512 with 3 concepts, S=1283) included
+   flux-schnell's 256 txt rows, S=1540 with flux-dev's 512), the
+   qualitative comparison's (512x512 with 3 concepts, S=1283) and
+   HunyuanVideo's 540p x 129-frame blocks (S of 67,352 to 67,580, the
+   plain version on 4 heads and 3.1k to 3.4k rows; `hunyuan_phases` runs
+   them, with the path below, alone) included
    (attention per
    row segment, each against its own scale;
    K1b, the int8-score attention, also against K1 and its pre-pass against
@@ -109,7 +112,9 @@ Run from the root of a checkout: `python3 chip_smoke.py`. In order it
    (`run_video_concept_attention.main`, its default 13 latent frames,
    --decode of 49 frames at 480x720, the decode's own device peak) against
    the direct `generate_video`;
-   then, with every earlier pipeline released, the T5-XXL and CLIP-L text
+   then, with every earlier pipeline released, HunyuanVideo
+   `generate_video` at its published widths (540p x 129 frames, 1 Euler
+   step, 4 concepts, random weights) cold and warm, the T5-XXL and CLIP-L text
    towers from random HF state dicts through the port's converters (bf16
    against f32 at 2 layers, timed), flux-dev `generate_image` (1024x1024,
    4 steps, guidance 3.5) through `TorchTextEncoders` cold and warm, its
@@ -1805,6 +1810,235 @@ def new_shape_flash_phases(cfg, launches):
         controls=[("one key tile dropped", "all", lambda want: drop_key_tile(want, args, 512 + 64 * 32))],
     ))
     return results
+
+
+# HunyuanVideo's published 540p clip: 129 frames of 544x960 are 33 x 68 x 120
+# latents, 33 x 34 x 60 = 67,320 video tokens; one Euler step a call, four
+# concepts, and a 32-word prompt (the stub text encoder's valid length is
+# its word count), so the double blocks see S = 32 + 67,320 + 4.
+HY_FRAMES, HY_H, HY_W = 33, 68, 120
+HY_STEPS = 1
+HY_PROMPT = ("a red dragon flies low over a rocky coast while grey waves break on dark stones "
+             "below and white gulls circle in the cold wind under a heavy sky at dusk tonight")
+HY_CONCEPTS = ["dragon", "rock", "sky", "sea"]
+HY_TEXT_ROWS = (len(HY_PROMPT.split()), 256)  # the path's prompt, and every slot valid
+HY_SAMPLE = 1024  # video rows of each of the plain version's three samples
+
+
+def hunyuan_flash_inputs(cfg, gen, t, c, dev="cuda"):
+    """K1's args at a HunyuanVideo block of the 540p clip: `t` text rows,
+    the 67,320 video rows with their theta-256 (t, h, w) tables, and `c`
+    concept rows (ids 0: the identity rotation) as the double blocks call
+    it, or with `c` 0 the one segment the single blocks give it; and the
+    roped q and k for the library call."""
+    from conceptattention_torch.kernels import flash_saliency as fs
+    from conceptattention_torch.models.video.dit import make_video_ids
+    from conceptattention_torch.ops.rope import apply_rope, embed_nd
+
+    h, d = cfg.num_heads, cfg.head_dim
+    ids = make_video_ids(HY_FRAMES, HY_H // 2, HY_W // 2, device=dev)
+    p = ids.shape[1]
+    s = t + p + c
+    pe = embed_nd(torch.cat([torch.zeros(1, t, 3, device=dev), ids], 1), cfg.axes_dim, cfg.theta)
+    q, k, v = (torch.randn(1, h, s, d, generator=gen, device=dev) for _ in range(3))
+    q, k, v = (Q_SCALE * q).bfloat16(), k.bfloat16(), v.bfloat16()
+    if c:  # each concept key along its own query, as in `joint_rows_inputs`
+        qc = q[:, :, t + p:].float()
+        k[:, :, t + p:] = (4.0 * qc / qc.norm(dim=-1, keepdim=True)).bfloat16()
+    cos, sin = fs.expand_rope_tables([pe], s)
+    qj, kj = apply_rope(q[:, :, :t + p], k[:, :, :t + p], pe)
+    qr, kr = torch.cat([qj, q[:, :, t + p:]], 2), torch.cat([kj, k[:, :, t + p:]], 2)
+    segments = (t, p, c) if c else (s, 0, 0)
+    return (q, k, v, *segments, True, True, cos, sin), qr, kr
+
+
+def plain_rows(args, heads, rows, cross=None, drop=None):
+    """`fused_concept_flash_attention_plain` at query `rows` of `heads`
+    alone, a head at a time, with its rounding points (q and k roped by
+    `rope_qk_rows_plain`, f32 scores, exp2 softmax, P rounded to v's dtype,
+    f32 P.V): at S of 67.5k its [S, S] scores, 18 GB a head in f32, do not
+    fit. `cross` overrides the args' flag; `drop` takes the 64 keys
+    [drop, drop + 64) out of every row (a kernel that skips one key tile).
+    -> [B, len(heads), len(rows), D]."""
+    from conceptattention_torch.kernels import flash_saliency as fs
+
+    q, k, v, t, p, c, cross_arg, self_attention, cos, sin = args
+    cross = cross_arg if cross is None else cross
+    joint_end = t + p
+    kj = torch.arange(q.shape[2], device=q.device)[None]
+    qi = rows.to(q.device)[:, None]
+    concept_keys = torch.zeros_like(kj, dtype=torch.bool)
+    if cross:
+        concept_keys = concept_keys | ((kj >= t) & (kj < joint_end))
+    if self_attention:
+        concept_keys = concept_keys | ((kj >= joint_end) & (kj < joint_end + c))
+    allowed = ((qi < joint_end) & (kj < joint_end)) | ((qi >= joint_end) & concept_keys)
+    if drop is not None:
+        allowed = allowed & ((kj < drop) | (kj >= drop + 64))
+    outs = []
+    for h in heads:
+        qh, kh = fs.rope_qk_rows_plain(q[:, h:h + 1], k[:, h:h + 1], cos, sin)
+        scores = qh[:, :, rows].float() @ kh.float().transpose(-1, -2)
+        scores = scores.masked_fill(~allowed, fs.NEG_INF)
+        pm = torch.exp2(scores - scores.amax(dim=-1, keepdim=True)).masked_fill(~allowed, 0.0)
+        acc = pm.to(v.dtype).float() @ v[:, h:h + 1].float()
+        l = pm.sum(dim=-1, keepdim=True)  # rows that see nothing come out as zeros
+        outs.append((acc / torch.where(l == 0, torch.ones_like(l), l)).to(v.dtype))
+        del scores, pm
+    return torch.cat(outs, 1)
+
+
+def hunyuan_flash_phases(cfg, launches, dev="cuda"):
+    """K1's D=128 Hopper instance (with its RoPE pre-pass) at HunyuanVideo's
+    540p x 129-frame shapes, B1 H24: the double block at 32 and 256 text
+    rows (S = 67,356 and 67,580 with 4 concept rows) and the single block
+    at the same text rows without concepts (S = 67,352 and 67,576). The
+    kernel runs on the full shape; the plain version (`plain_rows`) on
+    heads 0, 1, 22, 23 at every text and concept row and at 3 x 1024 video
+    rows (the first, the middle, the last), held against the same slice of
+    the kernel's output, with the cross-flipped and dropped-key-tile
+    controls. The library call is PyTorch's SDPA without a mask: the joint
+    rows over the joint keys, and for the double block the concept rows
+    over [video; concept] keys, a second call. `launches` is
+    {text rows: (double-block launches, single-block launches)} of the main
+    paths."""
+    from conceptattention_torch.kernels import flash_saliency as fs
+
+    gen = torch.Generator(dev).manual_seed(22)
+    h, d = cfg.num_heads, cfg.head_dim
+    heads = [0, 1, h - 2, h - 1]
+    n = HY_SAMPLE
+    results = []
+    for t in HY_TEXT_ROWS:
+        for c in (len(HY_CONCEPTS), 0):
+            args, qr, kr = hunyuan_flash_inputs(cfg, gen, t, c, dev)
+            v = args[2]
+            s = v.shape[2]
+            p = s - t - c
+            video = [t + i for i in (0, (p - n) // 2, p - n)]
+            rows = torch.cat([torch.arange(t)] + [torch.arange(r, r + n) for r in video]
+                             + [torch.arange(t + p, s)]).to(dev)
+            joint = t + 3 * n
+            drop = t + 64 * (p // 128)
+            index = torch.tensor(heads, device=dev)
+
+            def select(out, rows=rows, index=index):
+                return out.index_select(1, index).index_select(2, rows)
+
+            if c:
+                segments = {"joint rows": slice(0, joint), "concept rows": slice(joint, None)}
+                controls = [
+                    ("cross flipped", "concept rows",
+                     lambda _, a=args, r=rows: plain_rows(a, heads, r, cross=False)),
+                    ("one video key tile dropped", "joint rows",
+                     lambda _, a=args, r=rows, k=drop: plain_rows(a, heads, r, drop=k)),
+                ]
+                n_pairs = (t + p) ** 2 + c * (p + c)
+
+                def library(qr=qr, kr=kr, v=v, j=t + p, t=t):
+                    return (F.scaled_dot_product_attention(qr[:, :, :j], kr[:, :, :j], v[:, :, :j]),
+                            F.scaled_dot_product_attention(qr[:, :, j:], kr[:, :, t:], v[:, :, t:]))
+            else:
+                segments = None
+                controls = [("one key tile dropped", "all",
+                             lambda _, a=args, r=rows, k=drop: plain_rows(a, heads, r, drop=k))]
+                n_pairs = s * s
+
+                def library(qr=qr, kr=kr, v=v):
+                    return F.scaled_dot_product_attention(qr, kr, v)
+            block = f"double_block S={s} ({t} txt + {p} video + {c} concepts)" if c else \
+                f"single_block S={s} ({t} txt + {p} video)"
+            results.append(phase_result(
+                f"flash_saliency hunyuanvideo {block}",
+                lambda a=args: fs.fused_concept_flash_attention(*a),
+                lambda a=args, r=rows: plain_rows(a, heads, r),
+                library, 4 * d * n_pairs * h, 4 * h * s * d * 2 + 2 * s * d * 4,
+                launches[t][0 if c else 1], segments, controls, select=select,
+                plain_basis=f"heads {heads} of {h}, rows: the {t} txt, video rows "
+                            f"{video[0]}, {video[1]}, {video[2]} + [0, {n}), the {c} concept",
+                extra=mma_sync_reading(args),
+            ))
+            del args, qr, kr, rows
+            if dev == "cuda":
+                torch.cuda.empty_cache()
+    return results
+
+
+def hunyuan_path(counters, steps=HY_STEPS):
+    """HunyuanVideo `generate_video` at its published widths and the 540p x
+    129-frame clip (random weights from init_seed 0, the stub text encoders:
+    HY_PROMPT gives 32 valid slots), `steps` Euler steps, the four concepts,
+    cold and warm: each run's launches of `counters` (K1 a step: 20 double
+    and 40 single blocks) and the D=128 instances', checked; the maps'
+    shape and values. -> (launches of one run, warm seconds, D=128 instance
+    launches of one run)."""
+    from conceptattention_torch.kernels.flash_saliency import fused_concept_flash_attention_hopper
+    from conceptattention_torch.models.video.hunyuan import hunyuanvideo_config
+    from conceptattention_torch.pipeline.video_pipeline import VideoConceptAttentionPipeline
+
+    cfg = hunyuanvideo_config()
+    torch.cuda.reset_peak_memory_stats()
+    pipe = VideoConceptAttentionPipeline(cfg=cfg, init_seed=0)
+    instances = fused_concept_flash_attention_hopper.instance_launches
+    per_run = steps * (cfg.depth + cfg.depth_single_blocks)
+    runs = []
+    for _ in range(2):
+        instances[:] = [0] * len(instances)
+        out, seconds, launches = counted(lambda: pipe.generate_video(
+            HY_PROMPT, HY_CONCEPTS, num_frames=HY_FRAMES, height=HY_H, width=HY_W,
+            num_inference_steps=steps, guidance_scale=6.0, seed=0), counters)
+        if launches[0] != per_run or launches[2] != per_run or instances[0] != per_run:
+            raise AssertionError(f"hunyuan generate_video launches {launches} (K1 instances "
+                                 f"{instances}) != {per_run} a run")
+        maps = out.concept_heatmaps
+        want = (len(HY_CONCEPTS), HY_FRAMES, HY_H // 2, HY_W // 2)
+        if maps.shape != want or not np.isfinite(maps).all():
+            raise AssertionError(f"bad hunyuan heatmaps {maps.shape} != {want}")
+        if tuple(out.video_latents.shape) != (1, HY_FRAMES, cfg.latent_channels, HY_H, HY_W):
+            raise AssertionError(f"bad hunyuan latents {tuple(out.video_latents.shape)}")
+        runs.append((launches, seconds, list(instances)))
+    peak = torch.cuda.max_memory_allocated()
+    print(f"generate_video (hunyuan) {HY_FRAMES}x{HY_H}x{HY_W} latents, {steps} step(s): "
+          f"launches {runs[1][0]}, D=128 instances {runs[1][2]}, cold seconds {runs[0][1]:.4f}, "
+          f"warm seconds {runs[1][1]:.4f}, peak {peak / 2**30:.2f} GiB", flush=True)
+    del pipe, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs[1][0], runs[1][1], runs[1][2]
+
+
+def hunyuan_phases():
+    """The HunyuanVideo path and K1 at its shapes, alone (the smoke runs the
+    two pieces in its own order): `python3 -c "import chip_smoke;
+    chip_smoke.hunyuan_phases()"`. Raises where a phase breaks its limit or
+    a control does not."""
+    from conceptattention_torch.kernels import _build
+    from conceptattention_torch.kernels.conv3x3 import conv3x3_same, conv3x3_same_hopper
+    from conceptattention_torch.kernels.flash_saliency import (
+        fused_concept_flash_attention,
+        fused_concept_flash_attention_hopper,
+    )
+    from conceptattention_torch.models.video.hunyuan import hunyuanvideo_config
+
+    print(gpu_line(), flush=True)
+    _build.build(["flash_saliency", "flash_saliency_sm90"])
+    counters = [fused_concept_flash_attention, conv3x3_same, fused_concept_flash_attention_hopper,
+                conv3x3_same_hopper]
+    hunyuan_path(counters)
+    cfg = hunyuanvideo_config()
+    results = hunyuan_flash_phases(cfg, hunyuan_launches(cfg))
+    failed = [r["phase"] for r in results if not r["ok"]]
+    if failed:
+        raise AssertionError(f"HunyuanVideo K1 phases outside their limits or with a blind "
+                             f"control: {failed}")
+    return results
+
+
+def hunyuan_launches(cfg):
+    """{text rows: (double, single)} K1 launches of one `hunyuan_path` call:
+    every launch at HY_PROMPT's 32 text rows."""
+    return {t: ((HY_STEPS * cfg.depth, HY_STEPS * cfg.depth_single_blocks)
+                if t == HY_TEXT_ROWS[0] else (0, 0)) for t in HY_TEXT_ROWS}
 
 
 # The segmentation eval path at the ImageNet-Seg harness's protocol: 512^2
@@ -6134,6 +6368,7 @@ def main() -> int:
     )
     from conceptattention_torch.kernels.ring_rdma import ring_attention_rdma
     from conceptattention_torch.models.video.dit import cogvideox_5b_config
+    from conceptattention_torch.models.video.hunyuan import hunyuanvideo_config
 
     t0 = time.perf_counter()
     logs = _build.build(["flash_saliency", "flash_saliency_sm90", "flash_saliency_int8",
@@ -6203,6 +6438,8 @@ def main() -> int:
     # LoRA and the daemon
     video_k1, video_k3 = video_flash_phases(cogvideox_5b_config(), 3 * video_per_run + plan["video"],
                                             video_per_run + video_lora_k3)
+    # K1 at HunyuanVideo's shapes: one call of `hunyuan_path`
+    flash += hunyuan_flash_phases(hunyuanvideo_config(), hunyuan_launches(hunyuanvideo_config()))
     # K4 in the ring_rdma generate_image and encode_image (every double block)
     ring = ring_phases(cfg, cogvideox_5b_config(), STEPS * cfg.depth + cfg.depth)
     # K4 on one (data, model) slice of the ring image over seq=2 x model=2
@@ -6335,9 +6572,12 @@ def main() -> int:
     new_paths["run_video_concept_attention (generate_video)"] = (
         [exp_launches[0], 0, exp_launches[2], 0], exp_seconds)
 
-    # flux-dev (23.8 GB in bf16) and T5-XXL (9.5 GB) after every earlier pipeline is released
+    # HunyuanVideo (25.7 GB in bf16), then flux-dev (23.8 GB) and T5-XXL (9.5 GB), after
+    # every earlier pipeline is released
     gc.collect()
     torch.cuda.empty_cache()
+    hy_launches, hy_seconds, instance_paths["generate_video (hunyuan)"] = hunyuan_path(counters)
+    new_paths["generate_video (hunyuan)"] = (hy_launches, hy_seconds)
     enc = text_towers()
     new_paths.update(flux_dev_paths(enc, counters, dataset[:SWEEP_TIME_IMAGES]))
     del enc

@@ -19,7 +19,7 @@ replayed.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -87,6 +87,7 @@ def flux_forward(
     controlnet_single_block_samples: Optional[torch.Tensor] = None,
     controlnet_blocks_repeat: bool = False,
     remat: bool = False,
+    text_embedder: Optional[Callable] = None,
 ) -> Tuple[Optional[torch.Tensor], Dict[str, torch.Tensor]]:
     """Run the DiT.
 
@@ -103,6 +104,9 @@ def flux_forward(
         the image slice after each single block (interval layout).
       remat: rematerialize each block in the backward
         (`torch.utils.checkpoint`, non-reentrant).
+      text_embedder: `fn(params, x, timesteps)` that embeds the text and the
+        concepts, each sequence on its own; None is Flux's linear `txt_in`
+        (HunyuanVideo passes its token refiner, `models/video/hunyuan.py`).
 
     A parameter tree laid out over a mesh (`parallel.sharding.shard_params`,
     `parallel.fsdp.shard_params_fsdp`) runs over that mesh: the batch split
@@ -129,12 +133,19 @@ def flux_forward(
         if mesh is None:
             return _forward(params, lambda key, i: layer(params[key], i), None, cfg, inputs,
                             controlnet, controlnet_blocks_repeat, stop_after_multimodal_attentions,
-                            spec, remat)
+                            spec, remat, text_embedder or _txt_in)
         return _sharded_forward(params, mesh, cfg, inputs, controlnet, controlnet_blocks_repeat,
-                                stop_after_multimodal_attentions, spec, remat)
+                                stop_after_multimodal_attentions, spec, remat,
+                                text_embedder or _txt_in)
 
 
-def _sharded_forward(params, mesh, cfg, inputs, controlnet, repeat, stop_after, spec, remat):
+def _txt_in(params, x, timesteps):
+    """Flux's text embedder: the linear `txt_in`."""
+    return x @ params["txt_in"]["w"] + params["txt_in"]["b"]
+
+
+def _sharded_forward(params, mesh, cfg, inputs, controlnet, repeat, stop_after, spec, remat,
+                     text_embedder):
     """`_forward` once for each data slice of the mesh on its rows, with
     the slice's parameters (FSDP dimensions gathered per layer) and tensor
     parallelism over `model` when that axis is above 1."""
@@ -168,7 +179,7 @@ def _sharded_forward(params, mesh, cfg, inputs, controlnet, repeat, stop_after, 
             # the slice's rows run the seq rings of its data index
             slice_spec = dataclasses.replace(spec, mesh=spec.mesh.sub(data=d), batch_axis=None)
         pred, sal = _forward(top, get_layer, tp, cfg, part, cn, repeat, stop_after, slice_spec,
-                             remat)
+                             remat, text_embedder)
         preds.append(None if pred is None else pred.to(first))
         saliencies.append({k: v.to(first) for k, v in sal.items()})
     pred = None if preds[0] is None else torch.cat(preds)
@@ -177,24 +188,25 @@ def _sharded_forward(params, mesh, cfg, inputs, controlnet, repeat, stop_after, 
 
 
 def _forward(params, get_layer, tp_axis, cfg, inputs, controlnet, controlnet_blocks_repeat,
-             stop_after_multimodal_attentions, spec, remat):
+             stop_after_multimodal_attentions, spec, remat, text_embedder):
     """The forward on one slice: `params` holds the non-stacked leaves,
     `get_layer(key, i)` layer i of the "double" / "single" stack (taken
-    inside each block's step, so under remat its gather is recomputed)."""
+    inside each block's step, so under remat its gather is recomputed);
+    `text_embedder(params, x, timesteps)` embeds the text and the concepts."""
     img, img_ids, txt, txt_ids = inputs["img"], inputs["img_ids"], inputs["txt"], inputs["txt_ids"]
     timesteps, y, guidance = inputs["timesteps"], inputs["y"], inputs["guidance"]
     concepts, concept_ids, concept_vec = (inputs["concepts"], inputs["concept_ids"],
                                           inputs["concept_vec"])
     controlnet_block_samples, controlnet_single_block_samples = controlnet
     img = img @ params["img_in"]["w"] + params["img_in"]["b"]
-    txt = txt @ params["txt_in"]["w"] + params["txt_in"]["b"]
+    txt = text_embedder(params, txt, timesteps)
     vec = _conditioning_vector(params, cfg, timesteps, guidance, y).to(img.dtype)
     pe = embed_nd(torch.cat([txt_ids, img_ids], dim=1), cfg.axes_dim, cfg.theta)
 
     concept_pe = cvec = None
     if concepts is not None:
         cvec = _conditioning_vector(params, cfg, timesteps, guidance, concept_vec).to(img.dtype)
-        concepts = concepts @ params["txt_in"]["w"] + params["txt_in"]["b"]
+        concepts = text_embedder(params, concepts, timesteps)
         concept_pe = embed_nd(
             torch.cat([concept_ids, img_ids], dim=1), cfg.axes_dim, cfg.theta
         )

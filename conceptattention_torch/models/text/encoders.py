@@ -38,6 +38,10 @@ class TextEncoders(Protocol):
         """-> [B, clip_dim]"""
         ...
 
+    # HunyuanVideo's pipeline takes, besides encode_clip:
+    #   encode_llm(prompts) -> ([B, t5_max_length, t5_dim], [valid length] * B)
+    # (the language model's states, padded, and how many slots are valid).
+
 
 class StubTextEncoders:
     """Deterministic, checkpoint-free text encoders for tests and benches."""
@@ -66,6 +70,17 @@ class StubTextEncoders:
             for p in prompts
         ]
         return torch.from_numpy(np.stack(rows))
+
+    def encode_llm(self, prompts: List[str]) -> Tuple[torch.Tensor, List[int]]:
+        """HunyuanVideo's text states: [B, t5_max_length, t5_dim] drawn like
+        `encode_t5`'s (padded slots hold states too, as a language model's
+        do), and each prompt's valid length, its word count clipped to
+        [1, t5_max_length]."""
+        states = torch.from_numpy(np.stack([
+            np.random.default_rng(self._seed(p, "llm"))
+            .standard_normal((self.t5_max_length, self.t5_dim)).astype(np.float32)
+            for p in prompts]))
+        return states, [min(self.t5_max_length, max(1, len(p.split()))) for p in prompts]
 
 
 class TorchTextEncoders:

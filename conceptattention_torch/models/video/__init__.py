@@ -1,1 +1,1 @@
-"""CogVideoX video DiT and 3D causal VAE."""
+"""CogVideoX video DiT and 3D causal VAE; HunyuanVideo on the Flux blocks."""

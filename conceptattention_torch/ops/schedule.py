@@ -37,3 +37,14 @@ def get_schedule(
             timesteps = time_shift(mu, 1.0, timesteps)
         timesteps[-1] = 0.0  # 1/t diverges at t=0; the limit is 0
     return [float(t) for t in timesteps]
+
+
+def get_shifted_schedule(num_steps: int, shift: float) -> List[float]:
+    """linspace 1 -> 0 over num_steps + 1, each t shifted to
+    shift t / (1 + (shift - 1) t): `time_shift` at mu = ln(shift), the
+    flow-matching schedule of HunyuanVideo (shift 7.0) and SD3."""
+    timesteps = np.linspace(1.0, 0.0, num_steps + 1, dtype=np.float64)
+    with np.errstate(divide="ignore"):
+        timesteps = time_shift(math.log(shift), 1.0, timesteps)
+    timesteps[-1] = 0.0  # 1/t diverges at t=0; the limit is 0
+    return [float(t) for t in timesteps]

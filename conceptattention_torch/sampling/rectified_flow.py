@@ -133,13 +133,18 @@ def denoise(
                     guidance=guidance_vec if cfg.guidance_embed else None, spec=spec,
                 )
                 pred = neg_pred + guidance_scale * (pred - neg_pred)
-            x = (x.float() + (t_prev - t_curr) * pred.float()).to(x.dtype)
+            x = euler_step(x, pred, t_prev - t_curr)
             if spec.stash_dtype == "bf16":
                 saliency = {k: v.to(torch.bfloat16) for k, v in saliency.items()}
             per_step.append(saliency)
         stacked = ({k: torch.stack([s[k] for s in per_step]) for k in per_step[0]}
                    if per_step else {})
         return x, stacked
+
+
+def euler_step(x: torch.Tensor, pred: torch.Tensor, dt) -> torch.Tensor:
+    """One Euler step x + dt * v of the flow, in f32, back in x's dtype."""
+    return (x.float() + dt * pred.float()).to(x.dtype)
 
 
 def forward_noise(x: torch.Tensor, noise: torch.Tensor, t: float) -> torch.Tensor:

@@ -95,11 +95,15 @@ SPANS = (
     PIPELINE_PREPARE, PIPELINE_REDUCE_MAPS, PIPELINE_TO_HOST,
     SAMPLER_DENOISE, DIT_FORWARD, VAE_ENCODE, VAE_DECODE,
 )
+# A span inside a layer's span, outside SPANS: the layer split of idle time
+# charges the layer around it. Each pass of HunyuanVideo's token refiner,
+# inside `ca.dit.forward`.
+DIT_REFINER = "ca.dit.refiner"
 _NO_SPAN = contextlib.nullcontext()
 
 
 def span(name: str):
-    """A context for the block named `name` (one of SPANS): while a
+    """A context for the block named `name` (one of SPANS, or DIT_REFINER): while a
     `torch.profiler` session records on the calling thread (a
     `device_trace` block, say), `torch.profiler.record_function(name)`,
     whose range the trace shows on the host's timeline; otherwise a shared
