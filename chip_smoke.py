@@ -138,7 +138,7 @@ Run from the root of a checkout: `python3 chip_smoke.py`. In order it
    as subprocesses at their defaults; (d) the gradio demo's handler through
    a stand-in gradio at flux-tiny; with no tile cache (XDG_CACHE_HOME points
    at a temporary directory, removed at exit) every D=128 call of the main
-   paths takes instance 0; every kernel's launch count (and the
+   paths takes the default instance; every kernel's launch count (and the
    Hopper instances', which take K1 at head dims 64, 128 and 512, K1b at
    head dim 128, K3, and K4's steps at head dims 64 and 128) is set to 0
    just before and read just after each run;
@@ -340,17 +340,37 @@ def drop_key_tile(want, args, start, **kw):
     return out
 
 
+def in_order_reading(args):
+    """Readings beside a K1 phase at head dim 128: the card time (`device_ms`,
+    the host's enqueue left out) of the default instance
+    (`fs.D128_DEFAULT_INSTANCE`) and of the in-order instance 0 that it
+    replaced as the default, on the same input, each launched directly,
+    uncounted, with the RoPE pre-pass."""
+    from conceptattention_torch.kernels import flash_saliency as fs
+
+    def launch(instance):
+        return lambda: fs._launch_sm90("ca_flash_saliency_sm90_bf16_instance", *args, instance)
+
+    def extra(got):
+        return {"default_device_ms": device_ms(launch(fs.D128_DEFAULT_INSTANCE)),
+                "in_order_device_ms": device_ms(launch(0))}
+    return extra
+
+
 def mma_sync_reading(args):
     """Readings beside a K1 phase that the Hopper instance takes: the
     mma.sync kernel (`csrc/flash_saliency.cu`, which took head dims 64, 128
-    and 512 before it) on the same input, launched directly, uncounted; and,
-    with tables, the Hopper instance's RoPE pre-pass alone."""
+    and 512 before it) on the same input, launched directly, uncounted; at
+    head dim 128 `in_order_reading`; and, with tables, the Hopper instance's
+    RoPE pre-pass alone."""
     from conceptattention_torch.kernels import flash_saliency as fs
 
     q, k, *_, cos, sin = args
 
     def extra(got):
         out = {"mma_sync_ms": time_ms(lambda: fs._launch("ca_flash_saliency_bf16", *args))}
+        if q.shape[-1] == 128:
+            out.update(in_order_reading(args)(got))
         if cos is not None:
             out["rope_prepass_ms"] = time_ms(lambda: fs.rope_qk_rows_cuda(q, k, cos, sin))
         return out
@@ -1970,9 +1990,12 @@ def hunyuan_path(counters, steps=HY_STEPS):
     HY_PROMPT gives 32 valid slots), `steps` Euler steps, the four concepts,
     cold and warm: each run's launches of `counters` (K1 a step: 20 double
     and 40 single blocks) and the D=128 instances', checked; the maps'
-    shape and values. -> (launches of one run, warm seconds, D=128 instance
-    launches of one run)."""
-    from conceptattention_torch.kernels.flash_saliency import fused_concept_flash_attention_hopper
+    shape and values; every K1 launch on the default D=128 instance. ->
+    (launches of one run, warm seconds, D=128 instance launches of one run)."""
+    from conceptattention_torch.kernels.flash_saliency import (
+        D128_DEFAULT_INSTANCE,
+        fused_concept_flash_attention_hopper,
+    )
     from conceptattention_torch.models.video.hunyuan import hunyuanvideo_config
     from conceptattention_torch.pipeline.video_pipeline import VideoConceptAttentionPipeline
 
@@ -1987,7 +2010,8 @@ def hunyuan_path(counters, steps=HY_STEPS):
         out, seconds, launches = counted(lambda: pipe.generate_video(
             HY_PROMPT, HY_CONCEPTS, num_frames=HY_FRAMES, height=HY_H, width=HY_W,
             num_inference_steps=steps, guidance_scale=6.0, seed=0), counters)
-        if launches[0] != per_run or launches[2] != per_run or instances[0] != per_run:
+        if (launches[0] != per_run or launches[2] != per_run
+                or instances[D128_DEFAULT_INSTANCE] != per_run):
             raise AssertionError(f"hunyuan generate_video launches {launches} (K1 instances "
                                  f"{instances}) != {per_run} a run")
         maps = out.concept_heatmaps
@@ -2147,6 +2171,7 @@ def eval_flash_phases(cfg):
                 b * 4 * d * mask.sum().item() * h, b * (4 * h * s * d * 2 + 2 * s * d * 4),
                 launches[(b, cross, self_attention, c)],
                 {"joint rows": slice(0, t + p), "concept rows": slice(t + p, s)}, controls,
+                extra=in_order_reading(args),
             ))
         del q, k, v, cos, sin, qr, kr
         torch.cuda.empty_cache()
@@ -5877,8 +5902,8 @@ def autotune_phases(cfg, cache_file):
     the input with PAD_ROWS more rows; then `autotune_tiles` sweeps the
     instances on a probe of the same workload (the shape's segments and
     mask mode, with RoPE, loop_rate) and writes its winner to `cache_file`.
-    The overlay is cleared after, so every later call takes instance 0.
-    Returns (phase results, {label: (overlay key, winner)})."""
+    The overlay is cleared after, so every later call takes the default
+    instance. Returns (phase results, {label: (overlay key, winner)})."""
     from conceptattention_torch.kernels import autotune
     from conceptattention_torch.kernels import flash_saliency as fs
 
@@ -5943,10 +5968,10 @@ def autotune_phases(cfg, cache_file):
 def tile_cache_round_trip(pipe, winners, cache_file, results):
     """(a) `load_tile_cache` reads back the sweep's winners from
     `cache_file`; a cache naming a non-default instance (the eval shape's
-    winner, or the last instance when that is 0) at the workload of a 512²
+    winner, or instance 0 when that is the default) at the workload of a 512²
     `encode_image`'s double blocks (B1 H24, S=1283: 256 txt, 1024 img, 3
     concept rows, the (T, T) mode) makes its 19 K1 launches take that
-    instance, and its heatmaps match instance 0's at the encode limit.
+    instance, and its heatmaps match the default instance's at the encode limit.
     Clears the overlay after. Returns {path: per-instance launches}."""
     import shutil
     import tempfile
@@ -5961,7 +5986,8 @@ def tile_cache_round_trip(pipe, winners, cache_file, results):
     loaded = autotune.load_tile_cache(cache_file)
     want = dict(winners.values())
     _, eval_winner = winners["eval double block"]
-    inst = eval_winner or n - 1
+    default = fs.D128_DEFAULT_INSTANCE
+    inst = eval_winner if eval_winner != default else 0
     p_enc = (TILE_ROUND_TRIP_SIZE // 16) ** 2
     s_enc = 256 + p_enc + len(CONCEPTS)
     enc_key = fs.tile_key(128, s_enc, pipe.cfg.num_heads, 256, p_enc, len(CONCEPTS))
@@ -5995,13 +6021,15 @@ def tile_cache_round_trip(pipe, winners, cache_file, results):
     depth = pipe.cfg.depth
     ok = (loaded == want and steered == {enc_key: inst}
           and tuned_launches == [depth * (i == inst) for i in range(n)]
-          and base_launches == [depth * (i == 0) for i in range(n)] and rms <= ENCODE_IMAGES_LIMIT)
+          and base_launches == [depth * (i == default) for i in range(n)]
+          and rms <= ENCODE_IMAGES_LIMIT)
     print(f"autotune: load_tile_cache of the sweep's file {sorted(loaded.items())} (want "
           f"{sorted(want.items())}); a cache naming instance {inst} "
           f"{fs.FLASH_D128_INSTANCES[inst]} at {enc_key}: "
           f"encode_image {TILE_ROUND_TRIP_SIZE}x{TILE_ROUND_TRIP_SIZE} launches per instance "
           f"{tuned_launches}, without it {base_launches}; heatmaps' relative RMS against "
-          f"instance 0's {rms} (limit {ENCODE_IMAGES_LIMIT}): ok={ok}", flush=True)
+          f"the default instance {default}'s {rms} (limit {ENCODE_IMAGES_LIMIT}): ok={ok}",
+          flush=True)
     if not ok:
         raise AssertionError("the tile cache's round trip or the instance it names is off")
     return {f"encode_image {TILE_ROUND_TRIP_SIZE}² (tile cache naming instance {inst})":
@@ -6041,7 +6069,8 @@ def launch_delta(run):
     return {k: v - before[k] for k, v in launch_counts().items() if v != before[k]}
 
 
-K1_KERNEL = "flash_saliency_sm90_kernel<128, 128, 128, 2, 0, 1>"  # instance 0
+# the default D=128 instance (3: OVERLAP_WIDE is schedule 3)
+K1_KERNEL = "flash_saliency_sm90_kernel<128, 128, 192, 2, 3, 1>"
 K1B_KERNEL = "flash_saliency_int8_sm90_kernel"
 
 
@@ -6159,7 +6188,8 @@ def graphed_forward_paths(pipe, qpipe):
     keys = [f"flash_saliency (Hopper D=128 instance {i} {name})"
             for i, name in enumerate(fs.FLASH_D128_INSTANCES)]
     bf16 = graphed_forward_check(
-        pipe, "bf16", {"flash_saliency": per_forward, keys[0]: per_forward}, K1_KERNEL, loop=True)
+        pipe, "bf16", {"flash_saliency": per_forward, keys[fs.D128_DEFAULT_INSTANCE]: per_forward},
+        K1_KERNEL, loop=True)
     graphed_forward_check(
         qpipe, "w8a8 + int8_qk", {"flash_saliency_int8": per_forward,
                                   "flash_saliency_int8 (Hopper instance)": per_forward}, K1B_KERNEL)
@@ -6359,6 +6389,7 @@ def main() -> int:
     from conceptattention_torch.kernels import _build
     from conceptattention_torch.kernels.conv3x3 import conv3x3_same, conv3x3_same_hopper
     from conceptattention_torch.kernels.flash_saliency import (
+        D128_DEFAULT_INSTANCE,
         FLASH_D128_INSTANCES,
         fused_concept_flash_attention,
         fused_concept_flash_attention_hopper,
@@ -6466,11 +6497,12 @@ def main() -> int:
     # K1's Hopper instance takes every DiT block (head dim 128) and the VAE's
     # mid-attention (head dim 512)
     want_gen = [per_image + 1, sum(conv_counts.values()), per_image + 1, sum(conv_counts.values())]
-    # with no tile cache every D=128 call takes instance 0
+    # with no tile cache every D=128 call takes the default instance
     n_instances = len(FLASH_D128_INSTANCES)
     instances = fused_concept_flash_attention_hopper.instance_launches
-    want_instances = {"generate_image": [per_image] + [0] * (n_instances - 1),
-                      "encode_image": [cfg.depth] + [0] * (n_instances - 1)}
+    want_instances = {path: [calls * (i == D128_DEFAULT_INSTANCE) for i in range(n_instances)]
+                      for path, calls in (("generate_image", per_image),
+                                          ("encode_image", cfg.depth))}
     gen_seconds = []
     for _ in range(2):
         instances[:] = [0] * n_instances

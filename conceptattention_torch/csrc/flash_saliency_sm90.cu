@@ -5,7 +5,7 @@
 //   K1 fused_concept_flash_attention (Pallas body _flash_kernel) at head
 //     dims 64, 128 and 512:
 //     D = 128, the flux double blocks (S = 4355 with concepts) and single
-//       blocks (S = 4352);
+//       blocks (S = 4352), and HunyuanVideo's (S ~ 67.5k);
 //     D = 64, the CogVideoX-5b blocks (B = 2, 48 heads, S = 18002);
 //     D = 512, the flux VAE decoder's mid-attention (one head, S = 16384, no
 //       RoPE, no concepts);
@@ -37,7 +37,21 @@
 //     wgmma P V with P from registers.
 //
 // The instances (<D, DC, HK, STAGES, schedule, heads per block>):
-//   D = 128: <128, 128, 128, 2, in order, 1>, the flux DiT blocks' kernel;
+//   D = 128: <128, 128, 192, 2, overlap wide, 1>, the flux and HunyuanVideo
+//     DiT blocks' kernel (instance 3 of the run-time choice below). The
+//     exponentials cost half the products (S^2 exp2 at 16 a clock per SM
+//     against 4 S^2 D flops), so the softmax has to run beside the products
+//     as at D = 64, but OVERLAP holds o[64], s[HK/2] and P[HK/4] and spilled
+//     under the 168 registers of a three-warpgroup block. The producer
+//     warpgroup gives its registers to the consumers (setmaxnreg: 24 for the
+//     producer, 240 for each consumer, 64,512 of the SM's 65,536), and with
+//     them the overlap fits 192-key tiles (s[96], P[48]: the wgmma's N; the
+//     ring of two 96 KB stages and the 32 KB Q tile fill 225 KB of shared
+//     memory) without a spill. The consumers' waits spin without the
+//     watchdog (a trap on their path sends ptxas back to 168 registers); the
+//     producer's keep it. D = 64 keeps its 168 registers (its overlap fits
+//     them), and so do D = 512, K3, K1b and K4's step: their instances
+//     compile as before (the schedule value gates every change);
 //   D = 64: the exponentials cost as much as the products (B H S^2 = 3.1e10
 //     exp2 at 16 a clock per SM is ~8 ms, as the tensor cores' 7.95 ms), so
 //     the softmax has to run beside the products: schedule "overlap" issues
@@ -70,14 +84,18 @@
 //     (ca_flash_saliency_sm90_bf16_instance; kernels/autotune.py measures
 //     them on the card, the port's counterpart of the JAX autotuner's tile
 //     sweep, since the tile shape here is fixed at compile time):
-//     0 <128, 128, 128, 2, in order, 1>, the default above;
+//     0 <128, 128, 128, 2, in order, 1>, one tile's steps at a time;
 //     1 <128, 128, 128, 2, pingpong, 1>, K1b's schedule: one consumer
 //       warpgroup's softmax runs while the other's products do;
 //     2 <128, 128, 64, 4, in order, 1>, 64-key tiles and a 4-deep ring, for
-//       rows that walk few key tiles (S ~ 1286: 11 tiles of 128 keys).
-//     (The output split in two 64-column chunks, <128, 64, 128, 2, in
-//     order, 1>, was a candidate too; it computes Q K^T twice and lost to
-//     instance 0 at every shape measured, so it is not compiled.)
+//       rows that walk few key tiles (S ~ 1286: 11 tiles of 128 keys);
+//     3 <128, 128, 192, 2, overlap wide, 1>, the default above: faster than
+//       0-2 at every shape measured, from S = 1286 (7 tiles a row) to
+//       67.5k (351).
+//     (Not compiled, each slower than instance 3 where it was timed: the
+//     output split in two 64-column chunks, <128, 64, 128, 2, in order, 1>,
+//     which computes Q K^T twice; the wide overlap on 128- and 176-key tiles,
+//     with a third ring stage, and with pingpong's turns on top.)
 // Not yet done: a TMA store of the output, a persistent grid, multicast of
 // K and V across a cluster (the D = 512 instance streams 20 MB a block from
 // L2).
@@ -167,6 +185,7 @@ flash_saliency_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
   const int t0 = run.x, t1 = run.y, n = t1 - t0;  // uniform over the block
 
   if (wg == CONSUMERS / 128) {  // the producer warpgroup
+    if constexpr (ML::WIDE) setmaxnreg_dec<PRODUCER_REGS>();
     if (threadIdx.x == CONSUMERS && n > 0) {
       for (int h = 0; h < NH; ++h) {
         produce_q<D>(sQ + h * Q_BYTES, &map_q, q_full + h, q0, bh0 + h);
@@ -175,6 +194,7 @@ flash_saliency_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
     }
     return;
   }
+  if constexpr (ML::WIDE) setmaxnreg_inc<CONSUMER_REGS>();
 
   // Consumers. Thread (warpgroup wg, lane) of warp w holds rows row_lo and
   // row_lo + 8; its score element i sits at row (i & 2 ? hi : lo), key
@@ -316,6 +336,7 @@ int ca_flash_saliency_sm90_bf16_instance(const void* q, const void* k, const voi
       case 0: return launch<128, 128, 128, 2, IN_ORDER, 1>(q, k, v, out, bh, g, score_mul, s);
       case 1: return launch<128, 128, 128, 2, PINGPONG, 1>(q, k, v, out, bh, g, score_mul, s);
       case 2: return launch<128, 128, 64, 4, IN_ORDER, 1>(q, k, v, out, bh, g, score_mul, s);
+      case 3: return launch<128, 128, 192, 2, OVERLAP_WIDE, 1>(q, k, v, out, bh, g, score_mul, s);
       default: return cudaErrorInvalidValue;
     }
   }

@@ -33,7 +33,7 @@
 // defining accumulator registers of a wgmma between start and end of the
 // pipeline stage").
 //
-// Consumer schedules, fixed per head dim:
+// Consumer schedules, fixed per kernel instance:
 //   IN_ORDER: scores, softmax, P.V of one tile, then the next tile;
 //   OVERLAP: tile j+1's Q K^T and softmax beside tile j's P.V (needs
 //     STAGES >= 2; one warpgroup holds o[DC/2], s[HK/2] and P[HK/4]);
@@ -41,13 +41,27 @@
 //     at the tensor cores (named barriers 1 and 2): in its turn a
 //     warpgroup issues tile j-1's P.V, waits for it and issues tile j's
 //     Q K^T, then hands the turn over, so one warpgroup's softmax runs
-//     while the other's products do.
+//     while the other's products do;
+//   OVERLAP_WIDE: OVERLAP on the registers the producer gives up (below),
+//     with the output's rescale by tile j+1's factors moved from the end of
+//     that step (after tile j's P.V lands) into the next step, between the
+//     issue of tile j+2's Q K^T and that of tile j+1's P.V: it runs while
+//     the Q K^T does, and a step ends with packing P alone. No turns: the
+//     two warpgroups' overlapped steps interleave at the tensor cores by
+//     themselves (PINGPONG's turns on top of it timed the same).
 //
 // Registers: a block of three warpgroups compiles to at most 168 registers
 // a thread (each SM sub-partition holds 16384 and one warp of every
-// warpgroup). Every branch between a wgmma issue and its wait is uniform
-// over the block (the tile run, the mask decision) and row guards on stores
-// are predicates, not branches: ptxas serialises wgmma in a divergent path.
+// warpgroup). OVERLAP at head dim 128 needs more (o[64], s[HK/2], P[HK/4]):
+// under 168 ptxas spills it and serialises its wgmma. OVERLAP_WIDE's kernel
+// moves registers with setmaxnreg: the producer warpgroup drops to
+// PRODUCER_REGS and each consumer warpgroup rises to CONSUMER_REGS, and
+// ptxas allocates the consumers' path to that budget, provided no trap
+// lies on it: its waits spin without mbar_wait's watchdog (mbar_wait_spin),
+// while the producer's keep it. Every branch between a wgmma issue and its
+// wait is uniform over the block (the tile run, the mask decision) and row
+// guards on stores are predicates, not branches: ptxas serialises wgmma in
+// a divergent path.
 #pragma once
 
 #include "flash_common.cuh"
@@ -59,7 +73,10 @@ using namespace hopper;
 
 constexpr int HQ = 128;                        // query rows per block
 constexpr int CONSUMERS = 256, THREADS = 384;  // two consumer warpgroups + the producer's
-constexpr int IN_ORDER = 0, OVERLAP = 1, PINGPONG = 2;  // consumer schedules
+constexpr int IN_ORDER = 0, OVERLAP = 1, PINGPONG = 2, OVERLAP_WIDE = 3;  // consumer schedules
+// OVERLAP_WIDE's register budgets (setmaxnreg): 128 x (24 + 2 x 240) = 64,512
+// of the SM's 65,536.
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
 
 template <int D, int HK>
 struct Bf16QK;
@@ -180,7 +197,9 @@ __device__ __forceinline__ void issue_qk(float (&s)[HK / 2], const unsigned char
     const uint32_t off = (kk % 4) * 32;
     const uint64_t da = qd + (((kk / 4) * Q_ATOM + off) >> 4);
     const uint64_t db = kd + (((kk / 4) * K_ATOM + off) >> 4);
-    if constexpr (HK == 128) {
+    if constexpr (HK == 192) {
+      wgmma_m64n192k16_ss<0>(s, da, db, kk > 0);
+    } else if constexpr (HK == 128) {
       wgmma_m64n128k16_ss<0>(s, da, db, kk > 0);
     } else {
       wgmma_m64n64k16_ss<0>(s, da, db, kk > 0);
@@ -373,15 +392,27 @@ __device__ __forceinline__ float2 softmax_tile(float (&s)[HK / 2], RowState& st,
   return alpha;
 }
 
+// O *= alpha per row.
+template <int NO>
+__device__ __forceinline__ void rescale(float (&o)[NO], float2 alpha) {
+#pragma unroll
+  for (int i = 0; i < NO; ++i) o[i] *= (i & 2) ? alpha.y : alpha.x;
+}
+
+// P = bf16(s) as the A fragments of the next P.V.
+template <int HK>
+__device__ __forceinline__ void pack(const float (&s)[HK / 2], uint32_t (&pa)[HK / 4]) {
+#pragma unroll
+  for (int i = 0; i < HK / 4; ++i) pa[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+}
+
 // O *= alpha per row, then P = bf16(s) as the A fragments of the next P.V.
 template <int NO, int HK>
 __device__ __forceinline__ void rescale_and_pack(float (&o)[NO], float2 alpha,
                                                  const float (&s)[HK / 2],
                                                  uint32_t (&pa)[HK / 4]) {
-#pragma unroll
-  for (int i = 0; i < NO; ++i) o[i] *= (i & 2) ? alpha.y : alpha.x;
-#pragma unroll
-  for (int i = 0; i < HK / 4; ++i) pa[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+  rescale<NO>(o, alpha);
+  pack<HK>(s, pa);
 }
 
 // The row sums of the quad (whole-row sums on every lane of the quad).
@@ -435,6 +466,17 @@ struct Mainloop {
   using Acc = typename QK::Acc;
   static constexpr int NO = DC / 2;  // f32 output registers per thread (m64nDC)
   static_assert(SCHED == IN_ORDER || STAGES >= 2, "the overlap keeps two tiles in flight");
+  // The kernel raises the consumers' registers (setmaxnreg), and their waits
+  // spin without the watchdog.
+  static constexpr bool WIDE = SCHED == OVERLAP_WIDE;
+
+  static __device__ __forceinline__ void wait_phase(uint64_t* bar, uint32_t parity) {
+    if constexpr (WIDE) {
+      mbar_wait_spin(bar, parity);
+    } else {
+      mbar_wait(bar, parity);
+    }
+  }
 
   // Waits for Q (q_bar) and the run's first K tile (ring position it0), and
   // issues its Q K^T into acc. The caller runs `rest` next.
@@ -445,8 +487,8 @@ struct Mainloop {
       give_turn(consumer_wg(), consumer_wg() == 1);  // warpgroup 0 takes the first turn
       take_turn(consumer_wg());
     }
-    mbar_wait(q_bar, 0);
-    mbar_wait(r.k_full(it0 % STAGES), (it0 / STAGES) & 1);
+    wait_phase(q_bar, 0);
+    wait_phase(r.k_full(it0 % STAGES), (it0 / STAGES) & 1);
     wgmma_fence();
     QK::issue(acc, sQw, r.k_tile(it0 % STAGES));
     if constexpr (SCHED == PINGPONG) give_turn(consumer_wg(), true);
@@ -478,13 +520,13 @@ struct Mainloop {
         const int pit = it0 + j - 1, pst = pit % STAGES, it = pit + 1, st = it % STAGES;
         const int t = t0 + j;
         take_turn(wg);
-        mbar_wait(r.v_full(pst), (pit / STAGES) & 1);
+        wait_phase(r.v_full(pst), (pit / STAGES) & 1);
         wgmma_fence();
         issue_pv<DC, HK>(o, pa, r.v_tile(pst));
         wgmma_wait<0>();
         fence_regs(o);
         warp_arrive(r.v_empty(pst), lane);
-        mbar_wait(r.k_full(st), (it / STAGES) & 1);
+        wait_phase(r.k_full(st), (it / STAGES) & 1);
         wgmma_fence();
         QK::issue(acc, sQw, r.k_tile(st));
         give_turn(wg, true);
@@ -500,7 +542,7 @@ struct Mainloop {
       }
       const int lit = it0 + n - 1, lst = lit % STAGES;
       take_turn(wg);
-      mbar_wait(r.v_full(lst), (lit / STAGES) & 1);
+      wait_phase(r.v_full(lst), (lit / STAGES) & 1);
       wgmma_fence();
       issue_pv<DC, HK>(o, pa, r.v_tile(lst));
       give_turn(wg, wg == 0);  // warpgroup 1's would open a turn no one takes
@@ -508,7 +550,7 @@ struct Mainloop {
       fence_regs(o);
       warp_arrive(r.v_empty(lst), lane);
     } else if constexpr (SCHED == IN_ORDER) {
-      mbar_wait(r.v_full(st0), (it0 / STAGES) & 1);
+      wait_phase(r.v_full(st0), (it0 / STAGES) & 1);
       wgmma_fence();
       issue_pv<DC, HK>(o, pa, r.v_tile(st0));
       wgmma_wait<0>();
@@ -517,7 +559,7 @@ struct Mainloop {
       for (int j = 1; j < n; ++j) {
         const int it = it0 + j, st = it % STAGES, t = t0 + j;
         const uint32_t ph = (it / STAGES) & 1;
-        mbar_wait(r.k_full(st), ph);
+        wait_phase(r.k_full(st), ph);
         wgmma_fence();
         QK::issue(acc, sQw, r.k_tile(st));
         wgmma_wait<0>();
@@ -529,7 +571,7 @@ struct Mainloop {
             softmax_tile<HK>(s, rs, mask.full(t), qk.row_mul(score_mul), vis_lo, vis_hi,
                              t * HK + qc);
         rescale_and_pack<NO, HK>(o, alpha, s, pa);
-        mbar_wait(r.v_full(st), ph);
+        wait_phase(r.v_full(st), ph);
         wgmma_fence();
         issue_pv<DC, HK>(o, pa, r.v_tile(st));
         wgmma_wait<0>();
@@ -541,13 +583,19 @@ struct Mainloop {
       // waits for the first, runs tile j's softmax while the P.V is in
       // flight, waits for the second and rescales. pa (tile j-1's P, read by
       // the P.V in flight) and o are not touched between the issue and the
-      // second wait.
+      // second wait. WIDE rescales o by tile j-1's factors (alpha_prev)
+      // after the Q K^T's issue instead, and packs P alone after the wait.
+      float2 alpha_prev = make_float2(1.f, 1.f);  // WIDE: o's pending factors
       for (int j = 1; j < n; ++j) {
         const int it = it0 + j, st = it % STAGES, pst = (it - 1) % STAGES;
-        mbar_wait(r.k_full(st), (it / STAGES) & 1);
-        mbar_wait(r.v_full(pst), ((it - 1) / STAGES) & 1);
+        wait_phase(r.k_full(st), (it / STAGES) & 1);
+        wait_phase(r.v_full(pst), ((it - 1) / STAGES) & 1);
         wgmma_fence();
         QK::issue(acc, sQw, r.k_tile(st));
+        if constexpr (WIDE) {
+          rescale<NO>(o, alpha_prev);
+          wgmma_fence();
+        }
         issue_pv<DC, HK>(o, pa, r.v_tile(pst));
         wgmma_wait<1>();
         fence_regs(acc);
@@ -561,10 +609,16 @@ struct Mainloop {
         wgmma_wait<0>();
         fence_regs(o);
         warp_arrive(r.v_empty(pst), lane);
-        rescale_and_pack<NO, HK>(o, alpha, s, pa);
+        if constexpr (WIDE) {
+          pack<HK>(s, pa);
+          alpha_prev = alpha;
+        } else {
+          rescale_and_pack<NO, HK>(o, alpha, s, pa);
+        }
       }
       const int lit = it0 + n - 1, lst = lit % STAGES;
-      mbar_wait(r.v_full(lst), (lit / STAGES) & 1);
+      if constexpr (WIDE) rescale<NO>(o, alpha_prev);
+      wait_phase(r.v_full(lst), (lit / STAGES) & 1);
       wgmma_fence();
       issue_pv<DC, HK>(o, pa, r.v_tile(lst));
       wgmma_wait<0>();

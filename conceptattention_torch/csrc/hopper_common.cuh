@@ -2,10 +2,11 @@
 // (csrc/flash_saliency_sm90.cu, csrc/ring_attention_sm90.cu through
 // csrc/flash_sm90.cuh, csrc/flash_saliency_int8_sm90.cu, and
 // csrc/conv3x3_sm90.cu): mbarrier waits and arrivals, named barriers,
-// predicated global loads and stores, TMA tensor loads and stores, the wgmma
-// shared-memory descriptor for 128-byte swizzled tiles, wgmma fences, bf16
-// products with f32 accumulators (m64 by n64, n128 or n256 with A from
-// shared memory; by n64 or n128 with A from registers) and the s8 product
+// register reallocation between warpgroups (setmaxnreg), predicated global
+// loads and stores, TMA tensor loads and stores, the wgmma shared-memory
+// descriptor for 128-byte swizzled tiles, wgmma fences, bf16 products with
+// f32 accumulators (m64 by n64, n128, n192 or n256 with A from shared
+// memory; by n64 or n128 with A from registers) and the s8 product
 // with s32 accumulators (m64n128k32, both operands K-major in shared
 // memory), and the host-side tensor-map encoder, looked up in libcuda
 // at run time through the CUDA runtime's entry-point query, so no library
@@ -83,6 +84,25 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
+// mbar_wait without the watchdog, for the consumer warpgroups of a kernel
+// that raises their registers with setmaxnreg: a trap anywhere on their path,
+// in the loop or after it, makes ptxas allocate that path at the launch's
+// budget (168 registers a thread in a block of three warpgroups), spill, and
+// serialise its wgmma. The producer's waits keep the watchdog, so a ring
+// that stops filling still ends the launch with an error.
+__device__ __forceinline__ void mbar_wait_spin(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
 // ---- TMA ------------------------------------------------------------------
 
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
@@ -154,6 +174,23 @@ __device__ __forceinline__ void named_barrier_arrive_if(int id, int count, bool 
   asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %2, 0;\n@p bar.arrive %0, %1;\n}\n" ::"r"(id),
                "r"(count), "r"((int)pred)
                : "memory");
+}
+
+// Register reallocation between warpgroups (sm_90a): every thread of the
+// warpgroup lowers (dec) or raises (inc) its register budget to N, a multiple
+// of 8 in [24, 256]. An inc waits until the block's pool holds the registers
+// that other warpgroups' dec gave back. ptxas allocates the code after an inc
+// to its budget, unless a trap lies on that path (see mbar_wait_spin).
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  static_assert(N % 8 == 0 && N >= 24 && N <= 256, "setmaxnreg's register counts");
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  static_assert(N % 8 == 0 && N >= 24 && N <= 256, "setmaxnreg's register counts");
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // ---- predicated global loads and stores -------------------------------------
@@ -271,6 +308,20 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
       "%32, %33, p, 1, 1, 0, %35;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TB));
+}
+
+// d (64 x 192 f32) += A (64 x 16, shared memory) * B (16 x 192, shared memory); scale_d = 0
+// overwrites d. TB = 1 reads B N-major (the "transpose" bit), 0 K-major.
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n192k16_ss(float (&d)[96], uint64_t desc_a, uint64_t desc_b,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "%96, %97, p, 1, 1, 0, %99;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TB));
 }
 

@@ -17,7 +17,7 @@ The probe defaults to JAX's, pure self-attention (`txt_len=S`), which is
 the flux single blocks' call; `segments=` times the double blocks' (txt,
 img, concept) layout. It runs the mask mode the flux blocks use, the
 concept rows' cross- and self-attention both on; calls in another mode
-(the ablations) keep instance 0.
+(the ablations) keep the default instance (`flash_saliency.default_instance`).
 
 A candidate whose shape contract refuses the input (a ValueError raised
 before any launch) is skipped; a CUDA error is never swallowed, because the
@@ -169,7 +169,7 @@ def _tile_key(seq_len, head_dim, batch_heads, segments):
 
 def register_tuned_tiles(seq_len: int, instance: int, head_dim: int = 128,
                          batch_heads: int = 24, segments: Optional[Sequence[int]] = None) -> None:
-    """Runtime overlay: takes precedence over the default instance 0 for
+    """Runtime overlay: takes precedence over the default instance for
     calls of this workload (segments None: pure self-attention) in the
     flux blocks' mask mode."""
     from conceptattention_torch.kernels import flash_saliency

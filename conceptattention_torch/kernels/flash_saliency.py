@@ -43,7 +43,8 @@ the JAX kernel chooses its tiles (`_auto_tiles`): the overlay
 `_TUNED_TILES`, keyed on the call's workload (`tile_key`: head dim, S,
 B x H, the segments and the mask mode) and filled by `kernels/autotune.py`
 (its sweep, or its per-card cache read once, lazily, at the first card
-call), else instance 0.
+call), else the head dim's default (`default_instance`: at 128 the
+register-reallocating overlap, instance 3, at every S).
 `fused_concept_flash_attention_hopper.instance_launches` counts the launches
 of each.
 """
@@ -77,7 +78,11 @@ FLASH_D128_INSTANCES = (
     "<128, 128, 128, 2, in order, 1>",
     "<128, 128, 128, 2, pingpong, 1>",
     "<128, 128, 64, 4, in order, 1>",
+    "<128, 128, 192, 2, overlap wide, 1>",
 )
+# The instance a D=128 call takes without a tuned entry: the overlap on the
+# producer's registers (setmaxnreg), faster than 0-2 from S=1286 to S=67.5k.
+D128_DEFAULT_INSTANCE = 3
 # {tile_key(...): instance}: the run-time overlay that `kernels/autotune.py`
 # fills (`register_tuned_tiles`, `load_tile_cache`).
 _TUNED_TILES: Dict[Tuple[int, ...], int] = {}
@@ -299,6 +304,12 @@ def hopper_instances(head_dim: int) -> Tuple[int, ...]:
     return (0,) if head_dim in HOPPER_HEAD_DIMS else ()
 
 
+def default_instance(head_dim: int) -> int:
+    """The instance a call at this head dim takes without a tuned overlay
+    entry: `D128_DEFAULT_INSTANCE` at 128, the only one (0) elsewhere."""
+    return D128_DEFAULT_INSTANCE if head_dim == 128 else 0
+
+
 def tile_key(head_dim: int, seq_len: int, batch_heads: int, txt_len: int, img_len: int,
              concept_len: int, cross: bool = True, self_attention: bool = True) -> Tuple[int, ...]:
     """The overlay's key: everything that sets a call's work and block
@@ -309,16 +320,16 @@ def tile_key(head_dim: int, seq_len: int, batch_heads: int, txt_len: int, img_le
 
 def _auto_instance(*key) -> int:
     """The instance a call of `tile_key(*key)` takes: the tuned overlay's
-    entry, else 0. The first call reads the card's tile cache into the
-    overlay (`autotune.load_tile_cache`; a missing or corrupt file leaves
-    it empty)."""
+    entry, else the head dim's default (`default_instance`). The first call
+    reads the card's tile cache into the overlay (`autotune.load_tile_cache`;
+    a missing or corrupt file leaves it empty)."""
     global _tile_cache_loaded
     if not _tile_cache_loaded:
         _tile_cache_loaded = True  # one attempt; no cache is the common case
         from conceptattention_torch.kernels import autotune
 
         autotune.load_tile_cache()
-    return _TUNED_TILES.get(tile_key(*key), 0)
+    return _TUNED_TILES.get(tile_key(*key), default_instance(key[0]))
 
 
 def _sm90_library() -> ctypes.CDLL:
@@ -370,7 +381,7 @@ def fused_concept_flash_attention_hopper(
     every q and k row once (`rope_qk_rows_cuda`) and the main kernel scores
     them at scale 1; without, it scores q and k as given at
     log2(e)/sqrt(D). `instance` picks one of `hopper_instances(D)`; None
-    takes the tuned overlay's, else 0 (`_auto_instance`). An index outside
+    takes the tuned overlay's, else the default (`_auto_instance`). An index outside
     them raises ValueError before any launch, on the CPU too."""
     refuse_autograd("fused_concept_flash_attention_hopper", q, k, v, rope_cos, rope_sin)
     d = q.shape[-1]

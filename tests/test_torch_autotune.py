@@ -62,8 +62,12 @@ def sweep(cache, candidates, s=256, **kw):
 class TestCandidates:
     def test_every_compiled_instance_at_head_dim_128(self):
         cands = candidate_tiles(4355)
-        assert cands == list(range(len(fs.FLASH_D128_INSTANCES))) and len(cands) >= 3
+        assert cands == list(range(len(fs.FLASH_D128_INSTANCES))) and len(cands) >= 4
         # the default instance, the one every call takes without a tuned entry, is a candidate
+        default = fs.default_instance(128)
+        assert default in cands
+        assert fs.FLASH_D128_INSTANCES[default] == "<128, 128, 192, 2, overlap wide, 1>"
+        # the in-order instance that was the default stays compiled, as a candidate
         assert cands[0] == 0 and fs.FLASH_D128_INSTANCES[0] == "<128, 128, 128, 2, in order, 1>"
 
     @pytest.mark.parametrize("d", [64, 512])
@@ -75,13 +79,19 @@ class TestCandidates:
         assert candidate_tiles(128) == candidate_tiles(1286) == candidate_tiles(4355)
 
 
+DEFAULT = fs.D128_DEFAULT_INSTANCE
+
+
 class TestPrecedence:
     def test_tuned_overlay_beats_the_default(self):
-        assert fs._auto_instance(*pure(4355, 24)) == 0
+        assert fs._auto_instance(*pure(4355, 24)) == DEFAULT
         register_tuned_tiles(4355, 2, 128, 24)
         assert fs._auto_instance(*pure(4355, 24)) == 2
         # the overlay is keyed on the workload: other calls keep the default
-        assert fs._auto_instance(*pure(4355, 12)) == 0
+        assert fs._auto_instance(*pure(4355, 12)) == DEFAULT
+        assert fs._auto_instance(*pure(4352, 24)) == DEFAULT
+        # an overlay entry naming the old default, instance 0, is taken too
+        register_tuned_tiles(4352, 0, 128, 24)
         assert fs._auto_instance(*pure(4352, 24)) == 0
 
     def test_a_winner_steers_only_its_own_workload(self):
@@ -92,13 +102,36 @@ class TestPrecedence:
         double = (256, 4096, 3)
         register_tuned_tiles(4355, 1, 128, 24, segments=double)
         assert fs._auto_instance(*fs.tile_key(128, 4355, 24, *double)) == 1
-        assert fs._auto_instance(*pure(4355, 24)) == 0
-        assert fs._auto_instance(*fs.tile_key(128, 4355, 24, *double, True, False)) == 0
+        assert fs._auto_instance(*pure(4355, 24)) == DEFAULT
+        assert fs._auto_instance(*fs.tile_key(128, 4355, 24, *double, True, False)) == DEFAULT
         register_tuned_tiles(4355, 2, 128, 24)
         assert fs._auto_instance(*fs.tile_key(128, 4355, 24, *double)) == 1
 
     def test_default_when_untuned(self):
-        assert fs._auto_instance(*pure(2304, 24)) == 0
+        assert fs._auto_instance(*pure(2304, 24)) == DEFAULT
+
+    @pytest.mark.parametrize("key", [
+        (128, 4355, 24, 256, 4096, 3),     # flux double block
+        (128, 4352, 24, 4352, 0, 0),       # flux single block
+        (128, 67356, 24, 32, 67320, 4),    # HunyuanVideo double block, 32 text rows
+        (128, 67352, 24, 67352, 0, 0),     # HunyuanVideo single block
+        (128, 67580, 24, 256, 67320, 4),   # HunyuanVideo double block, 256 text rows
+        (128, 1286, 24, 256, 1024, 6),     # eval double block, 11 key tiles of 128
+        (128, 1286, 192, 256, 1024, 6),    # the encode cell's B8
+    ], ids=["flux-double", "flux-single", "hunyuan-double", "hunyuan-single",
+            "hunyuan-double-256", "eval-b1", "eval-b8"])
+    def test_default_without_a_tuned_entry(self, key):
+        """With no overlay entry every D=128 call takes the register-
+        reallocating overlap, from the eval path's short rows to
+        HunyuanVideo's 67k-token ones: it led instances 0-2 at each."""
+        assert fs._TUNED_TILES == {}
+        assert fs._auto_instance(*key) == DEFAULT == fs.default_instance(128)
+        assert fs.FLASH_D128_INSTANCES[DEFAULT] == "<128, 128, 192, 2, overlap wide, 1>"
+
+    @pytest.mark.parametrize("d", [64, 512])
+    def test_other_head_dims_default_to_their_one_instance(self, d):
+        assert fs.default_instance(d) == 0
+        assert fs._auto_instance(*fs.tile_key(d, 18002, 96, 226, 17550, 226)) == 0
 
     def test_cache_is_read_once_and_lazily(self, tmp_path, monkeypatch):
         cache = tmp_path / "tiles.json"
@@ -112,7 +145,7 @@ class TestPrecedence:
         assert fs._auto_instance(*eval_call) == 2
         cache.write_text("{}")
         fs._TUNED_TILES.clear()
-        assert fs._auto_instance(*eval_call) == 0  # not read again
+        assert fs._auto_instance(*eval_call) == DEFAULT  # not read again
 
 
 class TestSweepAndCache:
@@ -215,7 +248,7 @@ def test_cli_sweeps_and_caches(tmp_path, capsys):
     autotune.main(["--seq", "64", "--batch", "1", "--heads", "1", "--iters", "1",
                    "--device", "cpu", "--cache_path", str(cache)])
     out = capsys.readouterr().out
-    assert "S=64: sweeping 3 instances" in out and "best instance" in out
+    assert "S=64: sweeping 4 instances" in out and "best instance" in out
     assert list(json.load(open(cache))["cpu"]) == ["128:64:1:64:0:0:1:1"]
     # the double block's layout: txt rows, img rows, concept rows
     autotune.main(["--seq", "70", "--txt_len", "8", "--concepts", "3", "--heads", "1",

@@ -958,9 +958,13 @@ def test_ring_kernel_on_batch_and_head_sliced_rings(dev):
 # K1 at head dim 128 through each compiled instance (FLASH_D128_INSTANCES):
 # B1 H24 at flux-schnell's double block at 1024² with 3 concepts, its single
 # block (no concept rows), the eval path's double block at 512² with 6
-# concepts, and the double block with 5 pad rows past its concepts.
-INSTANCE_SHAPES = {"double": (4355, 256, 4096, 3), "single": (4352, 4352, 0, 0),
-                   "eval": (1286, 256, 1024, 6), "padded": (4360, 256, 4096, 3)}
+# concepts, the double block with 5 pad rows past its concepts (a ragged
+# last query tile), the eval double block at B4, and a HunyuanVideo-like
+# double block (32 text rows, 4 concept rows) cut to 3108 rows: (B, S, txt,
+# img, concepts).
+INSTANCE_SHAPES = {"double": (1, 4355, 256, 4096, 3), "single": (1, 4352, 4352, 0, 0),
+                   "eval": (1, 1286, 256, 1024, 6), "padded": (1, 4360, 256, 4096, 3),
+                   "eval_b4": (4, 1286, 256, 1024, 6), "hunyuan_like": (1, 3108, 32, 3072, 4)}
 
 
 @pytest.mark.parametrize("shape", list(INSTANCE_SHAPES))
@@ -969,11 +973,11 @@ def test_hopper_flash_instance_matches_plain(dev, instance, shape):
     """Each D=128 instance holds to the plain version on the joint and the
     concept rows, each against its own limit; pad rows are exact zeros; the
     instance's own counter moves by one and no other instance's does."""
-    s, t, p, c = INSTANCE_SHAPES[shape]
+    b, s, t, p, c = INSTANCE_SHAPES[shape]
     gen = torch.Generator(dev).manual_seed(31)
-    q, k, v = (torch.randn(1, 24, s, 128, generator=gen, device=dev) for _ in range(3))
+    q, k, v = (torch.randn(b, 24, s, 128, generator=gen, device=dev) for _ in range(3))
     args = ((3 * q).bfloat16(), k.bfloat16(), v.bfloat16(), t, p, c, True, True,
-            *rope_tables(gen, 1, s, 128, dev))
+            *rope_tables(gen, b, s, 128, dev))
     before = list(fs.fused_concept_flash_attention_hopper.instance_launches)
     got = fs.fused_concept_flash_attention_hopper(*args, instance=instance)
     torch.cuda.synchronize()
@@ -986,6 +990,78 @@ def test_hopper_flash_instance_matches_plain(dev, instance, shape):
             err = (got[:, :, rows].float() - want[:, :, rows].float()).abs().max().item()
             assert err <= bf16_limit(want[:, :, rows])
     assert torch.count_nonzero(got[:, :, t + p + c:]).item() == 0
+
+
+def plain_rows(args, rows):
+    """`fused_concept_flash_attention_plain` at query `rows` alone (every
+    head), with its rounding points: its [S, S] scores do not fit at S of
+    67k. -> [B, H, len(rows), D]."""
+    q, k, v, t, p, c, cross, self_attention, cos, sin = args
+    qr, kr = fs.rope_qk_rows_plain(q, k, cos, sin)
+    kj = torch.arange(q.shape[2], device=q.device)[None]
+    qi = rows[:, None]
+    concept_keys = torch.zeros_like(kj, dtype=torch.bool)
+    if cross:
+        concept_keys = concept_keys | ((kj >= t) & (kj < t + p))
+    if self_attention:
+        concept_keys = concept_keys | ((kj >= t + p) & (kj < t + p + c))
+    allowed = ((qi < t + p) & (kj < t + p)) | ((qi >= t + p) & (qi < t + p + c) & concept_keys)
+    scores = qr[:, :, rows].float() @ kr.float().transpose(-1, -2)
+    scores = scores.masked_fill(~allowed, fs.NEG_INF)
+    pm = torch.exp2(scores - scores.amax(dim=-1, keepdim=True)).masked_fill(~allowed, 0.0)
+    l = pm.sum(dim=-1, keepdim=True)
+    acc = pm.to(v.dtype).float() @ v.float()
+    return (acc / torch.where(l == 0, torch.ones_like(l), l)).to(v.dtype)
+
+
+# The default D=128 instance's calls: flux's double and single blocks
+# (B1 H24), and HunyuanVideo's double (32 text rows, 4 concepts) and single
+# blocks at their full 67k rows on heads 0-1: (H, S, txt, img, concepts).
+DEFAULT_SHAPES = {"flux_double": (24, 4355, 256, 4096, 3),
+                  "flux_single": (24, 4352, 4352, 0, 0),
+                  "hunyuan_double": (2, 67356, 32, 67320, 4),
+                  "hunyuan_single": (2, 67352, 67352, 0, 0)}
+
+
+@pytest.mark.parametrize("shape", list(DEFAULT_SHAPES))
+def test_default_d128_instance_takes_the_call(dev, shape):
+    """Without a tuned entry K1's entry point launches the default instance
+    (the register-reallocating overlap, instance 3): its slot of
+    `instance_launches` moves by one a call and no other does, twice. Its
+    output holds to the plain version at the first 512 rows (the text rows
+    of a double block), 512 rows from the middle of the joint rows and the
+    concept rows, each against its own limit."""
+    h, s, t, p, c = DEFAULT_SHAPES[shape]
+    default = fs.D128_DEFAULT_INSTANCE
+    assert fs.FLASH_D128_INSTANCES[default] == "<128, 128, 192, 2, overlap wide, 1>"
+    saved, flag = dict(fs._TUNED_TILES), fs._tile_cache_loaded
+    fs._TUNED_TILES.clear()
+    fs._tile_cache_loaded = True
+    try:
+        gen = torch.Generator(dev).manual_seed(34)
+        q, k, v = (torch.randn(1, h, s, 128, generator=gen, device=dev) for _ in range(3))
+        args = ((3 * q).bfloat16(), k.bfloat16(), v.bfloat16(), t, p, c, True, True,
+                *rope_tables(gen, 1, s, 128, dev))
+        del q, k, v
+        for _ in range(2):
+            before = list(fs.fused_concept_flash_attention_hopper.instance_launches)
+            got = fs.fused_concept_flash_attention(*args)
+            torch.cuda.synchronize()
+            after = fs.fused_concept_flash_attention_hopper.instance_launches
+            assert [a - b for a, b in zip(after, before)] == [
+                int(i == default) for i in range(len(fs.FLASH_D128_INSTANCES))]
+        mid = (t + p) // 2
+        for rows in (torch.arange(0, min(t, 512)), torch.arange(mid, mid + 512),
+                     torch.arange(t + p, s)):
+            if len(rows):
+                rows = rows.to(dev)
+                want = plain_rows(args, rows)
+                err = (got[:, :, rows].float() - want.float()).abs().max().item()
+                assert err <= bf16_limit(want)
+    finally:
+        fs._TUNED_TILES.clear()
+        fs._TUNED_TILES.update(saved)
+        fs._tile_cache_loaded = flag
 
 
 @pytest.mark.parametrize("d,instance", [(128, len(fs.FLASH_D128_INSTANCES)), (128, -1),
@@ -1008,7 +1084,7 @@ def test_hopper_flash_instance_outside_the_compiled_set_raises(dev, d, instance)
 def test_tuned_overlay_picks_the_instance(dev):
     """A call of the workload the overlay names (head dim, S, B x H, the
     segments and the mask mode) launches that instance; a call of another
-    S, or of the same S with other segments, launches instance 0."""
+    S, or of the same S with other segments, launches the default one."""
     from conceptattention_torch.kernels.autotune import register_tuned_tiles
 
     saved, flag = dict(fs._TUNED_TILES), fs._tile_cache_loaded
@@ -1016,8 +1092,9 @@ def test_tuned_overlay_picks_the_instance(dev):
     try:
         register_tuned_tiles(300, 2, 128, 2, segments=(40, 250, 5))
         gen = torch.Generator(dev).manual_seed(33)
-        for s, segments, want in ((300, (40, 250, 5), 2), (310, (40, 250, 5), 0),
-                                  (300, (300, 0, 0), 0)):
+        default = fs.D128_DEFAULT_INSTANCE
+        for s, segments, want in ((300, (40, 250, 5), 2), (310, (40, 250, 5), default),
+                                  (300, (300, 0, 0), default)):
             q, k, v = (torch.randn(1, 2, s, 128, generator=gen, device=dev).bfloat16()
                        for _ in range(3))
             args = (q, k, v, *segments, True, True, *rope_tables(gen, 1, s, 128, dev))
@@ -1088,7 +1165,7 @@ def test_graphed_forward_replay_equals_eager(dev):
 def test_graphed_forward_replay_moves_launch_counts(dev):
     """A replay adds the launches its graph holds to kernels.launch_counts,
     the same as an eager forward's: one K1 launch a block, all of them
-    instance 0 at head dim 128."""
+    the default instance at head dim 128."""
     from conceptattention_torch.kernels import launch_counts
     from conceptattention_torch.models.flux.dit import flux_forward, make_jitted_forward
 
@@ -1107,9 +1184,10 @@ def test_graphed_forward_replay_moves_launch_counts(dev):
         eager = delta(lambda: flux_forward(params, cfg, **inputs))
     replayed = delta(lambda: fwd(params, **inputs))
     blocks = cfg.depth + cfg.depth_single_blocks
-    instance0 = f"flash_saliency (Hopper D=128 instance 0 {fs.FLASH_D128_INSTANCES[0]})"
+    default = fs.D128_DEFAULT_INSTANCE
+    taken = f"flash_saliency (Hopper D=128 instance {default} {fs.FLASH_D128_INSTANCES[default]})"
     assert replayed == eager == replay.launches
-    assert replayed["flash_saliency"] == replayed[instance0] == blocks
+    assert replayed["flash_saliency"] == replayed[taken] == blocks
 
 
 def test_device_trace_sees_the_card_after_graph_replays(dev, tmp_path):
